@@ -1,0 +1,500 @@
+"""Primal-dual affine scaling with the block-eliminated KKT Newton step.
+
+Counterpart of ``cholesky_is_magic_tpu/solvers/pdas.py`` on dense operands
+(reference: primal-dual-affine-scaling.lisp): bound clamping and widening,
+the make-pdas initialization, row equilibration, the violation vector,
+repair iterations, the stalled-step recenter with dual perturbation,
+separate primal/dual ratio tests, Mehrotra's predictor-corrector, best-
+iterate tracking and the stall/bounce exits.
+
+The JAX package runs the solve as one jitted ``lax.while_loop``; here it is
+an eager host loop over device tensors with the same carry and the same
+status codes.  The loop condition is read on the host once per iteration,
+and the dbound retry (ops.dense) once per factorization.  One scaled
+normal factorization per iteration serves the repair, recenter and Newton
+branches alike (pdas.py:546-559 of the reference package).
+
+Gondzio's correctors are not reachable from ``api.solve`` and are not
+ported: ``gondzio_correctors > 0`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
+from cholesky_is_magic_tpu_torch.kkt.newton import (
+    FILTER_THRESHOLD,
+    kkt_backsub,
+    kkt_reduce,
+)
+from cholesky_is_magic_tpu_torch.solvers.affine import (
+    _centering_direction,
+    _into_interior,
+    _max_step,
+    _slack,
+)
+from cholesky_is_magic_tpu_torch.solvers.backend import (
+    _dense_only,
+    mv_rmv as _mv_rmv,
+    prepare_normal_backend as _prepare_normal_backend,
+    row_boost as _row_boost,
+)
+from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
+from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
+
+
+@dataclasses.dataclass(frozen=True)
+class PDASConfig:
+    """The JAX package's PDASConfig, field for field but for Gondzio's
+    tuning (its comments carry the rationale and measurements of each
+    knob)."""
+
+    clamp: float = 1e8  # *clamp* (:37)
+    gamma: float = 0.9  # step damping (:377)
+    gap_tol: float = 1e-4  # stopping gap (:394)
+    primal_feasible_tol: float = 1e-2  # repair trigger (:333)
+    stall_step: float = 1e-6  # repair-flag trigger (:393)
+    repair_floor: float = 1e-4  # x floor after repair (:285-287)
+    repair_slack_cap: float = 1e4  # slack cap in repair/recenter (:273,354)
+    max_iters: int = 300
+    refine_steps: int = 1
+    # Singular-retry diagonal floor relative to max(diag N); 0 disables.
+    dbound: float = 1e-6
+    # > 0: flexible-PCG refinement with that many iterations (ops.krylov).
+    krylov_steps: int = 0
+    # With krylov_steps > 0: PCG only while the relative gap is below this.
+    krylov_gate_gap: float = 0.0
+    # Mehrotra predictor-corrector on the shared factorization.
+    mehrotra: bool = False
+    # Gondzio correctors: not ported (> 0 raises; their tuning fields are
+    # left out until they are).
+    gondzio_correctors: int = 0
+    # Step damping of the Mehrotra corrector step.
+    mehrotra_gamma: float = 0.99
+    # Dense factor/solve kernel: only "direct" is ported.
+    factor_method: str = "direct"
+    # Record per-iteration (gap, pobj, step) into result.extra["trace"].
+    record_trace: bool = False
+    # Additionally record the pre-step primal iterate x each iteration.
+    record_iterates: bool = False
+    # Stop when the best-seen gap has not improved for this many iterations.
+    stall_exit_iters: int = 40
+    # Bounce exit: after best_gap < floor, exit once gap > ratio*best_gap.
+    bounce_exit_ratio: float = 0.0
+    bounce_exit_floor: float = 1e-5
+    # Entry min-norm repair (pdas_dd only); 0 disables.
+    entry_repair_tol: float = 0.0
+    entry_repair_refines: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class PDASState:
+    x: torch.Tensor  # primal
+    y: torch.Tensor  # equality duals
+    w: torch.Tensor  # upper-bound duals (> 0)
+    z: torch.Tensor  # lower-bound duals (> 0)
+    lp: Optional[DeviceLP]  # clamped/widened bounds, equilibrated (A, b)
+
+
+def push_interior(x, l, u, mask, delta):
+    """Pull x at least ``delta`` inside [l, u] (absolute, capped at the
+    interval width; intervals narrower than 2*delta center) — the warm-start
+    push for a warm point from a nearby LP."""
+    margin = delta * torch.clamp_max(u - l, 1.0)
+    xi = torch.clamp(x, l + margin, u - margin)
+    xi = torch.where(u - l < 2 * margin, 0.5 * (l + u), xi)
+    return torch.where(mask, xi, x)
+
+
+def make_pdas(
+    lp: DeviceLP,
+    config: Optional[PDASConfig] = None,
+    warm: Optional[PDASState] = None,
+    warm_push: float = 0.0,
+    warm_blend: float = 0.0,
+) -> PDASState:
+    """Construct the primal-dual state (make-pdas, :75-133): row
+    equilibration, bound clamp/widening, primal init from the raw bounds,
+    dual init from sign(c).  ``warm`` restarts from a prior state's
+    iterates; ``warm_blend`` mixes the cold init into them and
+    ``warm_push`` re-opens their bound slacks."""
+    cfg = config or PDASConfig()
+    mask = lp.col_mask
+
+    # Row equilibration (scale-constraints, :50-73): padded rows -> scale 1.
+    row_max = torch.max(torch.abs(lp.A), dim=1).values
+    scale = torch.where(
+        row_max < 1e-6, 1.0, 1.0 / torch.where(row_max == 0, 1.0, row_max)
+    )
+    A = lp.A * scale[:, None]
+    b = lp.b * scale
+
+    raw_l, raw_u = lp.l, lp.u  # +/-1e30-encoded "infinities"
+    l = torch.clamp(raw_l, -cfg.clamp, cfg.clamp)
+    u = torch.clamp(raw_u, -cfg.clamp, cfg.clamp)
+    degenerate = mask & ((u - l) < 1e-6)
+    l = torch.where(degenerate, l - 5e-7, l)
+    u = torch.where(degenerate, u + 5e7, u)
+    l = torch.where(mask, l, lp.l)
+    u = torch.where(mask, u, lp.u)
+
+    # Primal init from the raw bounds (:98-107; thresholds 1e10 then 1e6).
+    delta = raw_u - raw_l
+    x = torch.where(
+        (raw_l < -1e10) & (raw_u > 1e10),
+        0.0,
+        torch.where(
+            raw_l < -1e6,
+            raw_u - torch.minimum(delta / 2, 1.0 + 0.1 * torch.abs(raw_u)),
+            torch.where(
+                raw_u > 1e6,
+                raw_l + torch.minimum(delta / 2, 1.0 + 0.1 * torch.abs(raw_l)),
+                (raw_l + raw_u) / 2,
+            ),
+        ),
+    )
+    x = torch.where(mask, x, 0.0)
+
+    # Dual init from sign(c) (:109-118); padded cols have c = 0 -> (1, 1).
+    c = lp.c
+    z = torch.where(c > 0, 1.0 + c, 1.0)
+    w = torch.where(c < 0, 1.0 - c, 1.0)
+
+    new_lp = dataclasses.replace(lp, A=A, b=b, l=l, u=u)
+    if warm is not None:
+        wx = warm.x
+        wy, ww, wz = warm.y, warm.w, warm.z
+        if warm_blend > 0.0:
+            bl = warm_blend
+            wx = (1 - bl) * wx + bl * x
+            wy = (1 - bl) * wy + bl * torch.zeros_like(b)
+            ww = (1 - bl) * ww + bl * w
+            wz = (1 - bl) * wz + bl * z
+        if warm_push > 0.0:
+            wx = push_interior(wx, l, u, mask, warm_push)
+        x = _into_interior(wx, l, u, mask)
+        return PDASState(
+            x=x,
+            y=wy,
+            w=torch.clamp_min(ww, 1e-8),
+            z=torch.clamp_min(wz, 1e-8),
+            lp=new_lp,
+        )
+    return PDASState(x=x, y=torch.zeros_like(b), w=w, z=z, lp=new_lp)
+
+
+def _slack_floor(dtype) -> float:
+    """Smallest slack the KKT scaling may see (~eps^1.75)."""
+    return 1e-14 if dtype == torch.float64 else 1e-7
+
+
+def _violation(state: PDASState):
+    """Slacks, complementarities, primal and dual residuals (:135-150),
+    masked so padded entries are inert (sl = su = 1, rest 0)."""
+    lp = state.lp
+    mv, rmv = _mv_rmv(lp)
+    mask = lp.col_mask
+    floor = _slack_floor(state.x.dtype)
+    sl = torch.where(mask, torch.clamp_min(state.x - lp.l, floor), 1.0)
+    su = torch.where(mask, torch.clamp_min(lp.u - state.x, floor), 1.0)
+    wu = torch.where(mask, state.w * su, 0.0)
+    zl = torch.where(mask, state.z * sl, 0.0)
+    primal = mv(state.x) - lp.b
+    dual = torch.where(mask, (rmv(state.y) + state.z) - (state.w + lp.c), 0.0)
+    return sl, su, wu, zl, primal, dual
+
+
+def _objectives(state: PDASState, clamp: float = 1e8):
+    """pobj = c·x; dobj = b·y + l·z - u·w (:325-328), with bounds at the
+    +/-clamp encoding of infinity contributing nothing."""
+    lp = state.lp
+    mask = lp.col_mask
+    pobj = torch.dot(state.x, lp.c)
+    z_active = mask & (lp.l > -0.999 * clamp)
+    w_active = mask & (lp.u < 0.999 * clamp)
+    dobj = (
+        torch.dot(lp.b, state.y)
+        + torch.sum(torch.where(z_active, lp.l * state.z, 0.0))
+        - torch.sum(torch.where(w_active, lp.u * state.w, 0.0))
+    )
+    return pobj, dobj
+
+
+def _box_step(sl, su, dx):
+    """Largest t with slacks staying positive under x -= t*dx (:166-180)."""
+    inf = torch.tensor(float("inf"), dtype=dx.dtype, device=dx.device)
+    lim = torch.where(dx > 0, sl / dx, torch.where(dx < 0, su / (-dx), inf))
+    return torch.min(torch.clamp_min(lim, 0.0))
+
+
+def _pos_step(v, dv):
+    """Largest t with v - t*dv >= 0 (:182-192)."""
+    inf = torch.tensor(float("inf"), dtype=dv.dtype, device=dv.device)
+    lim = torch.where(dv > 0, v / dv, inf)
+    return torch.min(torch.clamp_min(lim, 0.0))
+
+
+def _check_config(cfg: PDASConfig) -> None:
+    if cfg.gondzio_correctors > 0:
+        raise NotImplementedError("Gondzio correctors are not ported")
+
+
+def pdas(
+    state: PDASState,
+    config: Optional[PDASConfig] = None,
+    engine=None,
+    mesh=None,
+) -> SolveResult:
+    """The solver loop (pdas, :385-396): iterate until the relative duality gap
+    < gap_tol at a primal-feasible iterate, arming the recenter path
+    whenever the step stalls below 1e-6.  Dense operands only: ``engine``
+    and ``mesh`` raise."""
+    cfg = config or PDASConfig()
+    _dense_only(engine, mesh)
+    _check_config(cfg)
+    return _pdas_loop(state, cfg)
+
+
+def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig):
+    """one-pdas-iteration (:319-383). Returns (new_st, gap, pviol, step, ok).
+
+    Repair, recenter and Newton all reduce to ONE scaled normal solve
+    (A·diag(s))(A·diag(s))ᵀ y = rhs with a branch-selected (s, rhs)."""
+    lp = st.lp
+    sl, su, wu, zl, primal, dual = _violation(st)
+    pobj, dobj = _objectives(st, cfg.clamp)
+    gap = torch.abs(pobj - dobj) / torch.clamp_min(
+        torch.maximum(torch.abs(pobj), torch.abs(dobj)), 1.0
+    )
+    pviol = torch.max(torch.abs(primal))
+    repair_b = pviol >= cfg.primal_feasible_tol
+    recenter_b = (~repair_b) & repair_flag
+    newton_b = ~(repair_b | recenter_b)
+
+    mask = lp.col_mask
+    mv, rmv = _mv_rmv(lp)
+    boost = _row_boost(lp)
+    slack = _slack(lp.l, st.x, lp.u, cfg.repair_slack_cap, mask)
+    red = kkt_reduce(sl, su, st.w, st.z, wu, zl, dual)
+    c_dir = _centering_direction(lp.l, st.x, lp.u, mask)
+    sc = -(slack * c_dir)
+
+    s_sel = torch.where(newton_b, red.s, slack)
+    rhs_sel = torch.where(
+        repair_b,
+        -primal,  # b - Ax (one-repair-iteration residual)
+        torch.where(recenter_b, mv(slack * sc), primal - mv(red.alpha)),
+    )
+    gate = None
+    if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
+        gate = gap < cfg.krylov_gate_gap
+    solve_fn, ok = _prepare_normal_backend(
+        lp, None, s_sel, boost, cfg.refine_steps, None,
+        cfg.dbound, cfg.krylov_steps, krylov_gate=gate,
+        method=cfg.factor_method,
+    )
+    y = solve_fn(rhs_sel)
+    ty = rmv(y)
+
+    # --- newton branch updates (:367-379) ---
+    d = kkt_backsub(red, sl, su, st.w, st.z, wu, zl, y, ty, ok)
+    # Ratio tests on the TRUE slacks (not the floored ones).
+    sl_t = torch.where(mask, st.x - lp.l, 1.0)
+    su_t = torch.where(mask, lp.u - st.x, 1.0)
+    gamma_n = cfg.gamma
+    if cfg.mehrotra:
+        # Mehrotra corrector on the SAME factorization; selected out on the
+        # repair/recenter branches.  Present-bound sets mask padded columns.
+        pu = (su <= FILTER_THRESHOLD) & mask
+        pl = (sl <= FILTER_THRESHOLD) & mask
+        t_aff = torch.clamp_max(
+            torch.minimum(
+                _box_step(sl_t, su_t, d.dx),
+                torch.minimum(_pos_step(st.w, d.dw), _pos_step(st.z, d.dz)),
+            ),
+            1.0,
+        )
+        cnt = torch.clamp_min(torch.sum(pu) + torch.sum(pl), 1).to(sl.dtype)
+        mu = (
+            torch.sum(torch.where(pu, wu, 0.0))
+            + torch.sum(torch.where(pl, zl, 0.0))
+        ) / cnt
+        wn = st.w - t_aff * d.dw
+        sun = su + t_aff * d.dx
+        zn = st.z - t_aff * d.dz
+        sln = sl - t_aff * d.dx
+        mu_aff = torch.clamp_min(
+            (
+                torch.sum(torch.where(pu, wn * sun, 0.0))
+                + torch.sum(torch.where(pl, zn * sln, 0.0))
+            ) / cnt,
+            0.0,
+        )
+        tiny = torch.finfo(sl.dtype).tiny
+        sigma = torch.clamp((mu_aff / torch.clamp_min(mu, tiny)) ** 3, 0.0, 1.0)
+        target = sigma * mu
+        de = torch.where(pu, -d.dw * d.dx - target, 0.0)
+        df = torch.where(pl, d.dz * d.dx - target, 0.0)
+        red2 = kkt_reduce(sl, su, st.w, st.z, wu + de, zl + df, dual)
+        y2 = solve_fn(primal - mv(red2.alpha))
+        d2 = kkt_backsub(
+            red2, sl, su, st.w, st.z, wu + de, zl + df, y2, rmv(y2), ok
+        )
+        d = type(d)(*(torch.where(newton_b, c, a) for a, c in zip(d, d2)))
+        gamma_n = cfg.mehrotra_gamma
+    step_n = torch.minimum(
+        _box_step(sl_t, su_t, d.dx),
+        torch.minimum(_pos_step(st.w, d.dw), _pos_step(st.z, d.dz)),
+    )
+    t = torch.clamp_max(gamma_n * step_n, 1.0)
+    x_n = _into_interior(st.x - t * d.dx, lp.l, lp.u, mask)
+    w_n, y_n, z_n = st.w - t * d.dw, st.y - t * d.dy, st.z - t * d.dz
+
+    # --- repair branch updates (one-repair-iteration :268-288) ---
+    g_r = torch.where(mask, slack * ty, 0.0) * slack
+    step_r = cfg.gamma * torch.clamp_max(
+        _max_step(lp.l, st.x, lp.u, g_r, mask), 1.0 / cfg.gamma
+    )
+    floor = torch.minimum(lp.l + cfg.repair_floor, lp.u)
+    x_r = torch.where(mask, torch.maximum(st.x + step_r * g_r, floor), st.x)
+    x_r = torch.where(ok, _into_interior(x_r, lp.l, lp.u, mask), st.x)
+
+    # --- recenter branch updates (:348-366) ---
+    dx_rc = torch.where(mask, sc - slack * ty, 0.0) * slack
+    step_c = 0.5 * _max_step(lp.l, st.x, lp.u, dx_rc, mask)
+    x_c = torch.where(
+        ok, _into_interior(st.x + step_c * dx_rc, lp.l, lp.u, mask), st.x
+    )
+    maskf = mask.to(st.w.dtype)
+    w_c, z_c = st.w + 1e-4 * maskf, st.z + 1e-4 * maskf
+
+    inf = torch.tensor(float("inf"), dtype=st.x.dtype, device=st.x.device)
+    new = dataclasses.replace(
+        st,
+        x=torch.where(newton_b, x_n, torch.where(repair_b, x_r, x_c)),
+        w=torch.where(newton_b, w_n, torch.where(recenter_b, w_c, st.w)),
+        y=torch.where(newton_b, y_n, st.y),
+        z=torch.where(newton_b, z_n, torch.where(recenter_b, z_c, st.z)),
+    )
+    return new, gap, pviol, torch.where(newton_b, step_n, inf), ok
+
+
+def _bounced(cfg: PDASConfig, gap, best_gap):
+    """Bounce exit (PDASConfig.bounce_exit_ratio)."""
+    if cfg.bounce_exit_ratio <= 0.0:
+        return torch.zeros((), dtype=torch.bool, device=gap.device)
+    return (best_gap < cfg.bounce_exit_floor) & (
+        gap > cfg.bounce_exit_ratio * best_gap
+    )
+
+
+def _new_trace(cfg: PDASConfig, n: int, dtype, device, n_iterates: int):
+    """NaN-filled (gap, objective, step[, iterate columns...]) buffers."""
+    rows = cfg.max_iters if (cfg.record_trace or cfg.record_iterates) else 0
+    trace = [torch.full((rows,), float("nan"), dtype=dtype, device=device)
+             for _ in range(3)]
+    if cfg.record_iterates:
+        trace += [torch.full((cfg.max_iters, n), float("nan"), dtype=dtype,
+                             device=device) for _ in range(n_iterates)]
+    return trace
+
+
+@highest_precision
+def _pdas_loop(state: PDASState, cfg: PDASConfig) -> SolveResult:
+    lp = state.lp
+    dt, dev = state.x.dtype, state.x.device
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    running = torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev)
+    singular = torch.tensor(Status.SINGULAR, dtype=torch.int32, device=dev)
+    trace = _new_trace(cfg, state.x.shape[0], dt, dev, 1)
+
+    st = state
+    i = 0
+    repair_flag = torch.zeros((), dtype=torch.bool, device=dev)
+    gap, pviol, best_gap = inf, inf, inf
+    bad_count = torch.zeros((), dtype=torch.int32, device=dev)
+    since_best = torch.zeros((), dtype=torch.int32, device=dev)
+    status = running
+    best_st = (st.x, st.y, st.w, st.z)
+
+    def keep_going():
+        # The duality-gap stop only counts at a primal-feasible iterate.
+        converged = (gap < cfg.gap_tol) & (pviol < cfg.primal_feasible_tol)
+        return bool(
+            ~converged
+            & (status == Status.RUNNING)
+            & (since_best < cfg.stall_exit_iters)
+            & ~_bounced(cfg, gap, best_gap)
+        )
+
+    while i < cfg.max_iters and keep_going():
+        new_st, gap_i, pviol, step, ok = _one_iteration(st, repair_flag, cfg)
+        if cfg.record_trace or cfg.record_iterates:
+            vals = [gap_i, torch.dot(st.x, lp.c), step]
+            if cfg.record_iterates:
+                vals.append(st.x)
+            for buf, v in zip(trace, vals):
+                buf[i] = v
+        # Feasibility-gated best-iterate tracking of the PRE-step state.
+        improved = (gap_i < best_gap) & (pviol < cfg.primal_feasible_tol)
+        best_st = tuple(
+            torch.where(improved, c, b)
+            for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
+        )
+        best_gap = torch.where(improved, gap_i, best_gap)
+        since_best = torch.where(improved, 0, since_best + 1).to(torch.int32)
+        stalled = torch.isfinite(step) & (step < cfg.stall_step)  # :393
+        # Divergence detector: 4 consecutive gap increases arm the recenter.
+        grew = torch.isfinite(step) & (gap_i > gap)
+        bad_count = torch.where(grew, bad_count + 1, 0).to(torch.int32)
+        repair_flag = stalled | (bad_count >= 4)
+        bad_count = torch.where(repair_flag, 0, bad_count).to(torch.int32)
+        status = torch.where(ok, running, singular)
+        st, gap, i = new_st, gap_i, i + 1
+
+    # Return the best-seen iterate (<=: on convergence `gap` belongs to the
+    # pre-step iterate recorded as best, the carry to the post-step one).
+    use_best = best_gap <= gap
+    bx, by, bw, bz = (
+        torch.where(use_best, b, c)
+        for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
+    )
+    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
+    exit_bounced = _bounced(cfg, gap, best_gap)  # on the PRE-min exit gap
+    gap = torch.minimum(best_gap, gap)
+    pobj, dobj = _objectives(st, cfg.clamp)
+    mv_f, _ = _mv_rmv(lp)
+    primal_final = mv_f(st.x) - lp.b
+    resid = torch.linalg.norm(primal_final)
+    feasible = torch.max(torch.abs(primal_final)) < cfg.primal_feasible_tol
+    final_status = torch.where(
+        status != Status.RUNNING,
+        status,
+        torch.where(
+            (gap < cfg.gap_tol) & feasible,
+            Status.OPTIMAL,
+            torch.where(
+                (since_best >= cfg.stall_exit_iters) | exit_bounced,
+                Status.PRECISION_FLOOR,
+                Status.MAX_ITERS,
+            ),
+        ),
+    ).to(torch.int32)
+    return SolveResult(
+        x=st.x,
+        objective=pobj,
+        status=final_status,
+        iterations=torch.tensor(i, dtype=torch.int32),
+        residual_norm=resid,
+        extra={
+            "gap": gap, "dual_objective": dobj, "y": st.y, "w": st.w, "z": st.z,
+            "trace": {
+                "gap": trace[0], "objective": trace[1], "step": trace[2],
+                **({"x": trace[3]} if cfg.record_iterates else {}),
+            },
+        },
+    )

@@ -1,0 +1,534 @@
+"""Double-word-state PDAS: 1e-8 duality gaps on f32 hardware.
+
+Counterpart of ``cholesky_is_magic_tpu/solvers/pdas_dd.py`` on dense
+operands.  The iterates x, y, w, z live in double-word form; the Newton
+right-hand sides (slacks, complementarities, primal and dual residuals)
+are evaluated in double-word, the A-products through the CUDA double-word
+kernels on the card; only the Cholesky factorization runs in f32, and the
+direction gets an outer double-word refinement on the recycled factor.
+Updates accumulate error-free: state <- dd(state) - t * dx.
+
+As in :mod:`.pdas`, the jitted ``lax.while_loop`` is an eager host loop
+with the same carry and status codes, and ``lax.cond`` (the entry repair)
+a Python branch.  Gondzio correctors raise (see :mod:`.pdas`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
+from cholesky_is_magic_tpu_torch.kkt.newton import FILTER_THRESHOLD, dense_kkt_operator
+from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.ops.dd import DD
+from cholesky_is_magic_tpu_torch.solvers.affine import _slack
+from cholesky_is_magic_tpu_torch.solvers.backend import _dense_only
+from cholesky_is_magic_tpu_torch.solvers.pdas import (
+    PDASConfig,
+    PDASState,
+    _bounced,
+    _check_config,
+    _new_trace,
+    make_pdas,
+)
+from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
+from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
+
+
+@dataclasses.dataclass(frozen=True)
+class PDASDDState:
+    """PDAS state with double-word iterates."""
+
+    x: DD
+    y: DD
+    w: DD
+    z: DD
+    lp: DeviceLP
+
+
+def make_pdas_dd(
+    lp: DeviceLP,
+    config: Optional[PDASConfig] = None,
+    warm=None,
+    recenter_duals: bool = True,
+    warm_push: float = 0.0,
+    warm_blend: float = 0.0,
+) -> PDASDDState:
+    """Promote the standard initialization to double-word.
+
+    ``warm`` restarts from prior iterates — a PDASState, or a pdas()
+    SolveResult (its x plus the y/w/z in extra): the pdas -> pdas_dd
+    finisher flow.  ``recenter_duals`` (warm starts only, skipped when
+    ``warm_blend`` > 0) resets the bound duals to the complementarity-
+    balanced point w = mu/su, z = mu/sl.
+    """
+    if isinstance(warm, SolveResult):
+        warm = PDASState(
+            x=warm.x, y=warm.extra["y"], w=warm.extra["w"], z=warm.extra["z"],
+            lp=None,
+        )
+    st = make_pdas(lp, config, warm=warm, warm_push=warm_push,
+                   warm_blend=warm_blend)
+    w, z = st.w, st.z
+    if warm is not None and recenter_duals and warm_blend == 0.0:
+        w, z = mu_recentered_duals(st.x, st.lp.l, st.lp.u, w, z, st.lp.col_mask)
+    return PDASDDState(
+        x=ddm.dd_from(st.x),
+        y=ddm.dd_from(st.y),
+        w=ddm.dd_from(w),
+        z=ddm.dd_from(z),
+        lp=st.lp,
+    )
+
+
+def mu_recentered_duals(x, l, u, w, z, mask):
+    """Complementarity-balanced dual reset (see make_pdas_dd): w = mu/su,
+    z = mu/sl with mu the average complementarity over present bounds."""
+    floor = 1e-7 if x.dtype == torch.float32 else 1e-14
+    sl = torch.where(mask, torch.clamp_min(x - l, floor), 1.0)
+    su = torch.where(mask, torch.clamp_min(u - x, floor), 1.0)
+    pu = mask & (su <= FILTER_THRESHOLD)
+    pl = mask & (sl <= FILTER_THRESHOLD)
+    terms = torch.sum(torch.where(pu, w * su, 0.0)) + torch.sum(
+        torch.where(pl, z * sl, 0.0)
+    )
+    count = torch.clamp_min(torch.sum(pu) + torch.sum(pl), 1)
+    mu = torch.clamp_min(terms / count, 1e-12)
+    w = torch.where(mask, torch.clamp(mu / su, 1e-8, 1e8), 1.0)
+    z = torch.where(mask, torch.clamp(mu / sl, 1e-8, 1e8), 1.0)
+    return w, z
+
+
+def _linops(lp):
+    """The three double-word A-products the loop needs (dense operands)."""
+    return (
+        lambda x_dd: ddm.dd_matvec_dd(lp.A, x_dd),
+        lambda y_dd: ddm.dd_rmatvec_dd(lp.A, y_dd),
+        lambda v: ddm.dd_rmatvec(lp.A, v),
+    )
+
+
+def _boost(lp):
+    # f32 even in an f64 run, as in the JAX package (promotes on use).
+    return (~lp.row_mask).to(torch.float32)
+
+
+def _make_op(lp, cfg: PDASConfig, gate):
+    """Dense KKT operator with true-residual refinement: refine against
+    the UNASSEMBLED operator in double-word, which corrects the f32
+    rounding of assembling N (otherwise a ~1e-7 direction floor)."""
+    return dense_kkt_operator(
+        lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
+        true_residual=True, dbound=cfg.dbound,
+        krylov_steps=cfg.krylov_steps, krylov_gate=gate,
+    )
+
+
+def _entry_repair(state: PDASDDState, cfg: PDASConfig):
+    """Min-norm LS correction of the entry iterate toward Ax = b in the
+    Dikin metric (PDASConfig.entry_repair_tol), all in double-word with
+    cfg.entry_repair_refines refinement passes; kept only where it reduced
+    the relative inf-norm infeasibility on a non-singular factor.
+
+    Returns (state, pviol_before, pviol_after)."""
+    lp = state.lp
+    mask = lp.col_mask
+    mv_dd, rmv_dd, _ = _linops(lp)
+    sl_dd, su_dd, *_rest, primal_dd, _dual = _dd_violation(state)
+    r0 = ddm.dd_neg(primal_dd)  # b - Ax
+    bscale = 1.0 + torch.max(torch.abs(lp.b))
+    pv0 = torch.max(torch.abs(r0.to_working())) / bscale
+    if not bool(pv0 > cfg.entry_repair_tol):
+        return state, pv0, pv0
+
+    x = state.x
+    op = _make_op(lp, cfg, None)
+    boost = _boost(lp)
+    s = _slack(lp.l, x.hi, lp.u, cfg.repair_slack_cap, mask)
+    s = torch.where(mask, s, 0.0)  # padding inert in N and in dx
+    solve_fn, ok = op.prepare_scaled_normal(s)
+    w2 = DD(s * s, torch.zeros_like(s))
+
+    def apply_dd(v: DD) -> DD:
+        t = ddm.dd_mul(w2, rmv_dd(v))
+        return ddm.dd_add_w(mv_dd(t), boost * v.to_working())
+
+    dy = ddm.dd_from(solve_fn(r0.to_working()))
+    for _ in range(cfg.entry_repair_refines):
+        rr = ddm.dd_sub(r0, apply_dd(dy))
+        dy = ddm.dd_add(dy, ddm.dd_from(solve_fn(rr.to_working())))
+    dx = ddm.dd_mul(w2, rmv_dd(dy))
+    x1 = ddm.dd_add(x, dx)
+    # Per-coordinate interior clip: keep >= 10% of each pre-repair slack.
+    lo = x.hi - 0.9 * sl_dd.to_working()
+    hi = x.hi + 0.9 * su_dd.to_working()
+    below = mask & (x1.hi < lo)
+    above = mask & (x1.hi > hi)
+    x1 = DD(
+        torch.where(below, lo, torch.where(above, hi, x1.hi)),
+        torch.where(below | above, 0.0, x1.lo),
+    )
+    r1 = ddm.dd_sub(ddm.dd_from(lp.b), mv_dd(x1))
+    pv1 = torch.max(torch.abs(r1.to_working())) / bscale
+    use = ok & (pv1 < pv0)
+    x_out = DD(torch.where(use, x1.hi, x.hi), torch.where(use, x1.lo, x.lo))
+    return dataclasses.replace(state, x=x_out), pv0, torch.where(use, pv1, pv0)
+
+
+def _dd_violation(st: PDASDDState):
+    """The PDAS violation vector (:135-150) evaluated in double-word.
+    Returns the dd slacks, their working-precision values, the
+    complementarities and the dd primal and dual residuals."""
+    lp = st.lp
+    mask = lp.col_mask
+    # Double-word slacks are good to ~eps^2: floor at 1e-12, not 1e-7.
+    floor = 1e-12
+
+    def dd_floor(v: DD, lo: float, m) -> DD:
+        bad = (v.hi <= lo) | ~m
+        return DD(
+            torch.where(bad, torch.where(m, lo, 1.0), v.hi),
+            torch.where(bad, 0.0, v.lo),
+        )
+
+    sl_dd = dd_floor(ddm.dd_add_w(st.x, -lp.l), floor, mask)
+    su_dd = dd_floor(ddm.dd_add_w(ddm.dd_neg(st.x), lp.u), floor, mask)
+    sl = torch.where(mask, sl_dd.to_working(), 1.0)
+    su = torch.where(mask, su_dd.to_working(), 1.0)
+    wu = torch.where(mask, ddm.dd_mul(st.w, su_dd).to_working(), 0.0)
+    zl = torch.where(mask, ddm.dd_mul(st.z, sl_dd).to_working(), 0.0)
+    mv_dd, rmv_dd, _ = _linops(lp)
+    primal_dd = ddm.dd_add_w(mv_dd(st.x), -lp.b)
+    aty = rmv_dd(st.y)
+    dual_dd = ddm.dd_add_w(
+        ddm.dd_add(ddm.dd_add(aty, st.z), ddm.dd_neg(st.w)), -lp.c
+    )
+    dual_dd = DD(
+        torch.where(mask, dual_dd.hi, 0.0), torch.where(mask, dual_dd.lo, 0.0)
+    )
+    return sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd
+
+
+def _dd_objectives(st: PDASDDState, clamp: float = 1e8):
+    lp = st.lp
+    mask = lp.col_mask
+    pobj = ddm.dd_add(
+        ddm.dd_dot(lp.c, st.x.hi),
+        DD(torch.dot(lp.c, st.x.lo), torch.zeros((), dtype=lp.c.dtype,
+                                                 device=lp.c.device)),
+    )
+    z_active = mask & (lp.l > -0.999 * clamp)
+    w_active = mask & (lp.u < 0.999 * clamp)
+    l_act = torch.where(z_active, lp.l, 0.0)
+    u_act = torch.where(w_active, lp.u, 0.0)
+    lz = ddm.dd_dot(l_act, st.z.hi)
+    uw = ddm.dd_dot(u_act, st.w.hi)
+    by = ddm.dd_dot(lp.b, st.y.hi)
+    dobj = ddm.dd_add(by, ddm.dd_sub(lz, uw))
+    extra = (torch.dot(l_act, st.z.lo) + torch.dot(lp.b, st.y.lo)
+             - torch.dot(u_act, st.w.lo))
+    dobj = ddm.dd_add_w(dobj, extra)
+    return pobj, dobj
+
+
+def _dd_box_step(sl_dd: DD, su_dd: DD, dx_dd: DD) -> DD:
+    """Largest t with slacks positive under x -= t*dx, in double-word."""
+    inf = DD(torch.full_like(sl_dd.hi, float("inf")), torch.zeros_like(sl_dd.hi))
+    zero = DD(torch.zeros_like(sl_dd.hi), torch.zeros_like(sl_dd.hi))
+    lim = ddm.dd_where(
+        dx_dd.hi > 0,
+        ddm.dd_div(sl_dd, dx_dd),
+        ddm.dd_where(dx_dd.hi < 0, ddm.dd_div(su_dd, ddm.dd_neg(dx_dd)), inf),
+    )
+    lim = ddm.dd_where(lim.hi < 0, zero, lim)
+    return ddm.dd_min(lim)
+
+
+def _dd_pos_step(v_dd: DD, dv_dd: DD) -> DD:
+    """Largest t with v - t*dv >= 0, in double-word."""
+    inf = DD(torch.full_like(v_dd.hi, float("inf")), torch.zeros_like(v_dd.hi))
+    zero = DD(torch.zeros_like(v_dd.hi), torch.zeros_like(v_dd.hi))
+    lim = ddm.dd_where(dv_dd.hi > 0, ddm.dd_div(v_dd, dv_dd), inf)
+    lim = ddm.dd_where(lim.hi < 0, zero, lim)
+    return ddm.dd_min(lim)
+
+
+def _dd_step(sl_dd, su_dd, st, dw_dd, dx_dd, dz_dd) -> DD:
+    """min(box step, pos step of w, pos step of z), in double-word."""
+    step = _dd_box_step(sl_dd, su_dd, dx_dd)
+    for cand in (_dd_pos_step(st.w, dw_dd), _dd_pos_step(st.z, dz_dd)):
+        step = ddm.dd_where(ddm.dd_less(cand, step), cand, step)
+    return step
+
+
+def pdas_dd(
+    state: PDASDDState,
+    config: Optional[PDASConfig] = None,
+    engine=None,
+    mesh=None,
+) -> SolveResult:
+    """Tight-gap loop: plain (or Mehrotra) Newton steps with no in-loop
+    repair/recenter, best-iterate tracking and the precision-floor exit.
+    ``config.entry_repair_tol`` optionally repairs the ENTRY iterate
+    toward Ax = b first.  Dense operands only: ``engine`` and ``mesh``
+    raise."""
+    cfg = config or PDASConfig(gap_tol=1e-8, max_iters=300)
+    _dense_only(engine, mesh)
+    _check_config(cfg)
+    return _pdas_dd_loop(state, cfg)
+
+
+def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
+    """IPM-specialized FULL double-word elimination (see the JAX package's
+    kkt_dd): with e = w∘su, f = z∘sl the eliminated terms simplify to
+    alpha = beta·(-h - w + z), an O(1) quantity whose cancellation against
+    g (O(gap)) must happen in double-word.  Every intermediate is dd; only
+    the Cholesky runs in f32, and dy gets one outer refinement against the
+    exact dd operator A·diag(beta_dd)·Aᵀ + diag(boost) on the recycled
+    factor.  With cfg.mehrotra a second solve on the SAME factor gives the
+    corrector."""
+    lp = st.lp
+    zero = torch.zeros_like(sl)
+    dd0 = DD(zero, zero)
+    pu = su <= FILTER_THRESHOLD
+    pl = sl <= FILTER_THRESHOLD
+    both_absent = ~pu & ~pl
+    use_u = pu | both_absent
+    use_l = pl | both_absent
+    a_dd = ddm.dd_where(use_u, ddm.dd_div(st.w, su_dd), dd0)
+    b_dd = ddm.dd_where(use_l, ddm.dd_div(st.z, sl_dd), dd0)
+    denom = ddm.dd_add(a_dd, b_dd)
+    denom = ddm.dd_where(
+        denom.hi < 1e-30, DD(torch.full_like(sl, 1e-30), zero), denom
+    )
+    one = DD(torch.ones_like(sl), zero)
+    beta_dd = ddm.dd_div(one, denom)
+
+    mv_dd, rmv_dd, rmv32 = _linops(lp)
+    boost = _boost(lp)
+    s32 = torch.sqrt(beta_dd.to_working())
+    solve_fn, ok = op.prepare_scaled_normal(s32)
+
+    def newton_dir(de_dd, df_dd):
+        """Direction for complementarity rhs e = w∘su + de, f = z∘sl + df."""
+        corr = ddm.dd_sub(
+            ddm.dd_where(use_l, ddm.dd_div(df_dd, sl_dd), dd0),
+            ddm.dd_where(use_u, ddm.dd_div(de_dd, su_dd), dd0),
+        )
+        base = ddm.dd_add(ddm.dd_neg(h_dd), ddm.dd_sub(st.z, st.w))
+        alpha_dd = ddm.dd_mul(ddm.dd_add(base, corr), beta_dd)
+        rhs_dd = ddm.dd_sub(g_dd, mv_dd(alpha_dd))
+        dy1 = solve_fn(rhs_dd.to_working())
+        # Outer dd refinement against the EXACT dd-beta system.
+        ty = rmv32(dy1)
+        u = ddm.dd_mul(beta_dd, ty)
+        Mu = ddm.dd_add_w(mv_dd(u), boost * dy1)
+        r = ddm.dd_sub(rhs_dd, Mu).to_working()
+        dy2 = solve_fn(r)
+        dy_dd = ddm.dd_add_w(DD(dy1, torch.zeros_like(dy1)), dy2)
+
+        t_dd = rmv_dd(dy_dd)
+        dx_dd = ddm.dd_add(alpha_dd, ddm.dd_mul(beta_dd, t_dd))
+        # dw = w + (w·dx + de)/su,  dz = z - (z·dx - df)/sl (filtered: w, z).
+        dw_dd = ddm.dd_where(
+            use_u,
+            ddm.dd_add(
+                st.w,
+                ddm.dd_div(ddm.dd_add(ddm.dd_mul(st.w, dx_dd), de_dd), su_dd),
+            ),
+            st.w,
+        )
+        dz_dd = ddm.dd_where(
+            use_l,
+            ddm.dd_sub(
+                st.z,
+                ddm.dd_div(ddm.dd_sub(ddm.dd_mul(st.z, dx_dd), df_dd), sl_dd),
+            ),
+            st.z,
+        )
+        # Padding inertness: zero the deltas on masked entries.
+        dx_dd = ddm.dd_where(lp.col_mask, dx_dd, dd0)
+        dw_dd = ddm.dd_where(lp.col_mask, dw_dd, dd0)
+        dz_dd = ddm.dd_where(lp.col_mask, dz_dd, dd0)
+        return dw_dd, dx_dd, dy_dd, dz_dd
+
+    dw_dd, dx_dd, dy_dd, dz_dd = newton_dir(dd0, dd0)
+    if not cfg.mehrotra:
+        return dw_dd, dx_dd, dy_dd, dz_dd, ok
+
+    # --- Mehrotra corrector on the shared factor, over PRESENT bounds of
+    # REAL columns only (padding would pin sigma at O(1)). ---
+    pu = pu & lp.col_mask
+    pl = pl & lp.col_mask
+    step_aff = _dd_step(sl_dd, su_dd, st, dw_dd, dx_dd, dz_dd)
+    t_aff = torch.clamp_max(step_aff.to_working(), 1.0)
+    cnt = torch.clamp_min(torch.sum(pu) + torch.sum(pl), 1).to(sl.dtype)
+    mu = (
+        torch.sum(torch.where(pu, wu, 0.0)) + torch.sum(torch.where(pl, zl, 0.0))
+    ) / cnt
+    wn = st.w.hi - t_aff * dw_dd.hi
+    sun = su + t_aff * dx_dd.hi
+    zn = st.z.hi - t_aff * dz_dd.hi
+    sln = sl - t_aff * dx_dd.hi
+    mu_aff = (
+        torch.sum(torch.where(pu, wn * sun, 0.0))
+        + torch.sum(torch.where(pl, zn * sln, 0.0))
+    ) / cnt
+    mu_aff = torch.clamp_min(mu_aff, 0.0)
+    sigma = torch.clamp((mu_aff / torch.clamp_min(mu, 1e-30)) ** 3, 0.0, 1.0)
+    target = sigma * mu
+    # Deviations from exact complementarity, in dd (gap-sized values).
+    de_dd = ddm.dd_where(
+        pu, ddm.dd_add_w(ddm.dd_neg(ddm.dd_mul(dw_dd, dx_dd)), -target), dd0
+    )
+    df_dd = ddm.dd_where(
+        pl, ddm.dd_add_w(ddm.dd_mul(dz_dd, dx_dd), -target), dd0
+    )
+    dw_dd, dx_dd, dy_dd, dz_dd = newton_dir(de_dd, df_dd)
+    return dw_dd, dx_dd, dy_dd, dz_dd, ok
+
+
+def _one_iteration(st: PDASDDState, cfg: PDASConfig):
+    lp = st.lp
+    sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd = _dd_violation(st)
+    pviol = torch.max(torch.abs(primal_dd.to_working()))
+    pobj_dd, dobj_dd = _dd_objectives(st, cfg.clamp)
+    gap_dd = ddm.dd_sub(pobj_dd, dobj_dd)
+    denom = torch.clamp_min(
+        torch.maximum(torch.abs(pobj_dd.to_working()),
+                      torch.abs(dobj_dd.to_working())),
+        1.0,
+    )
+    gap = torch.abs(gap_dd.to_working()) / denom
+
+    gate = None
+    if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
+        gate = gap < cfg.krylov_gate_gap
+    op = _make_op(lp, cfg, gate)
+    dw_dd, dx_dd, dy_dd, dz_dd, ok = _kkt_dd(
+        st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg
+    )
+    # Ratio tests in dd.
+    step_dd = _dd_step(sl_dd, su_dd, st, dw_dd, dx_dd, dz_dd)
+    gamma = cfg.mehrotra_gamma if cfg.mehrotra else cfg.gamma
+    # gamma and 1 as f32 double-words even in an f64 run, as the JAX
+    # package builds them from np.float32: the dd products below then mix
+    # an f32 split of gamma with the f64 step exactly as JAX promotes.
+    f32 = dict(dtype=torch.float32, device=sl.device)
+    ghi = np.float32(gamma)
+    gamma_dd = DD(torch.tensor(ghi, **f32),
+                  torch.tensor(np.float32(gamma - float(ghi)), **f32))
+    ts = ddm.dd_mul(gamma_dd, step_dd)
+    one = DD(torch.tensor(1.0, **f32), torch.tensor(0.0, **f32))
+    t_dd = ddm.dd_where(ddm.dd_less(one, ts), one, ts)
+    new = PDASDDState(
+        x=ddm.dd_sub(st.x, ddm.dd_mul(t_dd, dx_dd)),
+        y=ddm.dd_sub(st.y, ddm.dd_mul(t_dd, dy_dd)),
+        w=ddm.dd_sub(st.w, ddm.dd_mul(t_dd, dw_dd)),
+        z=ddm.dd_sub(st.z, ddm.dd_mul(t_dd, dz_dd)),
+        lp=lp,
+    )
+    return new, gap, pviol, step_dd.to_working(), ok
+
+
+@highest_precision
+def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig) -> SolveResult:
+    lp = state.lp
+    repair_info = {}
+    if cfg.entry_repair_tol > 0.0:
+        state, pv0, pv1 = _entry_repair(state, cfg)
+        repair_info = {"entry_repair": {"pviol_before": pv0,
+                                        "pviol_after": pv1}}
+
+    dt, dev = state.x.hi.dtype, state.x.hi.device
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    running = torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev)
+    singular = torch.tensor(Status.SINGULAR, dtype=torch.int32, device=dev)
+    # The trace is f32 even in an f64 run, as in the JAX package.
+    trace = _new_trace(cfg, state.x.hi.shape[0], torch.float32, dev, 2)
+
+    st = state
+    i = 0
+    gap, pviol, best_gap = inf, inf, inf
+    since_best = torch.zeros((), dtype=torch.int32, device=dev)
+    status = running
+    best_st = (st.x, st.y, st.w, st.z)
+
+    def keep_going():
+        # Gap stop only at a primal-feasible iterate.
+        converged = (gap < cfg.gap_tol) & (pviol < cfg.primal_feasible_tol)
+        return bool(
+            ~converged
+            & (status == Status.RUNNING)
+            & (since_best < cfg.stall_exit_iters)
+            & ~_bounced(cfg, gap, best_gap)
+        )
+
+    while i < cfg.max_iters and keep_going():
+        new_st, gap, pviol, step, ok = _one_iteration(st, cfg)
+        if cfg.record_trace or cfg.record_iterates:
+            vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
+                    step]
+            if cfg.record_iterates:
+                vals += [st.x.hi, st.x.lo]
+            for buf, v in zip(trace, vals):
+                buf[i] = v
+        # Feasibility-gated best tracking of the PRE-step state.
+        improved = (gap < best_gap) & (pviol < 1e-2)
+        best_st = tuple(
+            ddm.dd_where(improved, c, b)
+            for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
+        )
+        best_gap = torch.where(improved, gap, best_gap)
+        since_best = torch.where(improved, 0, since_best + 1).to(torch.int32)
+        status = torch.where(ok, running, singular)
+        st, i = new_st, i + 1
+
+    use_best = best_gap <= gap
+    bx, by, bw, bz = (
+        ddm.dd_where(use_best, b, c)
+        for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
+    )
+    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
+    exit_bounced = _bounced(cfg, gap, best_gap)  # on the PRE-min exit gap
+    gap = torch.minimum(best_gap, gap)
+    pobj_dd, dobj_dd = _dd_objectives(st, cfg.clamp)
+    primal = _dd_violation(st)[6].to_working()
+    final_status = torch.where(
+        status != Status.RUNNING,
+        status,
+        torch.where(
+            gap < cfg.gap_tol,
+            Status.OPTIMAL,
+            torch.where(
+                (since_best >= cfg.stall_exit_iters) | exit_bounced,
+                Status.PRECISION_FLOOR,
+                Status.MAX_ITERS,
+            ),
+        ),
+    ).to(torch.int32)
+    return SolveResult(
+        x=st.x.to_working(),
+        objective=pobj_dd.to_working(),
+        status=final_status,
+        iterations=torch.tensor(i, dtype=torch.int32),
+        residual_norm=torch.linalg.norm(primal),
+        extra={
+            "gap": gap,
+            **repair_info,
+            "dual_objective": dobj_dd.to_working(),
+            "x_lo": st.x.lo,
+            "y": st.y.to_working(),
+            "w": st.w.to_working(),
+            "z": st.z.to_working(),
+            "trace": {
+                "gap": trace[0], "objective": trace[1], "step": trace[2],
+                **({"x": trace[3], "x_lo": trace[4]}
+                   if cfg.record_iterates else {}),
+            },
+        },
+    )
