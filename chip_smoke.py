@@ -8,7 +8,7 @@ script then exits non-zero and never prints its last line):
 
 1. device — the card, torch and CUDA versions, nvidia-smi's name and
    power limit;
-2. build  — compile the double-word kernels from csrc/ (timed);
+2. build  — compile every kernel from csrc/ (one nvcc per source, timed);
 3. kernels — dd_matvec / dd_rmatvec against the f64 truth at (512, 1024)
    (rtol = atol = 1e-11), against the plain PyTorch version on the card at
    (1441, 5093) and (1536, 5120) (within 64·eps32² of Σ|a_ij x_j| per
@@ -20,6 +20,28 @@ script then exits non-zero and never prints its last line):
    padded to 1536 x 5120, f32): the main path.  Launch counters are reset
    just before and read just after; both kernels must have launched.  Gap
    <= 1e-8, objective error <= 1e-7; then a second, timed solve.
+6. chol + assembly kernels — the tile kernel on SPD tiles (b = 16, 64,
+   96, 128) against the f64 truth (||L·Lᵀ - N|| / ||N|| <= 32·eps32) and
+   its plain version (reconstructions within 64·eps32 of ||N||, the
+   inverse within 64·eps32 of max|L⁻¹| and |L⁻¹·L - I| <= 64·eps32, both
+   upper triangles exactly zero), a non-PD tile giving an all-NaN factor
+   and inverse (ok False); ``factorize(N, use_pallas=True)`` on a pilot-size
+   N (1536 x 1536, A·D²·Aᵀ of the phase-5 LP) with its launch counters
+   reset before and read after (the panel and Schur kernels' path), held
+   against the f64 truth and the plain blocked_cholesky and cholesky_ex,
+   with median times of all three and of the panel and Schur kernels'
+   first step; the assembly kernel against its plain version on the
+   m = 16384 engine's pair schedule (each entry within 8·eps32·Σ|w·d²|),
+   bit-identical across two runs, with times;
+7. sparse afiro — solve(afiro, "pdas_dd", sparse=True, block=16) in f32:
+   objective within 1e-5 relative of the published optimum;
+8. at scale — the constructed-optimum LP at m = 16384 (16384 x 49152),
+   fully sparse, f32, block 128, Mehrotra, entry repair 1e-6: the main
+   path of the tile engine.  The host analysis and pair schedule are timed
+   on their own; launch counters are reset just before the solve and read
+   just after; the tile and assembly kernels must have launched.  Gap
+   <= 1e-6, objective error <= 1e-5; then a second, timed solve and a
+   per-stage timing of one factorization and its solves.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -27,6 +49,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import subprocess
@@ -41,11 +64,26 @@ AFIRO = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 AFIRO_OPTIMUM = -464.75314285714285
 EPS32 = float(np.finfo(np.float32).eps)
 PLAIN_TOL = 64  # kernel vs plain: PLAIN_TOL * eps32^2 * sum_j |a_ij x_j|
+CSRC = "cholesky_is_magic_tpu_torch/csrc/"
+POTRF = dict(replaces="cholesky_is_magic_tpu/ops/pallas_chol.py:182",
+             source=CSRC + "potrf.cu")
 KERNELS = {
-    "mv": dict(name="dd_mv_f32", replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:79"),
-    "rmv": dict(name="dd_rmv_f32", replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:96"),
+    "mv": dict(name="dd_mv_f32", replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:79",
+               source=CSRC + "dd_matvec.cu"),
+    "rmv": dict(name="dd_rmv_f32", replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:96",
+                source=CSRC + "dd_matvec.cu"),
+    "potrf_tile": dict(name="potrf_tile_f32", **POTRF),
+    "potrf_panel": dict(name="potrf_panel_f32", **POTRF),
+    "potrf_schur": dict(name="potrf_schur_f32", **POTRF),
+    "assemble_pairs": dict(
+        name="assemble_pairs_f32",
+        replaces="benchmarks/explore_prefetch_assembly.py:174",
+        source=CSRC + "assemble_pairs.cu"),
 }
-SOURCE = "cholesky_is_magic_tpu_torch/csrc/dd_matvec.cu"
+AT_SCALE_M = 16384
+# The at-scale recipe of the JAX package's api.solve docstring (:439-440).
+AT_SCALE_KW = dict(sparse=True, block=128, mehrotra=True, entry_repair_tol=1e-6,
+                   device="cuda", dtype=torch.float32)
 
 
 def say(*parts):
@@ -72,10 +110,10 @@ def phase_device() -> str:
     return card
 
 
-def phase_build(dd_cuda):
+def phase_build(cuda_build):
     t = time.perf_counter()
-    path = dd_cuda.build()
-    dd_cuda._load()
+    path = cuda_build.build()
+    cuda_build.load()
     say(f"[build] {path.name} in {time.perf_counter() - t:.3f} s")
     log = path.with_suffix(".log")
     if log.exists():
@@ -94,6 +132,12 @@ def _inputs(m, n, seed):
     x = torch.randn(n, generator=g, device="cuda")
     y = torch.randn(m, generator=g, device="cuda")
     return A, x, y
+
+
+def _reset(*counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
 
 
 def _median_ms(fn, reps=20):
@@ -192,8 +236,7 @@ def phase_pilot(cimt, dd_cuda, card):
     sf, info = constructed_optimum_lp("pilot", seed=0)
     say(f"[pilot] constructed optimum LP {sf.ncons} x {sf.nvars}, "
         f"padded to 1536 x 5120, f32")
-    for k in dd_cuda.LAUNCHES:
-        dd_cuda.LAUNCHES[k] = 0
+    _reset(dd_cuda.LAUNCHES)
     torch.cuda.synchronize()
     t = time.perf_counter()
     rep = cimt.solve(sf, "pdas_dd", device="cuda", dtype=torch.float32)
@@ -202,7 +245,7 @@ def phase_pilot(cimt, dd_cuda, card):
     launches = dict(dd_cuda.LAUNCHES)
     say(f"[pilot] first solve {first_s:.3f} s, kernel launches {launches}")
     _check_solve("pilot", rep, info["objective"])
-    if not all(launches[k] > 0 for k in KERNELS):
+    if not all(launches[k] > 0 for k in ("mv", "rmv")):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -214,22 +257,396 @@ def phase_pilot(cimt, dd_cuda, card):
     return launches
 
 
+def _recon_err(L, N):
+    """||L·Lᵀ - N|| / ||N|| in f64."""
+    L64 = L.double()
+    return (torch.linalg.norm(L64 @ L64.T - N.double())
+            / torch.linalg.norm(N.double())).item()
+
+
+def _spd(n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    M = torch.randn(n, n, generator=g, device="cuda", dtype=torch.float64)
+    return (M @ M.T / n + torch.eye(n, device="cuda", dtype=torch.float64)).float()
+
+
+def phase_chol(chol, chol_cuda, dense, stats):
+    """The tile kernel and the blocked potrf against the truth and their
+    plain versions; the panel and Schur kernels' path and times."""
+    for b in (16, 64, 96, 128):
+        N = _spd(b, b)
+        T, inv = N.clone(), torch.empty_like(N)
+        chol.factor_tile_(T, inv)
+        Lp, Ip = chol._factor_tile_plain(N)
+        truth = _recon_err(T, N)
+        vs_plain = (torch.linalg.norm(T.double() @ T.double().T
+                                      - Lp.double() @ Lp.double().T)
+                    / torch.linalg.norm(N.double())).item()
+        err = max((T - Lp).abs().max().item(), (inv - Ip).abs().max().item())
+        inv_rel = ((inv - Ip).abs().max() / Ip.abs().max()).item()
+        eye_err = (inv.double() @ T.double() - torch.eye(
+            b, device="cuda", dtype=torch.float64)).abs().max().item()
+        say(f"[chol] tile b={b}: ||LLt-N||/||N|| {truth:.3e} ({truth / EPS32:.2f} eps32,"
+            f" limit 32), vs plain {vs_plain / EPS32:.2f} eps32 (limit 64),"
+            f" inverse vs plain {inv_rel / EPS32:.2f} eps32 of max|inv| (limit 64),"
+            f" |inv.L - I| {eye_err / EPS32:.2f} eps32 (limit 64),"
+            f" max abs err vs plain {err:.3e}")
+        if not (truth <= 32 * EPS32 and vs_plain <= 64 * EPS32
+                and inv_rel <= 64 * EPS32 and eye_err <= 64 * EPS32
+                and bool((torch.triu(T, 1) == 0).all())
+                and bool((torch.triu(inv, 1) == 0).all())):
+            raise AssertionError(f"tile kernel at b={b}")
+        if b == 128:
+            stats["potrf_tile"] = {"max_abs_err": err}
+            work = N.clone()
+            k1 = _median_ms(lambda: (work.copy_(N), chol.factor_tile_(work, inv)))
+            p1 = _median_ms(lambda: chol._factor_tile_plain(N))
+            stats["potrf_tile"].update(ms=k1, plain_ms=p1)
+            say(f"[chol] tile b=128 median ms (with the tile copy): kernel {k1:.4f}"
+                f"  plain (cholesky_ex + solve_triangular) {p1:.4f}")
+    bad = _spd(64, 5)
+    bad[30, 30] = -1.0
+    inv = torch.empty_like(bad)
+    chol.factor_tile_(bad, inv)
+    ok = bool(torch.isfinite(bad).all())
+    all_nan = bool(torch.isnan(bad).all()) and bool(torch.isnan(inv).all())
+    say(f"[chol] non-PD tile: ok {ok} (L and inverse all NaN {all_nan})")
+    if ok or not all_nan:
+        raise AssertionError("a non-PD tile did not come back all NaN")
+
+    # The dense path of the panel and Schur kernels: factorize(use_pallas).
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    sf, _ = constructed_optimum_lp("pilot", seed=0)
+    lp = to_device_lp(sf, pad_multiple=128, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d = 0.5 + torch.rand(lp.A.shape[1], generator=g, device="cuda")
+    N = dense.normal_matrix(lp.A, d, (~lp.row_mask).float())
+    _reset(chol_cuda.LAUNCHES)
+    f = dense.factorize(N, use_pallas=True)
+    torch.cuda.synchronize()
+    launches = dict(chol_cuda.LAUNCHES)
+    Lb = chol.blocked_cholesky(N)
+    Lx = torch.linalg.cholesky_ex(N)[0]
+    errs = {k: _recon_err(L, N) for k, L in (("kernel", f.L), ("blocked", Lb),
+                                               ("cholesky_ex", Lx))}
+    N64 = f.L.double() @ f.L.double().T
+    vs = {k: (torch.linalg.norm(N64 - L.double() @ L.double().T)
+              / torch.linalg.norm(N.double())).item() for k, L in
+          (("blocked", Lb), ("cholesky_ex", Lx))}
+    say(f"[chol] factorize(use_pallas=True) on N {tuple(N.shape)}: ok {bool(f.ok)},"
+        f" launches {launches}, ||LLt-N||/||N|| in eps32: "
+        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in errs.items())
+        + "; kernel vs plain reconstructions in eps32: "
+        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in vs.items())
+        + f"; max abs err vs blocked {(f.L - Lb).abs().max().item():.3e},"
+          f" vs cholesky_ex {(f.L - Lx).abs().max().item():.3e}")
+    if not (bool(f.ok) and errs["kernel"] <= 32 * EPS32
+            and max(vs.values()) <= 64 * EPS32
+            and launches["potrf_panel"] > 0 and launches["potrf_schur"] > 0):
+        raise AssertionError("factorize(use_pallas=True) on the card")
+    kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
+    xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
+    bt = _median_ms(lambda: chol.blocked_cholesky(N), 3)
+    say(f"[chol] n=1536 median ms: kernel potrf {kt[0]:.4f} {kt[1]:.4f}  "
+        f"cholesky_ex {xt[0]:.4f} {xt[1]:.4f}  plain blocked_cholesky {bt:.1f}")
+    stats["potrf_full"] = dict(ms=min(kt), cholesky_ex_ms=min(xt), plain_ms=bt)
+
+    # The first panel step on its own: kernel vs its plain form.
+    b = chol_cuda.BLOCK
+    A0 = N.clone()
+    inv = torch.empty((b, b), device="cuda")
+    chol.factor_tile_(A0[:b, :b], inv)
+    panel0 = A0[b:, :b].clone()
+    P_plain = panel0 @ inv.T
+    work = A0.clone()
+    chol_cuda.potrf_panel_(work[b:, :b], inv, work[:b, b:])
+    P = work[b:, :b].clone()
+    S_plain = torch.tril(A0[b:, b:] - P @ P.T)
+    chol_cuda.potrf_schur_(work[b:, b:], P)
+    S = torch.tril(work[b:, b:])
+    for name, got, plain, mag in (
+        ("potrf_panel", P, P_plain, panel0.abs() @ inv.T.abs()),
+        ("potrf_schur", S, S_plain,
+         torch.tril(A0[b:, b:].abs() + P.abs() @ P.abs().T)),
+    ):
+        err = (got - plain).abs()
+        ratio = (err / (EPS32 * mag + 1e-30)).max().item()
+        say(f"[chol] {name} first panel step vs plain: max abs err "
+            f"{err.max().item():.3e}, max err / (eps32 sum|terms|) {ratio:.2f}"
+            f" (limit {2 * b})")
+        if not ratio <= 2 * b:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        stats[name] = {"max_abs_err": err.max().item()}
+    src = A0.clone()
+    scratch = A0.clone()  # the panel and its strip at the matrix's row stride
+    stats["potrf_panel"].update(
+        ms=_median_ms(lambda: (scratch[b:, :b].copy_(panel0),
+                               chol_cuda.potrf_panel_(scratch[b:, :b], inv,
+                                                      scratch[:b, b:]))),
+        plain_ms=_median_ms(lambda: panel0 @ inv.T))
+    stats["potrf_schur"].update(
+        ms=_median_ms(lambda: chol_cuda.potrf_schur_(src[b:, b:], P)),
+        plain_ms=_median_ms(lambda: torch.tril(A0[b:, b:] - P @ P.T)))
+    say(f"[chol] first panel step median ms: panel kernel (with a restoring copy)"
+        f" {stats['potrf_panel']['ms']:.4f}"
+        f" plain {stats['potrf_panel']['plain_ms']:.4f};  schur kernel "
+        f"{stats['potrf_schur']['ms']:.4f} plain {stats['potrf_schur']['plain_ms']:.4f}")
+    return launches
+
+
+def phase_assembly(eng, stats):
+    """The assembly kernel on the m = 16384 engine's schedule."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    n = int(eng.asm_k.max().item()) + 1
+    d = 10.0 ** (3 * torch.rand(n, generator=g, device="cuda") - 1.5)
+    boost = torch.zeros(AT_SCALE_M, device="cuda")
+    t1 = eng.assemble_pairs(d, boost)
+    t2 = eng.assemble_pairs(d, boost)
+    plain = eng._assemble_pairs_plain(d, boost)
+    mag = torch.zeros_like(plain).reshape(-1).index_add_(
+        0, eng.asm_dst_flat, (eng.asm_w * (d * d)[eng.asm_k]).abs())
+    mag = mag + eng._assemble_pairs_plain(torch.zeros_like(d), boost).reshape(-1)
+    err = (t1 - plain).abs().reshape(-1)
+    ratio = (err / (EPS32 * mag + 1e-30)).max().item()
+    same = torch.equal(t1, t2)
+    say(f"[assembly] {eng.n_pairs} pairs into {eng.NT + 1} tiles of {eng.b}: "
+        f"max abs err vs plain {err.max().item():.3e}, max err / (eps32 sum|w d^2|)"
+        f" {ratio:.3f} (limit 8), bit-identical across two runs {same}")
+    if not (ratio <= 8 and same):
+        raise AssertionError("assemble_pairs disagrees with its plain version")
+    k = [_median_ms(lambda: eng.assemble_pairs(d, boost)) for _ in range(2)]
+    p = [_median_ms(lambda: eng._assemble_pairs_plain(d, boost)) for _ in range(2)]
+    say(f"[assembly] median ms: kernel {k[0]:.4f} {k[1]:.4f}  plain (index_add_) "
+        f"{p[0]:.4f} {p[1]:.4f}")
+    stats["assemble_pairs"] = dict(max_abs_err=err.max().item(), ms=min(k),
+                                   plain_ms=min(p))
+
+
+def phase_sparse_afiro(cimt):
+    rep = cimt.solve(AFIRO, "pdas_dd", sparse=True, block=16, device="cuda",
+                     max_iters=300)
+    rel = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    say(f"[sparse afiro] status {rep.status}  iterations "
+        f"{rep.summary['phase1_iterations']} + {rep.summary['iterations']}"
+        f"  gap {rep.summary['gap']:.3e}  objective {rep.objective:.12f}"
+        f"  relative error {rel:.3e} (limit 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"sparse afiro objective {rep.objective}")
+
+
+def build_at_scale_engine():
+    """The m = 16384 LP and its engine, the host analysis and the pair
+    schedule timed on their own."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
+    from cholesky_is_magic_tpu_torch.sparse import native
+    from cholesky_is_magic_tpu_torch.sparse.symbolic import analyze
+    from cholesky_is_magic_tpu_torch.sparse.tiled import TiledCholesky
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    t = time.perf_counter()
+    sf, info = constructed_optimum_lp(m=AT_SCALE_M, seed=0)
+    t_lp = time.perf_counter() - t
+    vals, _ = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
+    A = sp.csc_matrix((vals, (sf.a_rows, sf.a_cols)), shape=(sf.ncons, sf.nvars))
+    t = time.perf_counter()
+    plan = analyze(A, block=128)
+    t_an = time.perf_counter() - t
+    t = time.perf_counter()
+    eng = TiledCholesky(plan, device="cuda")
+    t_sched = time.perf_counter() - t
+    t = time.perf_counter()
+    eng.build_ell_assembly(A)
+    torch.cuda.synchronize()
+    t_pairs = time.perf_counter() - t
+    say(f"[at scale] constructed optimum LP {sf.ncons} x {sf.nvars}, nnz {len(sf.a_vals)}"
+        f" (built in {t_lp:.3f} s); native symbolic library {native.available()}")
+    say(f"[at scale] host analysis {t_an:.3f} s, tile schedules {t_sched:.3f} s,"
+        f" pair schedule {t_pairs:.3f} s: {eng.B} panels of {eng.b},"
+        f" {eng.NT} resident tiles, {eng.n_pairs} pairs")
+    return sf, info, eng
+
+
+def phase_at_scale(cimt, sf, info, counters, card):
+    kw = AT_SCALE_KW
+    _reset(*counters.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = cimt.solve(sf, "pdas_dd", **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = {k: v for c in counters.values() for k, v in c.items()}
+    ref = info["objective"]
+    gap = rep.summary["gap"]
+    obj_err = abs(rep.objective - ref) / abs(ref)
+    say(f"[at scale] first solve {first_s:.3f} s, kernel launches {launches}")
+    say(f"[at scale] status {rep.status}  iterations {rep.summary['phase1_iterations']}"
+        f" + {rep.summary['iterations']}  gap {gap:.3e}  objective {rep.objective:.10f}"
+        f"  objective error {obj_err:.3e}  krylov_escalated "
+        f"{rep.summary.get('krylov_escalated', False)}  repair "
+        f"{ {k: float(v) for k, v in rep.result.extra.get('entry_repair', {}).items()} }")
+    if not (launches["potrf_tile"] > 0 and launches["assemble_pairs"] > 0):
+        raise AssertionError(f"a kernel of the sparse path never launched: {launches}")
+    if not (np.isfinite(rep.result.x.cpu().numpy()).all() and gap <= 1e-6
+            and obj_err <= 1e-5):
+        raise AssertionError(f"at scale: gap {gap} / objective error {obj_err}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep2 = cimt.solve(sf, "pdas_dd", **kw)
+    torch.cuda.synchronize()
+    say(f"[at scale] second solve wall-clock {time.perf_counter() - t:.3f} s "
+        f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
+        f"iterations, gap {rep2.summary['gap']:.3e}) on {card}")
+    return launches, rep2
+
+
+def _attribute(cimt, sf, kw):
+    """One more at-scale solve with host timers (synchronize on entry and
+    exit) wrapped around the stages; returns seconds and calls by stage.
+    Stages nest: the tile kernel runs inside the panel loop, raw solves
+    and block-ELL products inside the refined solves."""
+    from cholesky_is_magic_tpu_torch.ops import bell, chol, sparse_ops
+    from cholesky_is_magic_tpu_torch.sparse.tiled import TiledCholesky
+
+    # The module (the package re-exports a function of the same name).
+    pdas_mod = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+
+    acc = {}
+    stages = [("setup: make_pdas_sparse (analysis, schedules, ELL/BELL)",
+               pdas_mod, "make_pdas_sparse"),
+              ("assembly (kernel)", TiledCholesky, "assemble_pairs"),
+              ("panel loop (factorize)", TiledCholesky, "factorize"),
+              ("  of which tile kernel", chol, "factor_tile_"),
+              ("raw tile solves", TiledCholesky, "solve"),
+              ("block-ELL dd products", bell, "dd_matvec"),
+              ("block-ELL f32 products", bell, "matvec"),
+              ("ELL dd products", sparse_ops, "dd_matvec"),
+              ("ELL f32 products", sparse_ops, "matvec")]
+    saved = [(obj, name, getattr(obj, name)) for _, obj, name in stages]
+
+    def timed(label, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            s_, n_ = acc.get(label, (0.0, 0))
+            acc[label] = (s_ + time.perf_counter() - t, n_ + 1)
+            return out
+        return wrapper
+
+    try:
+        for (label, obj, name), (_, _, fn) in zip(stages, saved):
+            setattr(obj, name, timed(label, fn))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rep = cimt.solve(sf, "pdas_dd", **kw)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return total, acc, rep
+
+
+def phase_breakdown(cimt, sf, eng, rep, chol):
+    """Where an at-scale solve's time goes: a solve with stage timers, then
+    device-busy share and CUDA-event times of one factorization and one
+    raw solve at the final iterate's scaling."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_is_magic_tpu_torch.solvers.pdas import make_pdas_sparse
+
+    total, acc, rep3 = _attribute(cimt, sf, AT_SCALE_KW)
+    its = rep3.summary["phase1_iterations"] + rep3.summary["iterations"]
+    say(f"[breakdown] timed solve {total:.3f} s, {its} iterations "
+        f"(host clock, synchronize around every stage):")
+    for label, (sec, calls) in acc.items():
+        say(f"[breakdown]   {label}: {sec:.3f} s in {calls} calls "
+            f"({100 * sec / total:.1f}%)")
+
+    st, _ = make_pdas_sparse(sf, engine=eng, device="cuda")
+    x = rep.result.x
+    s = torch.sqrt(torch.clamp_min(torch.minimum(x - st.lp.l, st.lp.u - x), 1e-6))
+    boost = torch.zeros(st.lp.m, device="cuda")
+    tiles = eng.assemble_pairs(s, boost)
+    L, invd, ok = eng.factorize(tiles)
+    rhs = torch.ones(eng.B * eng.b, device="cuda")
+    for fn, what in ((lambda: eng.factorize(tiles), "one factorization"),
+                     (lambda: eng.solve(L, invd, rhs), "one raw solve")):
+        fn()
+        torch.cuda.synchronize()
+        # The profiler is a measurement, not a check: its own failure is
+        # reported and skipped; a failure of fn() propagates.
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        try:
+            prof.start()
+        except RuntimeError as err:
+            say(f"[breakdown] {what}: device busy share not measured ({err})")
+            continue
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        try:
+            prof.stop()
+            events = list(prof.key_averages())
+        except RuntimeError as err:
+            say(f"[breakdown] {what}: device busy share not measured ({err})")
+            continue
+        dev = {e.key: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) for e in events}
+        dev_us = sum(dev.values())
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
+        say(f"[breakdown] {what}: wall {wall * 1e3:.3f} ms, device busy "
+            f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
+            f"{launches} kernel launches; top device time: "
+            + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in top))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    Td = [tiles[int(k)].clone() for k in eng._diag_ids_np]
+    ev[0].record()
+    for k in range(eng.B):
+        chol.factor_tile_(Td[k], invd[k])
+    ev[1].record()
+    torch.cuda.synchronize()
+    say(f"[breakdown] {eng.B} tile-kernel launches on this factorization's "
+        f"diagonal tiles: {ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events), ok {bool(ok)}")
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ops import chol, chol_cuda, cuda_build
     from cholesky_is_magic_tpu_torch.ops import dd as ddm
-    from cholesky_is_magic_tpu_torch.ops import dd_cuda
+    from cholesky_is_magic_tpu_torch.ops import dd_cuda, dense
+    from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
     from cholesky_is_magic_tpu_torch.utils.precision import set_highest_precision
 
     set_highest_precision()
-    phase_build(dd_cuda)
+    phase_build(cuda_build)
     stats = phase_kernels(ddm)
     phase_afiro(cimt)
     launches = phase_pilot(cimt, dd_cuda, card)
+    chol_launches = phase_chol(chol, chol_cuda, dense, stats)
+    launches.update(potrf_panel=chol_launches["potrf_panel"],
+                    potrf_schur=chol_launches["potrf_schur"])
+    sf, info, eng = build_at_scale_engine()
+    phase_assembly(eng, stats)
+    phase_sparse_afiro(cimt)
+    counters = {"dd": dd_cuda.LAUNCHES, "chol": chol_cuda.LAUNCHES,
+                "tiled": tiled_cuda.LAUNCHES}
+    sparse_launches, rep = phase_at_scale(cimt, sf, info, counters, card)
+    launches.update(potrf_tile=sparse_launches["potrf_tile"],
+                    assemble_pairs=sparse_launches["assemble_pairs"])
+    phase_breakdown(cimt, sf, eng, rep, chol)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     kernels = [
-        dict(KERNELS[k], route="cuda", source=SOURCE, launches=launches[k],
-             **stats[k])
+        dict(KERNELS[k], route="cuda", launches=launches[k],
+             **{f: stats[k][f] for f in ("max_abs_err", "ms", "plain_ms")})
         for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

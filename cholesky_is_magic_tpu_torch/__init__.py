@@ -1,17 +1,21 @@
-"""cholesky-is-magic on PyTorch and CUDA: the dense pdas -> pdas_dd slice.
+"""cholesky-is-magic on PyTorch and CUDA: the pdas -> pdas_dd solve, dense
+and fully sparse.
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
 against; the module paths mirror it, so each counterpart is easy to find:
 
-- :mod:`.ingest`  — MPS reader, standard form (NumPy copies) and the padded
-  dense operand set :class:`~.ingest.device.DeviceLP`;
-- :mod:`.ops`     — double-word arithmetic, the hand-written CUDA
-  double-word matvec kernels (``csrc/dd_matvec.cu``), the dense
-  normal-equations factor/solve and Krylov refinement;
+- :mod:`.ingest`  — MPS reader, standard form (NumPy copies), the padded
+  dense operand set :class:`~.ingest.device.DeviceLP` and the fully sparse
+  :class:`~.ingest.device.SparseKKTLP`;
+- :mod:`.ops`     — double-word arithmetic, ELL / block-ELL products, the
+  dense normal equations, the blocked Cholesky, Krylov refinement, and
+  the wrappers of the hand-written CUDA kernels (``csrc/``);
+- :mod:`.sparse`  — host symbolic analysis and the tile engine;
 - :mod:`.kkt`     — the block-eliminated KKT Newton step;
-- :mod:`.solvers` — dense pdas and its double-word pdas_dd finisher;
-- :mod:`.api`     — ``solve(problem, "pdas" | "pdas_dd", device=...)``.
+- :mod:`.solvers` — pdas and its double-word pdas_dd finisher;
+- :mod:`.api`     — ``solve(problem, "pdas" | "pdas_dd", sparse=...,
+  device=...)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.

@@ -1,11 +1,13 @@
 """One-call front door: ``solve(problem, solver, device=...) -> SolveReport``.
 
-Counterpart of ``cholesky_is_magic_tpu/api.py`` for the dense ``"pdas"`` and
-two-phase ``"pdas_dd"`` flows: pdas to its native 1e-4 gap, then the
+Counterpart of ``cholesky_is_magic_tpu/api.py`` for the ``"pdas"`` and
+two-phase ``"pdas_dd"`` flows, on dense padded operands or, with
+``sparse=True``, on the fully sparse pipeline (ELL / block-ELL operands and
+the pair-schedule tile engine): pdas to its native 1e-4 gap, then the
 double-word finisher warm-started from its iterates, escalating to PCG
 refinement when the finisher stops at the precision floor short of the
-target gap.  The other solver families, ``sparse``, ``presolve`` and
-``crossover`` are not ported and raise ``NotImplementedError``.
+target gap.  The other solver families, ``presolve`` and ``crossover`` are
+not ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -104,6 +106,7 @@ def solve(
     sparse: bool = False,
     rescale: bool = False,
     pad_multiple: int = 128,
+    block: int = 128,
     max_iters: int = 500,
     refine_steps: int = 1,
     gap_tol: Optional[float] = None,
@@ -118,16 +121,19 @@ def solve(
     crossover: bool = False,
     entry_repair_tol: float = 0.0,
 ) -> SolveReport:
-    """Solve an LP end to end with ``"pdas"`` or ``"pdas_dd"`` on dense
-    padded operands on ``device`` (default f32).
+    """Solve an LP end to end with ``"pdas"`` or ``"pdas_dd"`` on ``device``
+    (default f32): on dense operands padded to ``pad_multiple``, or with
+    ``sparse=True`` on the fully sparse pipeline, whose tile engine uses
+    ``block``-wide panels (no dense (m, n) operand is built).
 
     The options mean what they mean in the JAX package's ``api.solve``:
     ``gap_tol`` (pdas default 1e-4, pdas_dd finisher 1e-9),
     ``krylov_steps`` / ``krylov_gate_gap`` (PCG refinement; with 0 the
     pdas_dd finisher escalates to PCG by itself at the precision floor),
     ``mehrotra``, ``entry_repair_tol``, and ``warm`` / ``warm_push`` /
-    ``warm_blend`` (restart from a previous report of the same LP, same
-    ``pad_multiple``; pdas_dd then skips phase 1).
+    ``warm_blend`` (restart from a previous report of the same LP, solved
+    with the same ``sparse`` and ``pad_multiple``; pdas_dd then skips
+    phase 1).
     """
     from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
     from cholesky_is_magic_tpu_torch.ingest.standard_form import extract_solution
@@ -135,25 +141,52 @@ def solve(
         PDASConfig,
         PDASState,
         make_pdas,
+        make_pdas_sparse,
         pdas,
     )
 
     if solver not in ("pdas", "pdas_dd"):
         raise NotImplementedError(f"solver {solver!r} is not ported")
-    for flag, name in ((sparse, "sparse"), (presolve, "presolve"),
-                       (crossover, "crossover")):
+    for flag, name in ((presolve, "presolve"), (crossover, "crossover")):
         if flag:
             raise NotImplementedError(f"{name}=True is not ported")
     if dtype is None:
         dtype = torch.float32
     sf = _to_standard_form(problem, rescale)
-    lp = to_device_lp(sf, pad_multiple=pad_multiple, dtype=dtype, device=device)
+    put = lambda v: torch.as_tensor(v).to(device=device, dtype=dtype)  # noqa: E731
+    engine = lp = cold = None
+    if sparse:
+        cold, engine = make_pdas_sparse(sf, block=block, dtype=dtype,
+                                        device=device)
+    else:
+        lp = to_device_lp(sf, pad_multiple=pad_multiple, dtype=dtype,
+                          device=device)
 
     def warm_state():
         r = warm.result
-        put = lambda v: torch.as_tensor(v).to(device=device, dtype=dtype)
         return PDASState(x=put(r.x), y=put(r.extra["y"]), w=put(r.extra["w"]),
                          z=put(r.extra["z"]), lp=None)
+
+    def sparse_start(prior: PDASState) -> PDASState:
+        """The sparse cold state restarted from ``prior``'s iterates:
+        duals floored at 1e-8, the cold init blended in (``warm_blend``),
+        x pushed (``warm_push``) and pulled strictly interior."""
+        from cholesky_is_magic_tpu_torch.solvers.affine import _into_interior
+        from cholesky_is_magic_tpu_torch.solvers.pdas import push_interior
+
+        l, u, mask = cold.lp.l, cold.lp.u, cold.lp.col_mask
+        wx, wy = prior.x, prior.y
+        ww, wz = torch.clamp_min(prior.w, 1e-8), torch.clamp_min(prior.z, 1e-8)
+        if warm_blend > 0.0:
+            bl = warm_blend
+            wx = (1 - bl) * wx + bl * cold.x
+            wy = (1 - bl) * wy + bl * cold.y
+            ww = torch.clamp_min((1 - bl) * ww + bl * cold.w, 1e-8)
+            wz = torch.clamp_min((1 - bl) * wz + bl * cold.z, 1e-8)
+        if warm_push > 0.0:
+            wx = push_interior(wx, l, u, mask, warm_push)
+        wx = _into_interior(wx, l, u, mask)
+        return dataclasses.replace(cold, x=wx, y=wy, w=ww, z=wz)
 
     if solver == "pdas":
         kw = {} if gap_tol is None else {"gap_tol": gap_tol}
@@ -162,11 +195,14 @@ def solve(
             krylov_steps=krylov_steps, krylov_gate_gap=krylov_gate_gap,
             record_trace=record_trace, mehrotra=mehrotra, **kw,
         )
-        st = make_pdas(
-            lp, cfg, warm=warm_state() if warm is not None else None,
-            warm_push=warm_push, warm_blend=warm_blend,
-        )
-        res = pdas(st, cfg)
+        if sparse:
+            st = cold if warm is None else sparse_start(warm_state())
+        else:
+            st = make_pdas(
+                lp, cfg, warm=warm_state() if warm is not None else None,
+                warm_push=warm_push, warm_blend=warm_blend,
+            )
+        res = pdas(st, cfg, engine=engine)
         summary = dict(
             status=res.status_name, objective=float(res.objective),
             dual_objective=float(res.extra["dual_objective"]),
@@ -174,7 +210,13 @@ def solve(
             residual=float(res.residual_norm),
         )
     else:
-        from cholesky_is_magic_tpu_torch.solvers.pdas_dd import make_pdas_dd, pdas_dd
+        from cholesky_is_magic_tpu_torch.ops import dd as ddm
+        from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
+            PDASDDState,
+            make_pdas_dd,
+            mu_recentered_duals,
+            pdas_dd,
+        )
 
         cfg1 = PDASConfig(
             max_iters=max_iters, refine_steps=max(refine_steps, 2),
@@ -186,18 +228,40 @@ def solve(
             krylov_gate_gap=krylov_gate_gap, record_trace=record_trace,
             mehrotra=mehrotra, entry_repair_tol=entry_repair_tol,
         )
-        phase1 = (warm_state() if warm is not None
-                  else pdas(make_pdas(lp), cfg1))
-        st_dd = make_pdas_dd(lp, warm=phase1, warm_push=warm_push,
-                             warm_blend=(warm_blend if warm is not None
-                                         else 0.0))
-        res = pdas_dd(st_dd, cfg2)
+
+        def sparse_dd_state(prior) -> PDASDDState:
+            """The sparse dd finisher state from a prior result's iterates
+            (phase 1's, or a warm re-solve's); the duals are mu-recentered
+            unless the cold init was blended in (see make_pdas_dd)."""
+            st = sparse_start(PDASState(
+                x=put(prior.x), y=put(prior.extra["y"]),
+                w=put(prior.extra["w"]), z=put(prior.extra["z"]), lp=None))
+            w_, z_ = st.w, st.z
+            if warm_blend == 0.0:
+                w_, z_ = mu_recentered_duals(st.x, st.lp.l, st.lp.u, w_, z_,
+                                             st.lp.col_mask)
+            return PDASDDState(x=ddm.dd_from(st.x), y=ddm.dd_from(st.y),
+                               w=ddm.dd_from(w_), z=ddm.dd_from(z_), lp=st.lp)
+
+        if sparse:
+            phase1 = (warm.result if warm is not None
+                      else pdas(cold, cfg1, engine=engine))
+            st_dd = sparse_dd_state(phase1)
+            finisher = sparse_dd_state
+        else:
+            phase1 = (warm_state() if warm is not None
+                      else pdas(make_pdas(lp), cfg1))
+            st_dd = make_pdas_dd(lp, warm=phase1, warm_push=warm_push,
+                                 warm_blend=(warm_blend if warm is not None
+                                             else 0.0))
+            finisher = lambda prior: make_pdas_dd(lp, warm=prior)  # noqa: E731
+        res = pdas_dd(st_dd, cfg2, engine=engine)
         if (res.status_name == "precision_floor" and krylov_steps == 0
                 and float(res.extra["gap"]) > cfg2.gap_tol):
             # Auto-escalation: Richardson refinement hit the f32 wall short
             # of the target; retry warm with PCG refinement.
             cfg2k = dataclasses.replace(cfg2, krylov_steps=8)
-            res2 = pdas_dd(make_pdas_dd(lp, warm=res), cfg2k)
+            res2 = pdas_dd(finisher(res), cfg2k, engine=engine)
             if float(res2.extra["gap"]) < float(res.extra["gap"]):
                 res = res2
                 res.extra["krylov_escalated"] = True

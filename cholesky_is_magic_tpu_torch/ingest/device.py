@@ -1,7 +1,8 @@
-"""Standard form -> padded dense device operands.
+"""Standard form -> device operands.
 
-Counterpart of ``cholesky_is_magic_tpu/ingest/device.py`` (``round_up``,
-``DeviceLP``, ``to_device_lp``), dense only.  Every LP is embedded into a
+Counterpart of ``cholesky_is_magic_tpu/ingest/device.py``: ``round_up``,
+``DeviceLP``, ``to_device_lp`` and the fully sparse ``SparseKKTLP`` (built
+by ``solvers.pdas.make_pdas_sparse``).  Every dense LP is embedded into a
 (M, N) box rounded up to ``pad_multiple`` with boolean validity masks, and
 the padding is inert exactly as in the JAX package:
 
@@ -51,6 +52,33 @@ class DeviceLP:
     @property
     def shape(self) -> tuple[int, int]:
         return self.A.shape[-2], self.A.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseKKTLP:
+    """Fully sparse operand set for the interior-point (KKT) solvers.
+
+    The at-scale twin of DeviceLP (the JAX package's ``SparseKKTLP``): A
+    lives as ELL pairs (E = A, ET = Aᵀ, ops.sparse_ops) and, when the byte
+    gates of ops.bell admit them, block-ELL renderings (EB, ETB) that the
+    loops' A-products ride; no dense (m, n) operand exists.  No padding is
+    needed (the tile engine pads rows internally with boosted gap slots),
+    so the masks are all-true and exist only for code shared with the
+    padded dense path.
+    """
+
+    E: object  # ops.sparse_ops.ELLMatrix, (m, n)
+    ET: object  # ELLMatrix of Aᵀ, (n, m)
+    c: torch.Tensor  # (n,)
+    b: torch.Tensor  # (m,)
+    l: torch.Tensor  # (n,)
+    u: torch.Tensor  # (n,)
+    row_mask: torch.Tensor  # (m,) bool, all True
+    col_mask: torch.Tensor  # (n,) bool, all True
+    m: int
+    n: int
+    EB: object = None  # ops.bell.BellMatrix of A, or None
+    ETB: object = None  # ops.bell.BellMatrix of Aᵀ, or None
 
 
 def to_device_lp(

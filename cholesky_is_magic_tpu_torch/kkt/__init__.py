@@ -1,4 +1,4 @@
-"""Block-eliminated KKT Newton step (dense operator)."""
+"""Block-eliminated KKT Newton step (dense and fully sparse operators)."""
 
 from cholesky_is_magic_tpu_torch.kkt.newton import (
     FILTER_THRESHOLD,
@@ -6,6 +6,7 @@ from cholesky_is_magic_tpu_torch.kkt.newton import (
     KKTOperator,
     KKTReduction,
     dense_kkt_operator,
+    ell_kkt_operator,
     kkt_backsub,
     kkt_reduce,
     kkt_residuals,
@@ -18,6 +19,7 @@ __all__ = [
     "KKTOperator",
     "KKTReduction",
     "dense_kkt_operator",
+    "ell_kkt_operator",
     "kkt_backsub",
     "kkt_reduce",
     "kkt_residuals",

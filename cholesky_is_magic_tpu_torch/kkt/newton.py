@@ -1,7 +1,8 @@
 r"""Primal-dual KKT Newton direction by block Gaussian elimination.
 
-Counterpart of ``cholesky_is_magic_tpu/kkt/newton.py`` (dense operator
-only).  Eliminating Δw, Δx, Δz from the KKT block system
+Counterpart of ``cholesky_is_magic_tpu/kkt/newton.py``: the dense
+operator over ops.dense and the fully sparse one over the tile engine
+(:func:`ell_kkt_operator`).  Eliminating Δw, Δx, Δz from the KKT block system
 (sparse-newton-solve.lisp:1-26) leaves one SPD normal-equations solve
 
     (A·diag(s))·(A·diag(s))ᵀ Δy = g - A·alpha,     s = sqrt(beta),
@@ -64,6 +65,45 @@ def dense_kkt_operator(
     return KKTOperator(
         mv=lambda v: A @ v,
         rmv=lambda v: A.T @ v,
+        solve_scaled_normal=solve_scaled_normal,
+        prepare_scaled_normal=prepare_scaled_normal,
+    )
+
+
+def ell_kkt_operator(
+    lp,
+    engine,
+    row_boost: Optional[torch.Tensor] = None,
+    refine_steps: int = 1,
+    dbound: float = 0.0,
+    krylov_steps: int = 0,
+    krylov_gate=None,
+) -> KKTOperator:
+    """Fully sparse operator: ELL / block-ELL products and the tile
+    engine's pair-schedule assembly and factorization
+    (sparse.tiled.engine_for_sparse).  No dense A operand anywhere — ``lp``
+    is an ingest.device.SparseKKTLP."""
+    from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
+
+    def prepare_scaled_normal(s):
+        return engine.prepare_normal_ell(
+            lp.E, lp.ET, s, lp.m, row_boost=row_boost,
+            refine_steps=refine_steps, dbound=dbound,
+            krylov_steps=krylov_steps, krylov_gate=krylov_gate,
+            EB=lp.EB, ETB=lp.ETB,
+        )
+
+    def solve_scaled_normal(s, g):
+        solve_fn, ok = prepare_scaled_normal(s)
+        return solve_fn(g), ok
+
+    mv = ((lambda v: bell.matvec(lp.EB, v)) if lp.EB is not None
+          else (lambda v: sparse_ops.matvec(lp.E, v)))
+    rmv = ((lambda v: bell.matvec(lp.ETB, v)) if lp.ETB is not None
+           else (lambda v: sparse_ops.matvec(lp.ET, v)))
+    return KKTOperator(
+        mv=mv,
+        rmv=rmv,
         solve_scaled_normal=solve_scaled_normal,
         prepare_scaled_normal=prepare_scaled_normal,
     )

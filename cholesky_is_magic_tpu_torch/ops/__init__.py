@@ -1,3 +1,5 @@
-"""Linear algebra of the slice: double-word arithmetic (``dd``), its CUDA
-kernels (``dd_cuda``, ``csrc/dd_matvec.cu``), the dense normal equations
-(``dense``) and Krylov refinement (``krylov``)."""
+"""Linear algebra: double-word arithmetic (``dd``), ELL and block-ELL
+products (``sparse_ops``, ``bell``), the dense normal equations (``dense``),
+the blocked Cholesky (``chol``), Krylov refinement (``krylov``), and the
+builder (``cuda_build``) and wrappers (``dd_cuda``, ``chol_cuda``) of the
+hand-written CUDA kernels in ``csrc/``."""

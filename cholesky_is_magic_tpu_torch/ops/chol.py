@@ -1,0 +1,118 @@
+"""Blocked Cholesky: the plain versions and the dispatchers.
+
+Counterpart of ``cholesky_is_magic_tpu/ops/pallas_chol.py``.  The JAX module
+holds a statically recursive right-looking factorization in plain jnp
+(:func:`blocked_cholesky`, with its leaf factor and TRSM) and a Pallas TPU
+kernel (``_potrf_kernel``) that runs the right-looking loop over 128-column
+panels with the matrix resident in VMEM.  Here:
+
+- :func:`blocked_cholesky`, :func:`_chol_leaf` and :func:`_rsolve_lower_T`
+  are the plain PyTorch versions, operation for operation;
+- :func:`cholesky` dispatches: a CUDA tensor runs the hand-written blocked
+  potrf (:func:`.chol_cuda.potrf`, the port of ``_potrf_kernel``), a CPU
+  tensor :func:`blocked_cholesky` — exactly what the JAX ``cholesky()``
+  runs off the TPU;
+- :func:`factor_tile_` factors one (b, b) diagonal tile of the sparse tile
+  engine and inverts its factor (the tile engine's panel step,
+  ``sparse/tiled.py:357-358`` of the JAX package): on a CUDA tensor the
+  hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`), on a CPU tensor
+  :func:`_factor_tile_plain`.
+
+All of them give NaN on a non-positive-definite input, which the callers'
+finiteness checks report as a failed factorization.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Below this size, factor with the sequential masked update instead of
+# recursing further (the JAX package's LEAF).
+LEAF = 32
+
+
+def _chol_leaf(A: torch.Tensor) -> torch.Tensor:
+    """Unblocked lower Cholesky of a small block by masked rank-1 updates;
+    columns are collected and stacked."""
+    b = A.shape[0]
+    idx = torch.arange(b, device=A.device)
+    r, c = idx[:, None], idx[None, :]
+    cols = []
+    for j in range(b):
+        col = A[:, j] * torch.rsqrt(A[j, j])  # includes the diagonal sqrt
+        col = torch.where(idx >= j, col, 0.0)
+        cols.append(col)
+        A = torch.where((r > j) & (c > j), A - col[:, None] * col[None, :], A)
+    return torch.stack(cols, dim=1)
+
+
+def _rsolve_lower_T(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve X · Lᵀ = B for X (L lower-triangular), statically recursive:
+    the TRSM of the blocked factorization."""
+    b = L.shape[0]
+    if b <= LEAF:
+        cols = []
+        for j in range(b):
+            acc = B[:, j]
+            for k in range(j):
+                acc = acc - cols[k] * L[j, k]
+            cols.append(acc / L[j, j])
+        return torch.stack(cols, dim=1)
+    h = b // 2
+    L11, L21, L22 = L[:h, :h], L[h:, :h], L[h:, h:]
+    X1 = _rsolve_lower_T(L11, B[:, :h])
+    X2 = _rsolve_lower_T(L22, B[:, h:] - X1 @ L21.T)
+    return torch.cat([X1, X2], dim=1)
+
+
+def blocked_cholesky(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor by static half-splitting (plain PyTorch)."""
+    b = A.shape[0]
+    if b <= LEAF:
+        return _chol_leaf(A)
+    h = b // 2
+    L11 = blocked_cholesky(A[:h, :h])
+    L21 = _rsolve_lower_T(L11, A[h:, :h])
+    L22 = blocked_cholesky(A[h:, h:] - L21 @ L21.T)
+    top = torch.cat([L11, torch.zeros((h, b - h), dtype=A.dtype,
+                                      device=A.device)], dim=1)
+    return torch.cat([top, torch.cat([L21, L22], dim=1)], dim=0)
+
+
+def cholesky(N: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN on a non-PD input.
+
+    A CUDA tensor runs the hand-written blocked potrf at any n: it works
+    from global memory, so the JAX package's VMEM gate (n > 1536 falls back
+    to the library Cholesky there) does not carry over.  A CPU tensor runs
+    :func:`blocked_cholesky`, as the JAX ``cholesky()`` does off the TPU.
+    """
+    if N.is_cuda:
+        from cholesky_is_magic_tpu_torch.ops import chol_cuda
+
+        return chol_cuda.potrf(N)
+    return blocked_cholesky(N)
+
+
+def _factor_tile_plain(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, L⁻¹) of one tile: ``cholesky_ex`` on its lower triangle plus a
+    triangular solve against I, both all-NaN on a non-PD tile (as
+    ``jnp.linalg.cholesky`` and the JAX tile engine give)."""
+    L, info = torch.linalg.cholesky_ex(T)
+    L = torch.where(info == 0, L, float("nan"))
+    eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def factor_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
+    """In place: T <- the lower factor of the (b, b) tile T (its lower
+    triangle is read), inv <- that factor's inverse; upper triangles exactly
+    zero, everything NaN on a non-PD tile."""
+    if T.is_cuda:
+        from cholesky_is_magic_tpu_torch.ops import chol_cuda
+
+        chol_cuda.potrf_tile_(T, inv)
+        return
+    L, Li = _factor_tile_plain(T)
+    T.copy_(L)
+    inv.copy_(Li)

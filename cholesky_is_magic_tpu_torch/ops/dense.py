@@ -4,7 +4,8 @@ Counterpart of ``cholesky_is_magic_tpu/ops/dense.py`` (the dense rendering of
 the reference's CHOLMOD pipeline, sparse-cholesky.lisp:409-431, 524-560):
 
 - :func:`normal_matrix` assembles N = (A·diag(d))·(A·diag(d))ᵀ;
-- :func:`factorize` computes L·Lᵀ = N and reports failure as ``ok=False``;
+- :func:`factorize` computes L·Lᵀ = N and reports failure as ``ok=False``
+  (``torch.linalg`` by default; the blocked potrf of ops.chol on request);
 - :func:`prepare_normal` factors once and returns a refined solve, with the
   dbound singular-retry and double-word refinement.
 
@@ -49,15 +50,29 @@ def normal_matrix(
     return _scaled_normal(A, d, row_boost)[1]
 
 
-def factorize(N: torch.Tensor) -> CholFactors:
+def factorize(N: torch.Tensor, use_pallas: bool = False) -> CholFactors:
     """L·Lᵀ = N with failure detection.
 
     ``torch.linalg.cholesky_ex`` reports a non-PD input through ``info``
     and returns a partial factor that can look finite, so ``ok`` needs
     ``info == 0`` as well as the JAX package's finiteness and positive
     diagonal checks; a failed factor is replaced by the identity, as there.
+
+    ``use_pallas`` (the JAX name) runs ops.chol.cholesky: on a CUDA tensor
+    the hand-written blocked potrf, which works from global memory at any
+    n (the JAX package's VMEM gate at n > 1536 does not carry over); on a
+    CPU tensor ``blocked_cholesky``, as the JAX ``cholesky()`` does off the
+    TPU.  Either gives NaN on a non-PD input, which the same finiteness
+    check reports.  No solver sets it yet.  The JAX ``blocked`` option is not
+    carried over: ``ops.chol.blocked_cholesky`` is called directly.
     """
-    L, info = torch.linalg.cholesky_ex(N)
+    if use_pallas:
+        from cholesky_is_magic_tpu_torch.ops import chol
+
+        L = chol.cholesky(N)
+        info = torch.zeros((), dtype=torch.int32, device=N.device)
+    else:
+        L, info = torch.linalg.cholesky_ex(N)
     diag = torch.diagonal(L)
     ok = (info == 0) & torch.all(torch.isfinite(L)) & torch.all(diag > 0)
     eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)

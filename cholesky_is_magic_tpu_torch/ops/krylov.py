@@ -1,6 +1,6 @@
 """Krylov-accelerated iterative refinement for ill-conditioned normal solves.
 
-Counterpart of ``cholesky_is_magic_tpu/ops/krylov.py`` (dense parts).
+Counterpart of ``cholesky_is_magic_tpu/ops/krylov.py``.
 Flexible preconditioned CG on N x = b with the f32 Cholesky factor as the
 preconditioner, the residual b - N·x recomputed explicitly in double-word
 every iteration against the unassembled operator, and the iterate kept in
@@ -100,5 +100,42 @@ def dense_residual_dd(AD: torch.Tensor, g: torch.Tensor, row_boost=None):
             u = ddm.dd_add(u, ddm.two_prod(row_boost, x.hi))
             u = ddm.dd_add_w(u, row_boost * x.lo)
         return ddm.dd_add_w(ddm.dd_neg(u), g).to_working()
+
+    return residual
+
+
+def ell_normal_apply(E, ET, d, row_boost=None):
+    """The fully sparse N-apply: p -> E(d²∘(ETp)) + boost∘p via two ELL
+    products (ops.sparse_ops)."""
+    from cholesky_is_magic_tpu_torch.ops import sparse_ops
+
+    d2 = d * d
+
+    def apply_n(p):
+        t = sparse_ops.matvec(ET, p)
+        q = sparse_ops.matvec(E, d2 * t)
+        if row_boost is not None:
+            q = q + row_boost * p
+        return q
+
+    return apply_n
+
+
+def ell_residual_dd(E, ET, d, g, row_boost=None):
+    """DD x -> g - A·diag(d²)·Aᵀx (- boost∘x) from sparse operands with
+    the products in double-word (the prepare_normal_ell refinement
+    residual, extended to a dd iterate)."""
+    from cholesky_is_magic_tpu_torch.ops import sparse_ops
+
+    d2 = ddm.two_prod(d, d)
+
+    def residual(x: DD) -> torch.Tensor:
+        t = sparse_ops.dd_matvec_dd(ET, x)  # Aᵀ x, dd
+        u = ddm.dd_mul(d2, t)
+        v = sparse_ops.dd_matvec_dd(E, u)
+        if row_boost is not None:
+            v = ddm.dd_add(v, ddm.two_prod(row_boost, x.hi))
+            v = ddm.dd_add_w(v, row_boost * x.lo)
+        return ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
 
     return residual

@@ -1,14 +1,17 @@
-"""Interior-point solver loops of the slice: dense pdas and pdas_dd."""
+"""Interior-point solver loops: pdas and pdas_dd, on dense or fully sparse
+operands."""
 
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
     make_pdas,
+    make_pdas_sparse,
     pdas,
 )
 from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
     PDASDDState,
     make_pdas_dd,
+    make_pdas_dd_sparse,
     pdas_dd,
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
@@ -21,6 +24,8 @@ __all__ = [
     "Status",
     "make_pdas",
     "make_pdas_dd",
+    "make_pdas_dd_sparse",
+    "make_pdas_sparse",
     "pdas",
     "pdas_dd",
 ]

@@ -1,6 +1,7 @@
 """Primal-dual affine scaling with the block-eliminated KKT Newton step.
 
 Counterpart of ``cholesky_is_magic_tpu/solvers/pdas.py`` on dense operands
+and on the fully sparse ones (:func:`make_pdas_sparse`, ``engine=``)
 (reference: primal-dual-affine-scaling.lisp): bound clamping and widening,
 the make-pdas initialization, row equilibration, the violation vector,
 repair iterations, the stalled-step recenter with dual perturbation,
@@ -23,9 +24,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseKKTLP
 from cholesky_is_magic_tpu_torch.kkt.newton import (
     FILTER_THRESHOLD,
     kkt_backsub,
@@ -38,7 +40,7 @@ from cholesky_is_magic_tpu_torch.solvers.affine import (
     _slack,
 )
 from cholesky_is_magic_tpu_torch.solvers.backend import (
-    _dense_only,
+    check_backend,
     mv_rmv as _mv_rmv,
     prepare_normal_backend as _prepare_normal_backend,
     row_boost as _row_boost,
@@ -97,7 +99,9 @@ class PDASState:
     y: torch.Tensor  # equality duals
     w: torch.Tensor  # upper-bound duals (> 0)
     z: torch.Tensor  # lower-bound duals (> 0)
-    lp: Optional[DeviceLP]  # clamped/widened bounds, equilibrated (A, b)
+    # Clamped/widened bounds, equilibrated (A, b); a SparseKKTLP on the
+    # fully sparse path.
+    lp: Optional[DeviceLP | SparseKKTLP]
 
 
 def push_interior(x, l, u, mask, delta):
@@ -187,6 +191,83 @@ def make_pdas(
     return PDASState(x=x, y=torch.zeros_like(b), w=w, z=z, lp=new_lp)
 
 
+def make_pdas_sparse(
+    sf,
+    block: int = 128,
+    config: Optional[PDASConfig] = None,
+    dtype=None,
+    snode_align: bool = True,
+    engine=None,
+    device="cpu",
+):
+    """StandardForm -> (PDASState over a fully sparse SparseKKTLP, engine).
+
+    The at-scale construction: host-side row equilibration and the
+    make-pdas initialization (:75-133) on the raw arrays in f64, ELL (and,
+    where the byte gates admit them, block-ELL) operands for A and Aᵀ, and
+    a pair-schedule tile engine (sparse.tiled.engine_for_sparse) — no dense
+    (m, n) operand is ever built.  Pass the engine to pdas(..., engine=...)
+    / pdas_dd(..., engine=...).  ``engine`` reuses the engine of an LP with
+    the SAME constraint matrix (its schedule bakes the pair weights), so
+    only b, c, l and u may differ; a mismatch is not detected."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
+    from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
+    from cholesky_is_magic_tpu_torch.sparse.tiled import engine_for_sparse
+
+    if dtype is None:
+        dtype = torch.float32
+    cfg = config or PDASConfig()
+    m, n = sf.ncons, sf.nvars
+    vals, b = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
+    if engine is None:
+        A = sp.csc_matrix((vals, (sf.a_rows, sf.a_cols)), shape=(m, n))
+        engine = engine_for_sparse(A, block=block, snode_align=snode_align,
+                                   dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device)
+    E = sparse_ops.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), **kw)
+    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw)
+    EB = bell.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), **kw)
+    ETB = bell.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw)
+
+    # Clamp/widen + primal/dual init, identical to make_pdas, host-side in
+    # f64 before the dtype cast.
+    big = 1e30
+    raw_l = np.clip(np.asarray(sf.l, np.float64), -big, big)
+    raw_u = np.clip(np.asarray(sf.u, np.float64), -big, big)
+    l = np.clip(raw_l, -cfg.clamp, cfg.clamp)
+    u = np.clip(raw_u, -cfg.clamp, cfg.clamp)
+    degenerate = (u - l) < 1e-6
+    l = np.where(degenerate, l - 5e-7, l)
+    u = np.where(degenerate, u + 5e7, u)
+    delta = raw_u - raw_l
+    x = np.where(
+        (raw_l < -1e10) & (raw_u > 1e10),
+        0.0,
+        np.where(
+            raw_l < -1e6,
+            raw_u - np.minimum(delta / 2, 1.0 + 0.1 * np.abs(raw_u)),
+            np.where(
+                raw_u > 1e6,
+                raw_l + np.minimum(delta / 2, 1.0 + 0.1 * np.abs(raw_l)),
+                (raw_l + raw_u) / 2,
+            ),
+        ),
+    )
+    c = np.asarray(sf.c, np.float64)
+    z = np.where(c > 0, 1.0 + c, 1.0)
+    w = np.where(c < 0, 1.0 - c, 1.0)
+
+    put = lambda v: torch.as_tensor(np.asarray(v, np.float64)).to(**kw)  # noqa: E731
+    ones = lambda k: torch.ones(k, dtype=torch.bool, device=device)  # noqa: E731
+    lp = SparseKKTLP(E=E, ET=ET, c=put(c), b=put(b), l=put(l), u=put(u),
+                     row_mask=ones(m), col_mask=ones(n), m=m, n=n,
+                     EB=EB, ETB=ETB)
+    st = PDASState(x=put(x), y=torch.zeros(m, **kw), w=put(w), z=put(z), lp=lp)
+    return st, engine
+
+
 def _slack_floor(dtype) -> float:
     """Smallest slack the KKT scaling may see (~eps^1.75)."""
     return 1e-14 if dtype == torch.float64 else 1e-7
@@ -251,15 +332,15 @@ def pdas(
 ) -> SolveResult:
     """The solver loop (pdas, :385-396): iterate until the relative duality gap
     < gap_tol at a primal-feasible iterate, arming the recenter path
-    whenever the step stalls below 1e-6.  Dense operands only: ``engine``
-    and ``mesh`` raise."""
+    whenever the step stalls below 1e-6.  ``engine`` is the tile engine of
+    a state built by :func:`make_pdas_sparse`; ``mesh`` raises."""
     cfg = config or PDASConfig()
-    _dense_only(engine, mesh)
+    check_backend(state.lp, engine, mesh)
     _check_config(cfg)
-    return _pdas_loop(state, cfg)
+    return _pdas_loop(state, cfg, engine)
 
 
-def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig):
+def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine):
     """one-pdas-iteration (:319-383). Returns (new_st, gap, pviol, step, ok).
 
     Repair, recenter and Newton all reduce to ONE scaled normal solve
@@ -293,7 +374,7 @@ def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig):
     if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
         gate = gap < cfg.krylov_gate_gap
     solve_fn, ok = _prepare_normal_backend(
-        lp, None, s_sel, boost, cfg.refine_steps, None,
+        lp, engine, s_sel, boost, cfg.refine_steps, None,
         cfg.dbound, cfg.krylov_steps, krylov_gate=gate,
         method=cfg.factor_method,
     )
@@ -404,7 +485,7 @@ def _new_trace(cfg: PDASConfig, n: int, dtype, device, n_iterates: int):
 
 
 @highest_precision
-def _pdas_loop(state: PDASState, cfg: PDASConfig) -> SolveResult:
+def _pdas_loop(state: PDASState, cfg: PDASConfig, engine) -> SolveResult:
     lp = state.lp
     dt, dev = state.x.dtype, state.x.device
     inf = torch.tensor(float("inf"), dtype=dt, device=dev)
@@ -432,7 +513,8 @@ def _pdas_loop(state: PDASState, cfg: PDASConfig) -> SolveResult:
         )
 
     while i < cfg.max_iters and keep_going():
-        new_st, gap_i, pviol, step, ok = _one_iteration(st, repair_flag, cfg)
+        new_st, gap_i, pviol, step, ok = _one_iteration(st, repair_flag, cfg,
+                                                        engine)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap_i, torch.dot(st.x, lp.c), step]
             if cfg.record_iterates:

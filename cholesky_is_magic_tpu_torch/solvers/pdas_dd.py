@@ -1,7 +1,8 @@
 """Double-word-state PDAS: 1e-8 duality gaps on f32 hardware.
 
 Counterpart of ``cholesky_is_magic_tpu/solvers/pdas_dd.py`` on dense
-operands.  The iterates x, y, w, z live in double-word form; the Newton
+operands and on the fully sparse ones (:func:`make_pdas_dd_sparse`,
+``engine=``).  The iterates x, y, w, z live in double-word form; the Newton
 right-hand sides (slacks, complementarities, primal and dual residuals)
 are evaluated in double-word, the A-products through the CUDA double-word
 kernels on the card; only the Cholesky factorization runs in f32, and the
@@ -21,12 +22,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
-from cholesky_is_magic_tpu_torch.kkt.newton import FILTER_THRESHOLD, dense_kkt_operator
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseKKTLP
+from cholesky_is_magic_tpu_torch.kkt.newton import (
+    FILTER_THRESHOLD,
+    dense_kkt_operator,
+    ell_kkt_operator,
+)
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 from cholesky_is_magic_tpu_torch.solvers.affine import _slack
-from cholesky_is_magic_tpu_torch.solvers.backend import _dense_only
+from cholesky_is_magic_tpu_torch.solvers.backend import check_backend
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
@@ -34,6 +39,7 @@ from cholesky_is_magic_tpu_torch.solvers.pdas import (
     _check_config,
     _new_trace,
     make_pdas,
+    make_pdas_sparse,
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
@@ -47,7 +53,7 @@ class PDASDDState:
     y: DD
     w: DD
     z: DD
-    lp: DeviceLP
+    lp: DeviceLP | SparseKKTLP
 
 
 def make_pdas_dd(
@@ -103,8 +109,42 @@ def mu_recentered_duals(x, l, u, w, z, mask):
     return w, z
 
 
+def make_pdas_dd_sparse(
+    sf,
+    block: int = 128,
+    config: Optional[PDASConfig] = None,
+    dtype=None,
+    snode_align: bool = True,
+    device="cpu",
+):
+    """StandardForm -> (dd state over a fully sparse SparseKKTLP, engine):
+    the double-word promotion of solvers.pdas.make_pdas_sparse.  Pass the
+    engine to pdas_dd(..., engine=...)."""
+    st, engine = make_pdas_sparse(sf, block=block, config=config, dtype=dtype,
+                                  snode_align=snode_align, device=device)
+    return (
+        PDASDDState(x=ddm.dd_from(st.x), y=ddm.dd_from(st.y),
+                    w=ddm.dd_from(st.w), z=ddm.dd_from(st.z), lp=st.lp),
+        engine,
+    )
+
+
 def _linops(lp):
-    """The three double-word A-products the loop needs (dense operands)."""
+    """The three double-word A-products the loop needs, dispatched on the
+    operand set: dense (the CUDA double-word kernels on the card) or fully
+    sparse (block-ELL when carried, else the ELL pair)."""
+    if isinstance(lp, SparseKKTLP):
+        from cholesky_is_magic_tpu_torch.ops import bell
+        from cholesky_is_magic_tpu_torch.ops import sparse_ops as so
+
+        mv_dd = ((lambda x_dd: bell.dd_matvec_dd(lp.EB, x_dd))
+                 if lp.EB is not None
+                 else (lambda x_dd: so.dd_matvec_dd(lp.E, x_dd)))
+        if lp.ETB is not None:
+            return (mv_dd, lambda y_dd: bell.dd_matvec_dd(lp.ETB, y_dd),
+                    lambda v: bell.dd_matvec(lp.ETB, v))
+        return (mv_dd, lambda y_dd: so.dd_matvec_dd(lp.ET, y_dd),
+                lambda v: so.dd_matvec(lp.ET, v))
     return (
         lambda x_dd: ddm.dd_matvec_dd(lp.A, x_dd),
         lambda y_dd: ddm.dd_rmatvec_dd(lp.A, y_dd),
@@ -117,10 +157,16 @@ def _boost(lp):
     return (~lp.row_mask).to(torch.float32)
 
 
-def _make_op(lp, cfg: PDASConfig, gate):
-    """Dense KKT operator with true-residual refinement: refine against
-    the UNASSEMBLED operator in double-word, which corrects the f32
-    rounding of assembling N (otherwise a ~1e-7 direction floor)."""
+def _make_op(lp, cfg: PDASConfig, engine, gate):
+    """KKT operator on the operand set: the fully sparse tile engine, or the
+    dense one with true-residual refinement (refined against the
+    UNASSEMBLED operator in double-word, which corrects the f32 rounding
+    of assembling N; otherwise a ~1e-7 direction floor)."""
+    if isinstance(lp, SparseKKTLP):
+        return ell_kkt_operator(
+            lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
+            dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
+        )
     return dense_kkt_operator(
         lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
         true_residual=True, dbound=cfg.dbound,
@@ -128,7 +174,7 @@ def _make_op(lp, cfg: PDASConfig, gate):
     )
 
 
-def _entry_repair(state: PDASDDState, cfg: PDASConfig):
+def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None):
     """Min-norm LS correction of the entry iterate toward Ax = b in the
     Dikin metric (PDASConfig.entry_repair_tol), all in double-word with
     cfg.entry_repair_refines refinement passes; kept only where it reduced
@@ -146,7 +192,7 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig):
         return state, pv0, pv0
 
     x = state.x
-    op = _make_op(lp, cfg, None)
+    op = _make_op(lp, cfg, engine, None)
     boost = _boost(lp)
     s = _slack(lp.l, x.hi, lp.u, cfg.repair_slack_cap, mask)
     s = torch.where(mask, s, 0.0)  # padding inert in N and in dx
@@ -274,12 +320,12 @@ def pdas_dd(
     """Tight-gap loop: plain (or Mehrotra) Newton steps with no in-loop
     repair/recenter, best-iterate tracking and the precision-floor exit.
     ``config.entry_repair_tol`` optionally repairs the ENTRY iterate
-    toward Ax = b first.  Dense operands only: ``engine`` and ``mesh``
-    raise."""
+    toward Ax = b first.  ``engine`` is the tile engine of a state built by
+    :func:`make_pdas_dd_sparse`; ``mesh`` raises."""
     cfg = config or PDASConfig(gap_tol=1e-8, max_iters=300)
-    _dense_only(engine, mesh)
+    check_backend(state.lp, engine, mesh)
     _check_config(cfg)
-    return _pdas_dd_loop(state, cfg)
+    return _pdas_dd_loop(state, cfg, engine)
 
 
 def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
@@ -392,7 +438,7 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
     return dw_dd, dx_dd, dy_dd, dz_dd, ok
 
 
-def _one_iteration(st: PDASDDState, cfg: PDASConfig):
+def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine):
     lp = st.lp
     sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd = _dd_violation(st)
     pviol = torch.max(torch.abs(primal_dd.to_working()))
@@ -408,7 +454,7 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig):
     gate = None
     if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
         gate = gap < cfg.krylov_gate_gap
-    op = _make_op(lp, cfg, gate)
+    op = _make_op(lp, cfg, engine, gate)
     dw_dd, dx_dd, dy_dd, dz_dd, ok = _kkt_dd(
         st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg
     )
@@ -436,11 +482,11 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig):
 
 
 @highest_precision
-def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig) -> SolveResult:
+def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
     lp = state.lp
     repair_info = {}
     if cfg.entry_repair_tol > 0.0:
-        state, pv0, pv1 = _entry_repair(state, cfg)
+        state, pv0, pv1 = _entry_repair(state, cfg, engine)
         repair_info = {"entry_repair": {"pviol_before": pv0,
                                         "pviol_after": pv1}}
 
@@ -469,7 +515,7 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig) -> SolveResult:
         )
 
     while i < cfg.max_iters and keep_going():
-        new_st, gap, pviol, step, ok = _one_iteration(st, cfg)
+        new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
                     step]

@@ -1,0 +1,414 @@
+"""Panel-wave tiled sparse Cholesky: the fully sparse normal-equations engine.
+
+Counterpart of ``cholesky_is_magic_tpu/sparse/tiled.py`` for the fully
+sparse path (``engine_for_sparse`` + ``prepare_normal_ell``): analyse once
+on the host, then per factorization
+
+    assemble the resident (b, b) tiles of P·A·D²·Aᵀ·Pᵀ from the sorted
+      pair schedule                                   (one kernel, K4)
+    per 128-column panel:
+      chol + tri-inv of the diagonal tile             (one kernel, K1)
+      all the panel's TRSMs:  (R, b, b) x (b, b)      (one batched matmul)
+      all the panel's SYRKs:  (P, b, b) x (P, b, b)   (one batched matmul
+                                                       + one index_add_)
+
+Storage is a compact (NT+1, b, b) tile array (row NT is a dummy target of
+the padded schedules), so memory follows nnz(L) tiles, not m².  Both
+triangular solves run one gather and one batched matvec per panel, using
+the stored tile inverses.
+
+Where the JAX package runs ``lax.fori_loop``s over the panels, the port
+runs host loops over device tensors.  The per-panel index arrays are kept
+on the device padded, as in the JAX package; the host knows each panel's
+true length and slices to it, so no padded entry is ever computed and the
+dummy row is never written.  The TRSM and SYRK products and the solves are
+``torch.matmul`` (XLA einsums outside any Pallas kernel in the JAX
+package); the tile factor and the assembly are the hand-written kernels on
+a CUDA tensor (:mod:`..ops.chol_cuda`, :mod:`.tiled_cuda`) and their plain
+versions on a CPU tensor.  ``ok`` is read on the host once per
+factorization, and only when the dbound retry is armed.
+
+Not ported: the dense-A entry points (``engine_for``, ``assemble``,
+``prepare_normal``, ``solve_normal``), which raise ``NotImplementedError``,
+and the mesh methods (the solvers raise on ``mesh=``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cholesky_is_magic_tpu_torch.ops import chol
+from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
+
+
+def _pad2(lists, fill):
+    width = max((len(x) for x in lists), default=0)
+    width = max(width, 1)
+    out = np.full((len(lists), width), fill, dtype=np.int64)
+    for r, x in enumerate(lists):
+        out[r, : len(x)] = x
+    return out
+
+
+def engine_for_sparse(A_host, block: int = 128, snode_align: bool = True,
+                      dtype=None, device="cpu") -> "TiledCholesky":
+    """Analyse-once engine on ``device`` with the O(nnz) pair schedule
+    attached: the fully sparse entry point, no dense A anywhere.
+    ``A_host`` is anything scipy.sparse converts to CSC."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.sparse.symbolic import analyze
+
+    A_csc = sp.csc_matrix(A_host)
+    eng = TiledCholesky(analyze(A_csc, block=block), snode_align=snode_align,
+                        device=device)
+    eng.build_ell_assembly(A_csc, dtype=dtype or torch.float32)
+    return eng
+
+
+def engine_for(A, block: int = 128, snode_align: bool = True):
+    """The dense-A engine entry point: not ported."""
+    raise NotImplementedError("the dense-A tile engine (engine_for) is not ported")
+
+
+class TiledCholesky:
+    """Analyse-once tile engine for one sparsity pattern (the
+    cholmod_analyze / cholmod_factorize split, affine-scaling.lisp:271)."""
+
+    def __init__(self, plan: FactorPlan, snode_align: bool = True,
+                 device="cpu"):
+        self.plan = plan
+        self.device = torch.device(device)
+        b = plan.block
+        aligned = snode_align and plan.slots is not None
+        self.snode_align = aligned
+        if aligned:
+            # Supernode-aligned layout: panels hold whole supernodes; gap
+            # slots are inert padding rows (zero rows, boosted unit
+            # diagonal, exactly like end-padding).
+            B = plan.slot_mask.shape[0]
+            mask = plan.slot_mask | np.eye(B, dtype=bool)
+        else:
+            B = plan.block_mask.shape[0]
+            mask = plan.block_mask | np.eye(B, dtype=bool)
+        mask &= np.tril(np.ones((B, B), dtype=bool))
+        # The resident set is the etree-exact elementwise block mask: a SYRK
+        # pair whose destination is not resident contributes exact zeros
+        # (fill-path theorem), so it is dropped (see the JAX package).
+        self.mask = mask
+
+        tiles = [(int(i), int(j)) for i in range(B) for j in range(B) if mask[i, j]]
+        tid = {t: k for k, t in enumerate(tiles)}
+        self.tiles = tiles
+        self.NT = len(tiles)
+        self.B = B
+        self.b = b
+        DUMMY = self.NT  # padded gathers/scatters address this extra tile row
+
+        diag_ids, rows_ids, rows_i = [], [], []
+        syrk_a, syrk_b, syrk_dst = [], [], []
+        fwd_ids, fwd_j = [], []
+        self.dropped_updates = 0  # provably-zero SYRK pairs skipped
+        for k in range(B):
+            diag_ids.append(tid[(k, k)])
+            rows = [i for i in range(k + 1, B) if mask[i, k]]
+            rows_ids.append([tid[(i, k)] for i in rows])
+            rows_i.append(rows)
+            pa, pb, pd = [], [], []
+            for ii, i in enumerate(rows):
+                for j in rows[: ii + 1]:
+                    dst = (max(i, j), min(i, j))
+                    if not mask[dst]:
+                        self.dropped_updates += 1
+                        continue
+                    pa.append(tid[(i, k)])
+                    pb.append(tid[(j, k)])
+                    pd.append(tid[dst])
+            syrk_a.append(pa); syrk_b.append(pb); syrk_dst.append(pd)
+            fwd = [(tid[(k, j)], j) for j in range(k) if mask[k, j]]
+            fwd_ids.append([t for t, _ in fwd])
+            fwd_j.append([j for _, j in fwd])
+
+        # Each panel's true list lengths, known on the host.
+        self._n_rows = [len(x) for x in rows_ids]
+        self._n_syrk = [len(x) for x in syrk_dst]
+        self._n_fwd = [len(x) for x in fwd_ids]
+        self._diag_ids_np = np.asarray(diag_ids, np.int64)
+
+        put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=self.device)  # noqa: E731
+        self.diag_ids = put(diag_ids)
+        self.rows_ids = put(_pad2(rows_ids, DUMMY))
+        self.rows_i = put(_pad2(rows_i, B))  # B = the dummy row of y
+        self.syrk_a = put(_pad2(syrk_a, DUMMY))
+        self.syrk_b = put(_pad2(syrk_b, DUMMY))
+        self.syrk_dst = put(_pad2(syrk_dst, DUMMY))
+        self.fwd_ids = put(_pad2(fwd_ids, DUMMY))
+        self.fwd_j = put(_pad2(fwd_j, B))
+        diag_panel = np.full(self.NT + 1, -1, np.int64)
+        diag_panel[diag_ids] = np.arange(B)
+        self.diag_panel = put(diag_panel)  # tile -> its panel, or -1
+
+        n_pad = B * b
+        if aligned:
+            # Slot s holds permuted column j when slots[j] == s; gap slots
+            # map to the (zero, boosted) padding rows plan.n .. n_pad-1.
+            pperm = np.empty(n_pad, dtype=np.int64)
+            used = np.zeros(n_pad, dtype=bool)
+            pperm[plan.slots] = plan.perm
+            used[plan.slots] = True
+            pperm[~used] = np.arange(plan.n, n_pad)
+        else:
+            pperm = np.arange(n_pad)
+            pperm[: plan.n] = plan.perm
+        slot_of = np.empty(n_pad, np.int64)
+        slot_of[pperm] = np.arange(n_pad)
+        self._slot_of_np = slot_of
+        self.pperm = put(pperm)
+        self.slot_of = put(slot_of)  # row -> its slot
+
+    # ---- pair-schedule assembly -----------------------------------------
+
+    def build_ell_assembly(self, A_host, dtype=None):
+        """Host-side pair schedule for O(nnz) assembly (assemble_pairs).
+
+        N[p, q] = Σ_k A[p,k]·A[q,k]·d_k²: for every column k and every row
+        pair (p, q) sharing it, emit (weight A[p,k]·A[q,k], k, flat
+        destination in the compact tile array), mirrored inside diagonal
+        tiles, sorted by destination.  The enumeration runs in C++ when
+        native/symbolic.cpp is available, with this Python loop as the
+        fallback.  The run offsets of equal destinations are recorded for
+        the assembly kernel."""
+        import scipy.sparse as sp
+
+        from cholesky_is_magic_tpu_torch.sparse import native
+
+        if dtype is None:
+            dtype = torch.float32
+        A_csc = sp.csc_matrix(A_host)
+        A_csc.sort_indices()
+        b, B = self.b, self.B
+        slot_of = self._slot_of_np
+        tilemap = np.full((B, B), -1, np.int64)
+        for t, (i, j) in enumerate(self.tiles):
+            tilemap[i, j] = t
+        sched = native.pair_schedule(A_csc, slot_of, b, tilemap)
+        if sched is not None:
+            ws, ks, dst = sched
+        else:
+            ws, ks, dst = [], [], []
+            for k in range(A_csc.shape[1]):
+                lo, hi = A_csc.indptr[k], A_csc.indptr[k + 1]
+                rows = A_csc.indices[lo:hi]
+                vals = A_csc.data[lo:hi]
+                slots = slot_of[rows]
+                for a in range(len(rows)):
+                    for c in range(a + 1):
+                        sa, sc = int(slots[a]), int(slots[c])
+                        shi, slo_ = (sa, sc) if sa >= sc else (sc, sa)
+                        t = tilemap[shi // b, slo_ // b]
+                        if t < 0:
+                            raise AssertionError(
+                                "N entry outside the resident tile set")
+                        w = vals[a] * vals[c]
+                        ws.append(w)
+                        ks.append(k)
+                        dst.append(t * b * b + (shi % b) * b + (slo_ % b))
+                        if shi != slo_ and shi // b == slo_ // b:
+                            # The tile factor may read the whole tile:
+                            # mirror off-diagonals inside diagonal tiles.
+                            ws.append(w)
+                            ks.append(k)
+                            dst.append(t * b * b + (slo_ % b) * b + (shi % b))
+        ws = np.asarray(ws, np.float64)
+        ks = np.asarray(ks, np.int64)
+        dst = np.asarray(dst, np.int64)
+        order = np.argsort(dst, kind="stable")
+        dst = dst[order]
+        put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        self.asm_w = put(ws[order]).to(dtype)
+        self.asm_k = put(ks[order])
+        self.asm_dst_flat = put(dst)
+        self.n_pairs = len(ws)
+        run_dst, run_start = np.unique(dst, return_index=True)
+        self.asm_run_start = put(np.append(run_start, len(dst)).astype(np.int64))
+        self.asm_run_dst = put(run_dst.astype(np.int64))
+
+    def assemble_pairs(self, d, row_boost=None):
+        """Resident tiles of P(A·D)(A·D)ᵀPᵀ from the pair schedule, plus the
+        boosted unit diagonal of padded and gap slots (and ``row_boost`` on
+        the first len(row_boost) rows): the hand-written kernel on a CUDA
+        tensor, :meth:`_assemble_pairs_plain` on a CPU tensor."""
+        if row_boost is None:
+            row_boost = torch.zeros(0, dtype=self.asm_w.dtype, device=d.device)
+        if d.is_cuda:
+            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+            return tiled_cuda.assemble_pairs(self, d, row_boost)
+        return self._assemble_pairs_plain(d, row_boost)
+
+    def _assemble_pairs_plain(self, d, row_boost):
+        """The plain version: one gather of d², one multiply, one sorted
+        ``index_add_``, then the boost."""
+        b = self.b
+        dt = self.asm_w.dtype
+        d2 = (d * d).to(dt)
+        vals = self.asm_w * d2[self.asm_k]
+        flat = torch.zeros((self.NT + 1) * b * b, dtype=dt, device=d.device)
+        tiles = flat.index_add_(0, self.asm_dst_flat, vals).reshape(
+            self.NT + 1, b, b)
+        tiles[self.NT] = 0.0
+        rb = F.pad(row_boost.to(dt), (0, self.B * b - row_boost.shape[0]),
+                   value=1.0)
+        boost_p = rb[self.pperm].reshape(self.B, b)
+        eye = torch.eye(b, dtype=dt, device=d.device)
+        tiles[self.diag_ids] += eye[None] * boost_p[:, :, None]
+        return tiles
+
+    # ---- factor and solve -----------------------------------------------
+
+    def factorize(self, tiles):
+        """One host loop over the panels; per panel one tile factor +
+        inverse, one batched TRSM, one batched SYRK + index_add_.  Leaves
+        ``tiles`` as it is.  Returns (L_tiles, invdiag, ok)."""
+        b = self.b
+        L = tiles.clone()
+        invd = torch.zeros((self.B, b, b), dtype=tiles.dtype, device=tiles.device)
+        for k in range(self.B):
+            chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k])
+            nr = self._n_rows[k]
+            if nr:
+                rid = self.rows_ids[k, :nr]
+                L.index_copy_(0, rid, torch.matmul(L[rid], invd[k].T))
+            ns = self._n_syrk[k]
+            if ns:
+                sa, sb = self.syrk_a[k, :ns], self.syrk_b[k, :ns]
+                U = torch.matmul(L[sa], L[sb].transpose(1, 2))
+                L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
+        diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
+        ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
+        return L, invd, ok
+
+    def solve(self, tiles, invd, rhs):
+        """Blocked forward and backward substitution with the stored tile
+        inverses: one gather + one batched matvec per panel."""
+        b, B = self.b, self.B
+        r = rhs.reshape(B, b)
+        y = torch.zeros((B + 1, b), dtype=tiles.dtype, device=tiles.device)
+        for k in range(B):
+            acc = r[k]
+            nf = self._n_fwd[k]
+            if nf:
+                Ls = tiles[self.fwd_ids[k, :nf]]
+                ys = y[self.fwd_j[k, :nf]]
+                acc = acc - torch.matmul(Ls, ys[:, :, None]).sum(0)[:, 0]
+            y[k] = invd[k] @ acc
+        z = torch.zeros((B + 1, b), dtype=tiles.dtype, device=tiles.device)
+        for k in range(B - 1, -1, -1):
+            acc = y[k]
+            nr = self._n_rows[k]
+            if nr:
+                Ls = tiles[self.rows_ids[k, :nr]]  # L[i, k] tiles
+                zs = z[self.rows_i[k, :nr]]
+                acc = acc - torch.matmul(zs[:, None, :], Ls).sum(0)[0]
+            z[k] = invd[k].T @ acc
+        return z[:B].reshape(B * b)
+
+    def _factorize_dbound(self, tiles, dbound):
+        """factorize with the CHOLMOD-dbound singular retry: on failure,
+        refactor once with dbound·max(diag) added to the diagonal tiles."""
+        L, invd, ok = self.factorize(tiles)
+        if dbound <= 0.0 or bool(ok):
+            return L, invd, ok
+        eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
+        diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
+        tiles2 = tiles.clone()
+        tiles2[self.diag_ids] += dbound * torch.max(diags) * eye[None]
+        return self.factorize(tiles2)
+
+    # ---- the fully sparse normal equations ------------------------------
+
+    def prepare_normal_ell(self, E, ET, d, m, row_boost=None, refine_steps=0,
+                           dbound: float = 0.0, krylov_steps: int = 0,
+                           krylov_gate=None, EB=None, ETB=None):
+        """Factor once, solve many, from sparse operands: pair-schedule
+        assembly + planned tile factorization; each solve_fn(g) adds
+        double-word refinement against the unassembled operator.  ``E`` /
+        ``ET`` are the ELL forms of A and Aᵀ, ``EB`` / ``ETB`` (both or
+        neither) the block-ELL forms the Richardson residuals then ride.
+        ``krylov_steps`` > 0 switches refinement to flexible PCG with the
+        tile factor as preconditioner, per call when ``krylov_gate`` (a
+        0-dim bool tensor) is given.  ``m`` is the row count.  Returns
+        (solve_fn, ok)."""
+        from cholesky_is_magic_tpu_torch.ops import sparse_ops
+
+        n_pad = self.B * self.b
+        boost = row_boost if row_boost is not None else torch.zeros(
+            m, dtype=d.dtype, device=d.device)
+        tiles = self.assemble_pairs(d, boost)
+        L, invd, ok = self._factorize_dbound(tiles, dbound)
+        d2 = ddm.two_prod(d, d) if refine_steps else None
+        rows = self.slot_of[:m]
+
+        def raw_solve(r):
+            rp = F.pad(r, (0, n_pad - m))[self.pperm]
+            return self.solve(L, invd, rp)[rows]
+
+        use_bell = EB is not None and ETB is not None
+        if use_bell:
+            from cholesky_is_magic_tpu_torch.ops import bell as bell_ops
+
+        def richardson_fn(g):
+            y = raw_solve(g)
+            for _ in range(refine_steps):
+                if use_bell:
+                    t = bell_ops.dd_matvec(ETB, y)  # Aᵀ y
+                    u = ddm.dd_mul(t, d2)  # d² ∘ Aᵀ y
+                    v = bell_ops.dd_matvec_dd(EB, u)  # A (d² Aᵀ y)
+                else:
+                    t = sparse_ops.dd_matvec(ET, y)
+                    u = ddm.dd_mul(t, d2)
+                    v = sparse_ops.dd_matvec_dd(E, u)
+                v = ddm.dd_add_w(v, boost * y)
+                r = ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
+                y = y + raw_solve(r)
+            return torch.where(ok, y, torch.zeros_like(y))
+
+        if krylov_steps > 0:
+            from cholesky_is_magic_tpu_torch.ops import krylov
+
+            def pcg_fn(g):
+                x = krylov.pcg_refine(
+                    precond=raw_solve,
+                    apply_n=krylov.ell_normal_apply(E, ET, d, boost),
+                    residual_dd=krylov.ell_residual_dd(E, ET, d, g, boost),
+                    b=g,
+                    iters=krylov_steps,
+                )
+                y = x.to_working()
+                return torch.where(ok, y, torch.zeros_like(y))
+
+            return krylov.gated(pcg_fn, richardson_fn, krylov_gate), ok
+
+        return richardson_fn, ok
+
+    def solve_normal_ell(self, E, ET, d, g, row_boost=None, refine_steps=0,
+                         dbound: float = 0.0, krylov_steps: int = 0,
+                         EB=None, ETB=None):
+        """(A·D)(A·D)ᵀ y = g entirely from sparse operands (see
+        prepare_normal_ell).  Returns (y, ok)."""
+        solve_fn, ok = self.prepare_normal_ell(
+            E, ET, d, g.shape[0], row_boost=row_boost,
+            refine_steps=refine_steps, dbound=dbound,
+            krylov_steps=krylov_steps, EB=EB, ETB=ETB,
+        )
+        return solve_fn(g), ok
+
+    def _dense_a(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the dense-A tile engine path (assemble / prepare_normal / "
+            "solve_normal) is not ported; use the pair-schedule path")
+
+    assemble = prepare_normal = solve_normal = _dense_a

@@ -2,8 +2,8 @@
 
 ``solve(afiro, "pdas_dd")`` in f64 agrees with the JAX package's within
 1e-8 relative and reaches the published optimum; ``solve(afiro, "pdas")``
-takes the same iterations; the unported options raise
-NotImplementedError."""
+takes the same iterations; the unported options (the other solver families,
+sparse affine, presolve, crossover) raise NotImplementedError."""
 
 import os
 
@@ -56,8 +56,8 @@ def test_solve_pdas_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [dict(solver="affine"), dict(solver="alm"),
-                                dict(sparse=True), dict(presolve=True),
-                                dict(crossover=True)])
+                                dict(sparse=True, solver="affine"),
+                                dict(presolve=True), dict(crossover=True)])
 def test_unported_front_door_options_raise(kw):
     solver = kw.pop("solver", "pdas_dd")
     with pytest.raises(NotImplementedError):

@@ -1,4 +1,6 @@
-"""The hand-written CUDA double-word kernels on the card.
+"""The hand-written CUDA kernels on the card: the double-word matvecs, the
+blocked Cholesky (tile, panel, Schur) and the pair-schedule assembly, each
+against its plain PyTorch version, and the dense and sparse afiro solves.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -13,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from cholesky_is_magic_tpu_torch.ops import chol, chol_cuda
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops import dd_cuda
+from cholesky_is_magic_tpu_torch.sparse import tiled, tiled_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +99,107 @@ def test_solve_afiro_on_the_card(dev):
     rep = cimt.solve(AFIRO, "pdas_dd", device="cuda")
     assert rep.summary["gap"] <= 1e-8
     assert abs(rep.objective + 464.75314285714285) <= 1e-7 * 464.75314285714285
+
+
+def _spd(n, seed, dev):
+    """A well-conditioned SPD f32 matrix on the card."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    return torch.tensor(M @ M.T / n + np.eye(n), dtype=torch.float32,
+                        device=dev)
+
+
+def _rel_err(a, b):
+    return ((a.double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("b", [1, 5, 16, 64, 96, 127, 128])
+def test_potrf_tile_matches_plain_and_truth(dev, b):
+    """L·Lᵀ within 32·eps32 of N (f64 truth, relative in the Frobenius
+    norm); L and L⁻¹ within 64·eps32 of the plain version, relative to
+    their largest entry; only the lower triangle is read; upper triangles
+    are exact zeros."""
+    N = _spd(b, b, dev)
+    T = N.clone()
+    iu = torch.triu_indices(b, b, 1, device=dev)
+    T[iu[0], iu[1]] = float("nan")
+    inv = torch.empty_like(T)
+    before = chol_cuda.LAUNCHES["potrf_tile"]
+    chol.factor_tile_(T, inv)
+    torch.cuda.synchronize()
+    assert chol_cuda.LAUNCHES["potrf_tile"] == before + 1
+    L64 = T.double()
+    rel = (torch.linalg.norm(L64 @ L64.T - N.double())
+           / torch.linalg.norm(N.double())).item()
+    assert rel <= 32 * EPS32
+    Lp, Ip = chol._factor_tile_plain(N)
+    assert _rel_err(T, Lp) <= 64 * EPS32 and _rel_err(inv, Ip) <= 64 * EPS32
+    assert bool((torch.triu(T, 1) == 0).all() & (torch.triu(inv, 1) == 0).all())
+
+
+def test_potrf_tile_non_pd_is_all_nan(dev):
+    T = _spd(64, 2, dev)
+    T[30, 30] = -1.0
+    inv = torch.empty_like(T)
+    chol.factor_tile_(T, inv)
+    assert bool(torch.isnan(T).all() & torch.isnan(inv).all())
+
+
+@pytest.mark.parametrize("n", [1, 100, 128, 129, 300, 515])
+def test_potrf_matches_plain(dev, n):
+    """The panel loop (tile, panel and Schur kernels) against the plain
+    blocked_cholesky and cholesky_ex: within 64·eps32 of the largest
+    entry; the upper triangle exactly zero; N untouched."""
+    N = _spd(n, n, dev)
+    N0 = N.clone()
+    before = dict(chol_cuda.LAUNCHES)
+    L = chol.cholesky(N)
+    torch.cuda.synchronize()
+    panels = -(-n // chol_cuda.BLOCK)
+    assert chol_cuda.LAUNCHES["potrf_tile"] == before["potrf_tile"] + panels
+    assert chol_cuda.LAUNCHES["potrf_schur"] == before["potrf_schur"] + panels - 1
+    assert torch.equal(N, N0)
+    assert bool((torch.triu(L, 1) == 0).all())
+    for plain in (chol.blocked_cholesky(N), torch.linalg.cholesky_ex(N)[0]):
+        assert _rel_err(L, plain) <= 64 * EPS32
+    bad = N.clone()
+    bad[n // 2, n // 2] = -1.0
+    assert not bool(torch.isfinite(chol.cholesky(bad)).all())
+
+
+@pytest.mark.parametrize("block", [8, 16, 32])
+def test_assemble_pairs_matches_plain_and_repeats_bit_for_bit(dev, block):
+    """Within 8·eps32·Σ|w·d²| of the plain version per entry (the plain
+    index_add_ sums in another order on the card); two runs are equal."""
+    rng = np.random.default_rng(block)
+    m, n = 150, 260
+    A = (rng.random((m, n)) < 0.04) * rng.normal(size=(m, n))
+    A[np.arange(m), np.arange(m)] += 2.0
+    eng = tiled.engine_for_sparse(A, block=block, device=dev)
+    d = torch.tensor(rng.random(n) + 0.5, dtype=torch.float32, device=dev)
+    boost = torch.tensor((rng.random(m) < 0.1) * 1.0, dtype=torch.float32,
+                         device=dev)
+    before = tiled_cuda.LAUNCHES["assemble_pairs"]
+    t1 = eng.assemble_pairs(d, boost)
+    t2 = eng.assemble_pairs(d, boost)
+    torch.cuda.synchronize()
+    assert tiled_cuda.LAUNCHES["assemble_pairs"] == before + 2
+    assert torch.equal(t1, t2)
+    plain = eng._assemble_pairs_plain(d, boost)
+    mag = torch.zeros_like(plain).reshape(-1).index_add_(
+        0, eng.asm_dst_flat, (eng.asm_w * (d * d)[eng.asm_k]).abs())
+    err = (t1 - plain).abs().reshape(-1)
+    assert bool((err <= 8 * EPS32 * mag).all())
+
+
+def test_solve_sparse_afiro_on_the_card(dev):
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = (chol_cuda.LAUNCHES["potrf_tile"],
+              tiled_cuda.LAUNCHES["assemble_pairs"])
+    rep = cimt.solve(AFIRO, "pdas_dd", sparse=True, block=16, device="cuda",
+                     max_iters=300)
+    assert chol_cuda.LAUNCHES["potrf_tile"] > before[0]
+    assert tiled_cuda.LAUNCHES["assemble_pairs"] > before[1]
+    assert abs(rep.objective + 464.75314285714285) <= 1e-5 * 464.75314285714285

@@ -20,6 +20,7 @@ import torch
 
 from cholesky_is_magic_tpu.ops import dd as jdd
 from cholesky_is_magic_tpu_torch.ops import dd as tdd
+from cholesky_is_magic_tpu_torch.ops import cuda_build
 from cholesky_is_magic_tpu_torch.ops import dd_cuda
 
 torch.set_num_threads(1)
@@ -173,7 +174,7 @@ def test_missing_nvcc_is_a_clear_error(monkeypatch, tmp_path):
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("this machine has the CUDA toolkit")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        dd_cuda.find_nvcc()
+        cuda_build.find_nvcc()
 
 
 def test_nvcc_found_through_cuda_home(monkeypatch, tmp_path):
@@ -182,24 +183,26 @@ def test_nvcc_found_through_cuda_home(monkeypatch, tmp_path):
     nvcc.write_text("#!/bin/sh\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    assert dd_cuda.find_nvcc() == str(nvcc)
+    assert cuda_build.find_nvcc() == str(nvcc)
 
 
 def test_library_is_keyed_by_the_sources(monkeypatch, tmp_path):
-    real = dd_cuda.sources()
-    assert [p.name for p in real] == ["dd_matvec.cu"]
-    path = dd_cuda.library_path()
-    assert path.parent == dd_cuda.BUILD_DIR
+    real = cuda_build.sources()
+    assert [p.name for p in real] == ["assemble_pairs.cu", "dd_matvec.cu",
+                                      "potrf.cu"]
+    path = cuda_build.library_path()
+    assert path.parent == cuda_build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "cim_torch_kernels")
-    assert "--fmad=false" in dd_cuda.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in dd_cuda.NVCC_FLAGS
-    assert not any("fast_math" in f for f in dd_cuda.NVCC_FLAGS)
-    src = tmp_path / "dd_matvec.cu"
-    src.write_bytes(real[0].read_bytes())
-    monkeypatch.setattr(dd_cuda, "CSRC_DIR", tmp_path)
-    assert dd_cuda.library_path() == path
-    src.write_bytes(real[0].read_bytes() + b"\n// edited\n")
-    assert dd_cuda.library_path() != path
+    assert "--fmad=false" in cuda_build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in cuda_build.NVCC_FLAGS)
+    for src in real:
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    assert cuda_build.library_path() == path
+    edited = tmp_path / "potrf.cu"
+    edited.write_bytes(edited.read_bytes() + b"\n// edited\n")
+    assert cuda_build.library_path() != path
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (31, 7), (512, 1024), (1441, 5093),
