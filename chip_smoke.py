@@ -13,19 +13,23 @@ script then exits non-zero and never prints its last line):
    (rtol = atol = 1e-11), against the plain PyTorch version on the card at
    (1441, 5093) and (1536, 5120) (within 64·eps32² of Σ|a_ij x_j| per
    output), and kernel vs plain median times by CUDA events at
-   (1536, 5120) and (4096, 8192);
+   (1536, 5120) and (4096, 8192), the L2 cache flushed before each run;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum;
 5. pilot — the constructed-optimum LP at the pilot scale (1441 x 5093,
    padded to 1536 x 5120, f32): the main path.  Launch counters are reset
    just before and read just after; both kernels must have launched.  Gap
    <= 1e-8, objective error <= 1e-7; then a second, timed solve.
-6. chol + assembly kernels — the tile kernel on SPD tiles (b = 16, 64,
-   96, 128) against the f64 truth (||L·Lᵀ - N|| / ||N|| <= 32·eps32) and
-   its plain version (reconstructions within 64·eps32 of ||N||, the
-   inverse within 64·eps32 of max|L⁻¹| and |L⁻¹·L - I| <= 64·eps32, both
-   upper triangles exactly zero), a non-PD tile giving an all-NaN factor
-   and inverse (ok False); ``factorize(N, use_pallas=True)`` on a pilot-size
+6. chol + assembly kernels — the tile kernel on SPD tiles (b = 16, 33, 64,
+   96, 128; at 160 and 256 ``factor_tile_`` splits the tile around it)
+   against the f64 truth (||L·Lᵀ - N|| / ||N|| <= 32·eps32) and its plain
+   version (reconstructions within 64·eps32 of ||N||, the inverse within
+   64·eps32 of max|L⁻¹| and |L⁻¹·L - I| <= 64·eps32, both upper triangles
+   exactly zero), with kernel and plain median times at b = 128 and 256
+   and the tile kernel's own time over back-to-back launches (CUDA
+   events, so no profiler runs before the timed solves); a non-PD 64 tile and
+   a 256 tile with its non-PD pivot in the trailing half giving an all-NaN
+   factor and inverse (ok False); ``factorize(N, use_pallas=True)`` on a pilot-size
    N (1536 x 1536, A·D²·Aᵀ of the phase-5 LP) with its launch counters
    reset before and read after (the panel and Schur kernels' path), held
    against the f64 truth and the plain blocked_cholesky and cholesky_ex,
@@ -41,7 +45,15 @@ script then exits non-zero and never prints its last line):
    on their own; launch counters are reset just before the solve and read
    just after; the tile and assembly kernels must have launched.  Gap
    <= 1e-6, objective error <= 1e-5; then a second, timed solve and a
-   per-stage timing of one factorization and its solves.
+   per-stage timing of one factorization and its solves;
+9. block 256 — the same LP at block 256 (every diagonal tile split around
+   the tile kernel), launch counters reset before and read after (the tile
+   kernel must have launched), the same bars; a second, timed solve, and
+   one factorization timed beside block 128's.
+
+Each kernel in the JSON line carries its bound: the larger of the bytes it
+must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
+tensor cores; H100 SXM data sheet), from this run's shapes.
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -84,6 +96,9 @@ AT_SCALE_M = 16384
 # The at-scale recipe of the JAX package's api.solve docstring (:439-440).
 AT_SCALE_KW = dict(sparse=True, block=128, mehrotra=True, entry_repair_tol=1e-6,
                    device="cuda", dtype=torch.float32)
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12     # H100 SXM FP32 outside the tensor cores
+L2_BYTES = 50 * 2**20
 
 
 def say(*parts):
@@ -140,11 +155,27 @@ def _reset(*counters):
             c[k] = 0
 
 
-def _median_ms(fn, reps=20):
+def _bound(nbytes, flops):
+    """The least time the card could take (``bound_ms``) and which of bytes
+    or operations sets it (``bound_by``)."""
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_f = flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_b, t_f), "bound_by": "bytes" if t_b >= t_f else "operations"}
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _median_ms(fn, reps=20, flush=None):
+    """Median ms of fn() by CUDA events; ``flush``, a buffer larger than the
+    L2 cache, is overwritten before each run (outside the timed region)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -153,6 +184,25 @@ def _median_ms(fn, reps=20):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _tile_kernel_ms(chol_cuda, N, reps=200):
+    """Device ms per launch of the tile kernel alone: ``reps`` launches back
+    to back, each on its own copy of N, between two CUDA events.  A launch
+    runs longer on the card than the host takes to launch it, so the card
+    does not wait on the host."""
+    T, inv = N.expand(reps, *N.shape).clone(), torch.empty(reps, *N.shape, device="cuda")
+    chol_cuda.potrf_tile_(N.clone(), inv[0])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for r in range(reps):
+        chol_cuda.potrf_tile_(T[r], inv[r])
+    ev[1].record()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(T).all()):
+        raise AssertionError("the tile kernel failed on copies of an SPD tile")
+    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def phase_kernels(ddm):
@@ -189,6 +239,7 @@ def phase_kernels(ddm):
             if (m, n) == (1536, 5120):
                 stats[which] = {"max_abs_err": err.max().item()}
 
+    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
     for m, n in ((1536, 5120), (4096, 8192)):
         A, x, y = _inputs(m, n, 7)
         runs = {
@@ -197,15 +248,21 @@ def phase_kernels(ddm):
                     lambda: ddm._dd_matvec_plain(A.T, y)),
         }
         for which, (kern, plain) in runs.items():
-            p1, k1, k2, p2 = (_median_ms(f) for f in (plain, kern, kern, plain))
+            p1, k1, k2, p2 = (_median_ms(f, flush=flush)
+                              for f in (plain, kern, kern, plain))
             k, p = min(k1, k2), min(p1, p2)
             gbs = m * n * 4 / (k * 1e-3) / 1e9
             say(f"[kernels] {which} ({m}, {n}) median ms: kernel {k1:.4f} {k2:.4f}"
                 f"  plain {p1:.4f} {p2:.4f}  (kernel reads A at {gbs:.0f} GB/s)")
             if (m, n) == (1536, 5120):
-                stats[which].update(ms=k, plain_ms=p)
+                # Each element of A read once; 14 flops per element (the
+                # product and its error, the compensated accumulation).
+                nout = m if which == "mv" else n
+                stats[which].update(ms=k, plain_ms=p, library_ms=None, **_bound(
+                    _nbytes(A) + 4 * (m + n - nout) + 8 * nout, 14 * m * n))
         del A, x, y
         torch.cuda.empty_cache()
+    del flush
     return stats
 
 
@@ -273,7 +330,7 @@ def _spd(n, seed):
 def phase_chol(chol, chol_cuda, dense, stats):
     """The tile kernel and the blocked potrf against the truth and their
     plain versions; the panel and Schur kernels' path and times."""
-    for b in (16, 64, 96, 128):
+    for b in (16, 33, 64, 96, 128, 160, 256):
         N = _spd(b, b)
         T, inv = N.clone(), torch.empty_like(N)
         chol.factor_tile_(T, inv)
@@ -296,23 +353,34 @@ def phase_chol(chol, chol_cuda, dense, stats):
                 and bool((torch.triu(T, 1) == 0).all())
                 and bool((torch.triu(inv, 1) == 0).all())):
             raise AssertionError(f"tile kernel at b={b}")
-        if b == 128:
-            stats["potrf_tile"] = {"max_abs_err": err}
+        if b in (128, 256):
             work = N.clone()
-            k1 = _median_ms(lambda: (work.copy_(N), chol.factor_tile_(work, inv)))
-            p1 = _median_ms(lambda: chol._factor_tile_plain(N))
-            stats["potrf_tile"].update(ms=k1, plain_ms=p1)
-            say(f"[chol] tile b=128 median ms (with the tile copy): kernel {k1:.4f}"
-                f"  plain (cholesky_ex + solve_triangular) {p1:.4f}")
-    bad = _spd(64, 5)
-    bad[30, 30] = -1.0
-    inv = torch.empty_like(bad)
-    chol.factor_tile_(bad, inv)
-    ok = bool(torch.isfinite(bad).all())
-    all_nan = bool(torch.isnan(bad).all()) and bool(torch.isnan(inv).all())
-    say(f"[chol] non-PD tile: ok {ok} (L and inverse all NaN {all_nan})")
-    if ok or not all_nan:
-        raise AssertionError("a non-PD tile did not come back all NaN")
+            tile = lambda: (work.copy_(N), chol.factor_tile_(work, inv))  # noqa: E731
+            plain = lambda: chol._factor_tile_plain(N)  # noqa: E731
+            p1, k1, k2, p2 = (_median_ms(f) for f in (plain, tile, tile, plain))
+            say(f"[chol] tile b={b} median ms (with the tile copy): "
+                f"factor_tile_ {k1:.4f} {k2:.4f}  plain (cholesky_ex + "
+                f"solve_triangular) {p1:.4f} {p2:.4f} ({-(-b // chol_cuda.BLOCK)}"
+                f" tile-kernel launches per tile)")
+        if b == 128:
+            say(f"[chol] tile kernel alone at b=128, back-to-back launches: "
+                f"{_tile_kernel_ms(chol_cuda, N):.4f} ms each")
+            # Reads the lower triangle, writes L and L⁻¹; b³/3 flops for the
+            # factor and b³/3 for the inverse.
+            stats["potrf_tile"] = dict(
+                max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                **_bound(4 * (b * (b + 1) // 2 + 2 * b * b), 2 * b**3 / 3))
+    for b, pivot in ((64, 30), (256, 200)):
+        bad = _spd(b, 5)
+        bad[pivot, pivot] = -1.0
+        inv = torch.empty_like(bad)
+        chol.factor_tile_(bad, inv)
+        ok = bool(torch.isfinite(bad).all())
+        all_nan = bool(torch.isnan(bad).all()) and bool(torch.isnan(inv).all())
+        say(f"[chol] non-PD tile b={b}, pivot {pivot}: ok {ok} (L and inverse all"
+            f" NaN {all_nan})")
+        if ok or not all_nan:
+            raise AssertionError(f"a non-PD tile (b={b}) did not come back all NaN")
 
     # The dense path of the panel and Schur kernels: factorize(use_pallas).
     from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
@@ -349,8 +417,11 @@ def phase_chol(chol, chol_cuda, dense, stats):
     kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
     xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
     bt = _median_ms(lambda: chol.blocked_cholesky(N), 3)
-    say(f"[chol] n=1536 median ms: kernel potrf {kt[0]:.4f} {kt[1]:.4f}  "
-        f"cholesky_ex {xt[0]:.4f} {xt[1]:.4f}  plain blocked_cholesky {bt:.1f}")
+    n = N.shape[0]
+    full_bound = _bound(4 * n * (n + 1), n**3 / 3)["bound_ms"]
+    say(f"[chol] n={n} median ms: kernel potrf {kt[0]:.4f} {kt[1]:.4f}  "
+        f"cholesky_ex {xt[0]:.4f} {xt[1]:.4f}  plain blocked_cholesky {bt:.1f}"
+        f"  (bound {full_bound:.4f} ms, n³/3 flops)")
     stats["potrf_full"] = dict(ms=min(kt), cholesky_ex_ms=min(xt), plain_ms=bt)
 
     # The first panel step on its own: kernel vs its plain form.
@@ -381,18 +452,28 @@ def phase_chol(chol, chol_cuda, dense, stats):
         stats[name] = {"max_abs_err": err.max().item()}
     src = A0.clone()
     scratch = A0.clone()  # the panel and its strip at the matrix's row stride
+    rows = panel0.shape[0]
+    matmul_ms = _median_ms(lambda: panel0 @ inv.T)
+    # The panel: read it and the inverse's lower triangle, write it and its
+    # strip; b(b+1)/2 FMAs per row.  The Schur step: read and write S's lower
+    # triangle, read P; b FMAs per lower entry.
     stats["potrf_panel"].update(
         ms=_median_ms(lambda: (scratch[b:, :b].copy_(panel0),
                                chol_cuda.potrf_panel_(scratch[b:, :b], inv,
                                                       scratch[:b, b:]))),
-        plain_ms=_median_ms(lambda: panel0 @ inv.T))
+        plain_ms=matmul_ms, library_ms=matmul_ms,
+        **_bound(4 * (3 * rows * b + b * (b + 1) // 2), rows * b * (b + 1)))
+    tri = rows * (rows + 1) // 2
     stats["potrf_schur"].update(
         ms=_median_ms(lambda: chol_cuda.potrf_schur_(src[b:, b:], P)),
-        plain_ms=_median_ms(lambda: torch.tril(A0[b:, b:] - P @ P.T)))
+        plain_ms=_median_ms(lambda: torch.tril(A0[b:, b:] - P @ P.T)),
+        library_ms=_median_ms(lambda: torch.addmm(A0[b:, b:], P, P.T, alpha=-1)),
+        **_bound(4 * (2 * tri + rows * b), 2 * tri * b))
     say(f"[chol] first panel step median ms: panel kernel (with a restoring copy)"
         f" {stats['potrf_panel']['ms']:.4f}"
         f" plain {stats['potrf_panel']['plain_ms']:.4f};  schur kernel "
-        f"{stats['potrf_schur']['ms']:.4f} plain {stats['potrf_schur']['plain_ms']:.4f}")
+        f"{stats['potrf_schur']['ms']:.4f} plain {stats['potrf_schur']['plain_ms']:.4f}"
+        f" addmm {stats['potrf_schur']['library_ms']:.4f}")
     return launches
 
 
@@ -418,10 +499,18 @@ def phase_assembly(eng, stats):
         raise AssertionError("assemble_pairs disagrees with its plain version")
     k = [_median_ms(lambda: eng.assemble_pairs(d, boost)) for _ in range(2)]
     p = [_median_ms(lambda: eng._assemble_pairs_plain(d, boost)) for _ in range(2)]
-    say(f"[assembly] median ms: kernel {k[0]:.4f} {k[1]:.4f}  plain (index_add_) "
-        f"{p[0]:.4f} {p[1]:.4f}")
+    vals = eng.asm_w * (d * d)[eng.asm_k]
+    flat = torch.zeros_like(t1).reshape(-1)
+    lib = _median_ms(lambda: flat.index_add_(0, eng.asm_dst_flat, vals))
+    say(f"[assembly] median ms: kernel {k[0]:.4f} {k[1]:.4f}  plain {p[0]:.4f} "
+        f"{p[1]:.4f}  index_add_ of the finished products alone {lib:.4f}")
+    # The pair arrays, run offsets, d, the boost and the diagonal maps read
+    # once, the tiles written once; 3 flops per pair.
+    read = _nbytes(eng.asm_w, eng.asm_k, eng.asm_run_start, eng.asm_run_dst, d,
+                   boost, eng.diag_panel, eng.pperm)
     stats["assemble_pairs"] = dict(max_abs_err=err.max().item(), ms=min(k),
-                                   plain_ms=min(p))
+                                   plain_ms=min(p), library_ms=lib,
+                                   **_bound(read + _nbytes(t1), 3 * eng.n_pairs))
 
 
 def phase_sparse_afiro(cimt):
@@ -436,9 +525,9 @@ def phase_sparse_afiro(cimt):
         raise AssertionError(f"sparse afiro objective {rep.objective}")
 
 
-def build_at_scale_engine():
-    """The m = 16384 LP and its engine, the host analysis and the pair
-    schedule timed on their own."""
+def build_at_scale_engine(sf=None, info=None, block=128):
+    """The m = 16384 LP (made unless given) and its engine at ``block``, the
+    host analysis and the pair schedule timed on their own."""
     import scipy.sparse as sp
 
     from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
@@ -448,12 +537,13 @@ def build_at_scale_engine():
     from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
 
     t = time.perf_counter()
-    sf, info = constructed_optimum_lp(m=AT_SCALE_M, seed=0)
+    if sf is None:
+        sf, info = constructed_optimum_lp(m=AT_SCALE_M, seed=0)
     t_lp = time.perf_counter() - t
     vals, _ = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
     A = sp.csc_matrix((vals, (sf.a_rows, sf.a_cols)), shape=(sf.ncons, sf.nvars))
     t = time.perf_counter()
-    plan = analyze(A, block=128)
+    plan = analyze(A, block=block)
     t_an = time.perf_counter() - t
     t = time.perf_counter()
     eng = TiledCholesky(plan, device="cuda")
@@ -464,14 +554,16 @@ def build_at_scale_engine():
     t_pairs = time.perf_counter() - t
     say(f"[at scale] constructed optimum LP {sf.ncons} x {sf.nvars}, nnz {len(sf.a_vals)}"
         f" (built in {t_lp:.3f} s); native symbolic library {native.available()}")
-    say(f"[at scale] host analysis {t_an:.3f} s, tile schedules {t_sched:.3f} s,"
+    say(f"[at scale] block {block}: host analysis {t_an:.3f} s, tile schedules {t_sched:.3f} s,"
         f" pair schedule {t_pairs:.3f} s: {eng.B} panels of {eng.b},"
         f" {eng.NT} resident tiles, {eng.n_pairs} pairs")
     return sf, info, eng
 
 
-def phase_at_scale(cimt, sf, info, counters, card):
-    kw = AT_SCALE_KW
+def phase_at_scale(cimt, sf, info, counters, card, kw=AT_SCALE_KW):
+    """One counted and checked solve at ``kw``, then one more, timed.
+    Returns the launches and the second report."""
+    tag = f"at scale, block {kw['block']}"
     _reset(*counters.values())
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -482,8 +574,8 @@ def phase_at_scale(cimt, sf, info, counters, card):
     ref = info["objective"]
     gap = rep.summary["gap"]
     obj_err = abs(rep.objective - ref) / abs(ref)
-    say(f"[at scale] first solve {first_s:.3f} s, kernel launches {launches}")
-    say(f"[at scale] status {rep.status}  iterations {rep.summary['phase1_iterations']}"
+    say(f"[{tag}] first solve {first_s:.3f} s, kernel launches {launches}")
+    say(f"[{tag}] status {rep.status}  iterations {rep.summary['phase1_iterations']}"
         f" + {rep.summary['iterations']}  gap {gap:.3e}  objective {rep.objective:.10f}"
         f"  objective error {obj_err:.3e}  krylov_escalated "
         f"{rep.summary.get('krylov_escalated', False)}  repair "
@@ -492,12 +584,12 @@ def phase_at_scale(cimt, sf, info, counters, card):
         raise AssertionError(f"a kernel of the sparse path never launched: {launches}")
     if not (np.isfinite(rep.result.x.cpu().numpy()).all() and gap <= 1e-6
             and obj_err <= 1e-5):
-        raise AssertionError(f"at scale: gap {gap} / objective error {obj_err}")
+        raise AssertionError(f"{tag}: gap {gap} / objective error {obj_err}")
     torch.cuda.synchronize()
     t = time.perf_counter()
     rep2 = cimt.solve(sf, "pdas_dd", **kw)
     torch.cuda.synchronize()
-    say(f"[at scale] second solve wall-clock {time.perf_counter() - t:.3f} s "
+    say(f"[{tag}] second solve wall-clock {time.perf_counter() - t:.3f} s "
         f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
         f"iterations, gap {rep2.summary['gap']:.3e}) on {card}")
     return launches, rep2
@@ -617,6 +709,39 @@ def phase_breakdown(cimt, sf, eng, rep, chol):
         f"diagonal tiles: {ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events), ok {bool(ok)}")
 
 
+def _factorization_ms(eng):
+    """Median host-clock ms (synchronized) of one factorization of the
+    engine's tiles at a seeded column scaling; ok must hold."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    n = int(eng.asm_k.max().item()) + 1
+    d = 10.0 ** (3 * torch.rand(n, generator=g, device="cuda") - 1.5)
+    tiles = eng.assemble_pairs(d, torch.zeros(AT_SCALE_M, device="cuda"))
+    _, _, ok = eng.factorize(tiles)
+    if not bool(ok):
+        raise AssertionError(f"factorization at block {eng.b} failed")
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.factorize(tiles)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def phase_block256(cimt, sf, info, eng128, counters, card):
+    """The at-scale LP at block 256: a counted, checked solve, a timed one,
+    and one factorization beside block 128's."""
+    kw = dict(AT_SCALE_KW, block=256)
+    launches, _ = phase_at_scale(cimt, sf, info, counters, card, kw=kw)
+    if not launches["potrf_tile"] > 0:
+        raise AssertionError(f"block 256: the tile kernel never launched: {launches}")
+    _, _, eng256 = build_at_scale_engine(sf, info, block=256)
+    f128, f256 = _factorization_ms(eng128), _factorization_ms(eng256)
+    say(f"[block 256] one factorization: block 128 {f128:.3f} ms ({eng128.B} panels),"
+        f" block 256 {f256:.3f} ms ({eng256.B} panels) on {card}")
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -643,10 +768,12 @@ def main() -> int:
     launches.update(potrf_tile=sparse_launches["potrf_tile"],
                     assemble_pairs=sparse_launches["assemble_pairs"])
     phase_breakdown(cimt, sf, eng, rep, chol)
+    phase_block256(cimt, sf, info, eng, counters, card)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     kernels = [
         dict(KERNELS[k], route="cuda", launches=launches[k],
-             **{f: stats[k][f] for f in ("max_abs_err", "ms", "plain_ms")})
+             **{f: stats[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
         for k in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))

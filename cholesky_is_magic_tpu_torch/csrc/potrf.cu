@@ -11,7 +11,7 @@
 //                         memory and writes both the lower factor L and its
 //                         lower-triangular inverse.  The tile engine
 //                         (sparse/tiled.py) calls it once per panel on its
-//                         diagonal tile.
+//                         diagonal tile (ops/chol.py splits wider tiles).
 //   potrf_panel_kernel <- P = A_panel . Minv^T, written in place, and the
 //                         zeroing of the panel's upper strip.
 //   potrf_schur_kernel <- the trailing update S -= P . P^T, lower triangle.
@@ -27,15 +27,32 @@
 // products here use explicit __fmaf_rn, so they keep the fused multiply-add.
 //
 // What bounds them on the H100:
-//   tile:  b dependent column steps, two barriers each, a few thousand
-//          flops per step on one SM: latency-bound.  The design keeps the
-//          tile and its inverse in shared memory (2 b^2 floats, 128 KB at
-//          b = 128, above the 48 KB default, so the attribute is raised),
-//          builds the inverse in the same steps as the factor, walks each
-//          region row by row with a warp's lanes on neighbouring columns
-//          (no index division, no masked-off half of a square), and stages
-//          the pivot column in a separate vector so that the updates read
-//          shared memory without bank conflicts.
+//   tile:  one CTA on one SM.  The work is ~2 b^3 / 3 flops (factor plus
+//          inverse: 1.4 MFLOP at b = 128), 2.8 us of FP32 FMA at one SM's
+//          share of the card's 67 TFLOP/s, and a chain of b dependent pivots
+//          (shuffle, square root, division, shuffle, FMA) that no width of
+//          parallelism shortens.  An unblocked loop (one column per step, two
+//          CTA barriers each, rank-1 updates read from and written back to
+//          shared memory) spends ~2 us per step waiting on barriers and
+//          shared-memory latency.
+//          The kernel is right-looking over 32-column sub-panels instead:
+//          one warp factors and inverts the 32 x 32 diagonal block in
+//          registers (lane i holds row i of the block and column i of its
+//          inverse; the pivot column travels by __shfl_sync, no barrier);
+//          then all warps run register-tiled 4 x 4 products out of shared
+//          memory: the sub-panel below (L21 = A21 . X11^T), the block row of
+//          the inverse (X_pq = X_pp . Y_pq) and one fused trailing update
+//          that lowers A22 by L21 . L21^T and the running sums
+//          Y = -sum L . X of the inverse's later block rows by L21 . X_p.
+//          Three barriers per sub-panel (13 at b = 128 instead of 256).
+//          The tile, its inverse and one 32-row staging panel stay in
+//          shared memory (157 KB at b = 128; rows padded by 4 floats so that
+//          neighbouring rows fall in different banks), loaded by cp.async.
+//          Measured with clock64() probes on an H100
+//          (tools/probe_tile_kernel.py): the four diagonal blocks are half of
+//          the kernel's cycles, ~430 cycles (0.2 us) per column step; only
+//          the lanes that need a quotient divide, since __fdiv_rn of a zero
+//          or stale entry takes its slow path.
 //   panel: (rows x b) . (b x b): a block owns 32 rows, staged in shared
 //          memory with the transposed inverse, so the in-place write is safe.
 //   schur: a SIMT product of depth b over the trailing lower triangle,
@@ -47,76 +64,249 @@
 namespace {
 
 constexpr int kTileThreads = 512;
+constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kTileMax = 128;
+constexpr int kSub = 32;          // sub-panel width: one warp's diagonal block
+constexpr int kXtLd = kSub + 4;   // row stride of the transposed diagonal inverse
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPanelThreads = 256;
 constexpr int kPanelRows = 32;
 constexpr int kSchurTile = 64;
 constexpr int kSchurDepth = 16;
 constexpr int kSchurThreads = 256;
 
-__global__ void __launch_bounds__(kTileThreads)
+// Shared-memory row stride of the tile kernel: b rounded up to a multiple of
+// 4 (rows stay 16-byte aligned for float4 loads) plus 4 (neighbouring rows
+// start in different banks).
+__host__ __device__ inline int tile_ld(int b) { return ((b + 3) & ~3) + 4; }
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// acc[p][q] += sum_{k < 4 nk4} A[p][k] . B[k][q], A's rows at a + p * lda
+// (contiguous in k), B's rows at bm + k * ldb (contiguous in q); k ascending.
+__device__ __forceinline__ void mma4x4_rows(float (&acc)[4][4], const float* a,
+                                            int lda, const float* bm, int ldb,
+                                            int nk4) {
+  for (int k4 = 0; k4 < nk4; ++k4) {
+    float4 ra[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) ra[p] = lds4(a + p * lda + 4 * k4);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 rb = lds4(bm + (4 * k4 + kk) * ldb);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float av = lane_of(ra[p], kk);
+        acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
+        acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
+        acc[p][2] = __fmaf_rn(av, rb.z, acc[p][2]);
+        acc[p][3] = __fmaf_rn(av, rb.w, acc[p][3]);
+      }
+    }
+  }
+}
+
+// One warp factors the w x w diagonal block at (c0, c0) of Ls (lower
+// triangle read) and inverts the factor, in registers: lane i holds row i of
+// the block in a[] and column i of its inverse in x[]; rows and columns past
+// w are padded with the identity.  Column step j broadcasts the pivot and
+// the pivot column with __shfl_sync; the same square root, division, FMA
+// order and !(d > 0) test as the unblocked recurrence.  Writes L_pp (upper
+// zeros) into Ls, X_pp into Xs and into the staging rows Bs[k][c0 + i], and
+// X_pp^T into XT; raises *bad on a non-positive or NaN pivot.
+__device__ __forceinline__ void factor_diag_block(float* Ls, float* Xs, float* Bs,
+                                                  float* XT, int ld, int c0, int w,
+                                                  int* bad) {
+  const int i = threadIdx.x & 31;
+  float a[kSub], x[kSub];
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) {
+    a[k] = (i < w && k <= i) ? Ls[(c0 + i) * ld + c0 + k] : (k == i ? 1.0f : 0.0f);
+    x[k] = (k == i) ? 1.0f : 0.0f;
+  }
+  bool fail = false;
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    const float d = __shfl_sync(kFull, a[j], j);
+    fail |= !(d > 0.0f);
+    const float s = __fsqrt_rn(d);
+    // Only the lanes that need a quotient divide: the others hold exact
+    // zeros or stale upper entries, which send __fdiv_rn down its slow path.
+    float lij;
+    if (i > j) {
+      lij = __fdiv_rn(a[j], s);
+    } else {
+      lij = (i == j) ? s : 0.0f;
+      x[j] = __fdiv_rn(x[j], s);  // row j of the inverse is final
+    }
+    a[j] = lij;
+#pragma unroll
+    for (int k = j + 1; k < kSub; ++k) {
+      const float lkj = __shfl_sync(kFull, lij, k);
+      a[k] = __fmaf_rn(-lij, lkj, a[k]);  // A[i][k] -= L[i][j] L[k][j]
+      x[k] = __fmaf_rn(-lkj, x[j], x[k]);  // X[k][i] -= L[k][j] X[j][i]
+    }
+  }
+  if (i < w) {
+#pragma unroll
+    for (int k = 0; k < kSub; ++k) {
+      if (k < w) {
+        Ls[(c0 + i) * ld + c0 + k] = (k <= i) ? a[k] : 0.0f;
+        Xs[(c0 + k) * ld + c0 + i] = x[k];  // X_pp[k][i]
+        Bs[k * ld + c0 + i] = x[k];
+      }
+      XT[i * kXtLd + k] = x[k];  // XT[i][k] = X_pp[k][i]
+    }
+  }
+  if (i == 0 && fail) *bad = 1;
+}
+
+__global__ void __launch_bounds__(kTileThreads, 1)
 potrf_tile_kernel(float* __restrict__ A, long long lda, float* __restrict__ inv,
                   long long ldi, int b) {
-  extern __shared__ float smem[];
-  float* L = smem;          // b * b, row-major, leading dimension b
-  float* X = L + b * b;     // b * b: the inverse, built in place of I
-  float* col = X + b * b;   // b: the current column of L
+  extern __shared__ float4 smem4[];
+  const int ld = tile_ld(b);
+  const int b4 = (b + 3) & ~3;
+  float* Ls = reinterpret_cast<float*>(smem4);  // b4 x ld: the tile, then L
+  float* Xs = Ls + b4 * ld;   // b4 x ld: the inverse; below the current block
+                              // row, the running sums Y = -sum_r L_ir X_rq
+  float* Bs = Xs + b4 * ld;   // kSub x ld: the current block row's operands
+  float* XT = Bs + kSub * ld; // kSub x kXtLd: X_pp^T
   __shared__ int bad;
   const int tid = threadIdx.x;
-  const int bb = b * b;
+  const int lane = tid & 31, warp = tid >> 5;
   if (tid == 0) bad = 0;
-  for (int e = tid; e < bb; e += kTileThreads) {
-    const int r = e / b, c = e - r * b;
-    L[e] = (c <= r) ? A[r * lda + c] : 0.0f;
-    X[e] = (r == c) ? 1.0f : 0.0f;
+  // The lower triangle by asynchronous 4-byte copies (all of a thread's
+  // loads in flight at once), zeros everywhere else: the padding rows and
+  // columns must read as zeros.
+  for (int r = warp; r < b4; r += kTileWarps) {
+    for (int c = lane; c < ld; c += 32) {
+      if (r < b && c <= r) {
+        const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(Ls + r * ld + c));
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+                     "l"(A + r * lda + c));
+      } else {
+        Ls[r * ld + c] = 0.0f;
+      }
+      Xs[r * ld + c] = 0.0f;
+    }
   }
+  for (int e = tid; e < kSub * ld + kSub * kXtLd; e += kTileThreads) Bs[e] = 0.0f;
+  asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
 
-  // Right-looking unblocked factorization, one column per step, with the
-  // inverse built alongside (L X = I by forward substitution, one row of X
-  // per step).  Two barriers per step:
-  //   A: the pivot column j of L (scaled into col[]), and row j of X, which
-  //      every earlier step has finished updating, divided by L[j][j];
-  //   B: column j stored; the trailing lower triangle of L loses
-  //      col·colᵀ; the rows of X below j lose L[i][j]·X[j][:].
-  // Threads form 16 rows of 32 lanes: a warp walks one row of a region,
-  // its lanes on neighbouring columns.
-  const int lane = tid & 31, wrow = tid >> 5;
-  constexpr int kRows = kTileThreads / 32;
-  for (int j = 0; j < b; ++j) {
-    const float d = L[j * b + j];
-    const float s = __fsqrt_rn(d);
-    if (tid >= j && tid < b) {
-      col[tid] = (tid == j) ? s : __fdiv_rn(L[tid * b + j], s);
-    }
-    if (tid <= j) X[j * b + tid] = __fdiv_rn(X[j * b + tid], s);
-    if (tid == 0 && !(d > 0.0f)) bad = 1;
+  for (int c0 = 0; c0 < b; c0 += kSub) {
+    const int w = min(kSub, b - c0);
+    const int R0 = c0 + w;  // first row below the block; R0 < b only if w == kSub
+    // D: the diagonal block, one warp.
+    if (warp == 0) factor_diag_block(Ls, Xs, Bs, XT, ld, c0, w, &bad);
     __syncthreads();
-    if (tid >= j && tid < b) L[tid * b + j] = col[tid];
-    for (int i = j + 1 + wrow; i < b; i += kRows) {
-      const float ci = col[i];
-      for (int k = j + 1 + lane; k <= i; k += 32) {
-        L[i * b + k] = __fmaf_rn(-ci, col[k], L[i * b + k]);
+
+    // S: (a) L21 = A21 . X_pp^T, stored transposed in Bs[c][r] (r >= R0);
+    //    (b) X_pq = X_pp . Y_pq for the columns c < c0, stored in Bs[i][c].
+    // X_pp is lower-triangular, so (a) stops at depth c and (b) at depth i.
+    const int na = R0 < b ? ((b - R0 + 3) / 4) * (kSub / 4) : 0;
+    const int nbc = c0 / 4;
+    const int nb = ((w + 3) / 4) * nbc;
+    for (int t = tid; t < na + nb; t += kTileThreads) {
+      float acc[4][4] = {};
+      if (t < na) {
+        const int I = t / (kSub / 4), J = t % (kSub / 4);
+        const int r0 = R0 + 4 * I, cc = 4 * J;
+        mma4x4_rows(acc, Ls + r0 * ld + c0, ld, XT + cc, kXtLd, J + 1);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (r0 + p < b) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) Bs[(cc + q) * ld + r0 + p] = acc[p][q];
+          }
+        }
+      } else {
+        const int u = t - na;
+        const int I = u / nbc, J = u % nbc;
+        const int i0 = 4 * I, cc = 4 * J;
+        mma4x4_rows(acc, Xs + (c0 + i0) * ld + c0, ld, Xs + c0 * ld + cc, ld, I + 1);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (i0 + p < w) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) Bs[(i0 + p) * ld + cc + q] = acc[p][q];
+          }
+        }
       }
-      for (int c = lane; c <= j; c += 32) {
-        X[i * b + c] = __fmaf_rn(-ci, X[j * b + c], X[i * b + c]);
+    }
+    __syncthreads();
+
+    // U: for the rows r >= R0, one product of depth kSub with the staged
+    // block row B = [X_p,<R0 | L21^T]: Y[r][c] -= L21[r] . B[:, c] for
+    // c < R0, A22[r][c] -= L21[r] . L21[c] for R0 <= c <= r.  4 x 4 tiles of
+    // the lower region; row block I holds R0 / 4 + 1 + I of them.
+    if (R0 < b) {
+      const int base = R0 / 4 + 1;
+      const int nI = (b - R0 + 3) / 4;
+      const int nU = nI * base + nI * (nI - 1) / 2;
+      for (int t = tid; t < nU; t += kTileThreads) {
+        int I = 0, u = t;
+        while (u >= base + I) {
+          u -= base + I;
+          ++I;
+        }
+        const int r0 = R0 + 4 * I, cc = 4 * u;
+        float acc[4][4] = {};
+#pragma unroll 8
+        for (int k = 0; k < kSub; ++k) {
+          const float4 ra = lds4(Bs + k * ld + r0);
+          const float4 rb = lds4(Bs + k * ld + cc);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const float av = lane_of(ra, p);
+            acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
+            acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
+            acc[p][2] = __fmaf_rn(av, rb.z, acc[p][2]);
+            acc[p][3] = __fmaf_rn(av, rb.w, acc[p][3]);
+          }
+        }
+        float* dst = cc < R0 ? Xs : Ls;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int r = r0 + p;
+          if (r >= b) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int c = cc + q;
+            if (c <= r) dst[r * ld + c] = __fsub_rn(dst[r * ld + c], acc[p][q]);
+          }
+        }
       }
+      // L21 to its place (U reads it only from Bs).
+      for (int r = R0 + warp; r < b; r += kTileWarps) Ls[r * ld + c0 + lane] = Bs[lane * ld + r];
+    }
+    // The block row X_p,<c0 to its place (U reads it only from Bs).
+    for (int k = warp; k < w; k += kTileWarps) {
+      for (int c = lane; c < c0; c += 32) Xs[(c0 + k) * ld + c] = Bs[k * ld + c];
     }
     __syncthreads();
   }
 
   const bool fail = bad != 0;
   const float nan = __int_as_float(0x7fc00000);
-  for (int e = tid; e < bb; e += kTileThreads) {
-    const int r = e / b, c = e - r * b;
-    float lv = (c <= r) ? L[e] : 0.0f;
-    float xv = (c <= r) ? X[e] : 0.0f;
-    if (fail) {
-      lv = nan;
-      xv = nan;
+  for (int r = warp; r < b; r += kTileWarps) {
+    for (int c = lane; c < b; c += 32) {
+      float lv = (c <= r) ? Ls[r * ld + c] : 0.0f;
+      float xv = (c <= r) ? Xs[r * ld + c] : 0.0f;
+      if (fail) {
+        lv = nan;
+        xv = nan;
+      }
+      A[r * lda + c] = lv;
+      inv[r * ldi + c] = xv;
     }
-    A[r * lda + c] = lv;
-    inv[r * ldi + c] = xv;
   }
 }
 
@@ -200,7 +390,10 @@ potrf_schur_kernel(float* __restrict__ S, long long lds,
   }
 }
 
-size_t tile_smem(int b) { return (2 * static_cast<size_t>(b) * b + b) * sizeof(float); }
+size_t tile_smem(int b) {
+  const size_t b4 = (b + 3) & ~3;
+  return ((2 * b4 + kSub) * tile_ld(b) + kSub * kXtLd) * sizeof(float);
+}
 size_t panel_smem(int b) {
   return (static_cast<size_t>(b) * b + static_cast<size_t>(kPanelRows) * b) * sizeof(float);
 }

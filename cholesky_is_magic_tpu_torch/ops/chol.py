@@ -15,8 +15,9 @@ panels with the matrix resident in VMEM.  Here:
 - :func:`factor_tile_` factors one (b, b) diagonal tile of the sparse tile
   engine and inverts its factor (the tile engine's panel step,
   ``sparse/tiled.py:357-358`` of the JAX package): on a CUDA tensor the
-  hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`), on a CPU tensor
-  :func:`_factor_tile_plain`.
+  hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`, b <= 128), with
+  wider tiles split 2 x 2 around it (:func:`_factor_tile_split_`); on a CPU
+  tensor :func:`_factor_tile_plain` at any b.
 
 All of them give NaN on a non-positive-definite input, which the callers'
 finiteness checks report as a failed factorization.
@@ -25,6 +26,8 @@ finiteness checks report as a failed factorization.
 from __future__ import annotations
 
 import torch
+
+from cholesky_is_magic_tpu_torch.ops import chol_cuda
 
 # Below this size, factor with the sequential masked update instead of
 # recursing further (the JAX package's LEAF).
@@ -88,8 +91,6 @@ def cholesky(N: torch.Tensor) -> torch.Tensor:
     :func:`blocked_cholesky`, as the JAX ``cholesky()`` does off the TPU.
     """
     if N.is_cuda:
-        from cholesky_is_magic_tpu_torch.ops import chol_cuda
-
         return chol_cuda.potrf(N)
     return blocked_cholesky(N)
 
@@ -104,14 +105,44 @@ def _factor_tile_plain(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
+def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
+    """In place, as :func:`factor_tile_`, for a tile of any width: a 2 × 2
+    split at ``chol_cuda.BLOCK`` (the widest tile the card's tile kernel
+    takes), recursing on the trailing block while it is wider;
+    ``leaf_(T, inv)`` factors a block of at most that width in place (the
+    tile kernel on the card).  The inverse's lower-left block is the JAX
+    ``_tri_inv`` formula (``sparse/tiled.py:46-67``).  Only the lower
+    triangle of T is read, the upper triangles come back exactly zero, and
+    the whole L and L⁻¹ are NaN when either leaf meets a non-positive pivot
+    (a device-side fill, no host sync)."""
+    b, h = T.shape[-1], chol_cuda.BLOCK
+    if b <= h:
+        leaf_(T, inv)
+        return
+    T21, T22 = T[h:, :h], T[h:, h:]
+    X11, X22 = inv[:h, :h], inv[h:, h:]
+    leaf_(T[:h, :h], X11)
+    L21 = T21 @ X11.T
+    T21.copy_(L21)
+    T22.addmm_(L21, L21.T, alpha=-1)  # only its lower triangle is read next
+    _factor_tile_split_(T22, X22, leaf_)
+    inv[h:, :h].copy_(X22 @ (L21 @ X11)).neg_()
+    T[:h, h:].zero_()
+    inv[:h, h:].zero_()
+    bad = torch.isnan(T[0, 0]) | torch.isnan(T[h, h])
+    T.masked_fill_(bad, float("nan"))
+    inv.masked_fill_(bad, float("nan"))
+
+
 def factor_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
     """In place: T <- the lower factor of the (b, b) tile T (its lower
     triangle is read), inv <- that factor's inverse; upper triangles exactly
-    zero, everything NaN on a non-PD tile."""
+    zero, everything NaN on a non-PD tile.  On the card the tile kernel
+    factors tiles of at most ``chol_cuda.BLOCK`` and
+    :func:`_factor_tile_split_` splits wider ones around it; on the CPU
+    :func:`_factor_tile_plain`."""
     if T.is_cuda:
-        from cholesky_is_magic_tpu_torch.ops import chol_cuda
-
-        chol_cuda.potrf_tile_(T, inv)
+        _factor_tile_split_(T, inv, chol_cuda.potrf_tile_)
         return
     L, Li = _factor_tile_plain(T)
     T.copy_(L)

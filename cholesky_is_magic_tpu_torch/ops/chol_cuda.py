@@ -15,9 +15,11 @@ TPU kernel ``cholesky_is_magic_tpu/ops/pallas_chol.py`` ``_potrf_kernel``
   :func:`potrf_schur_` (``cim_potrf_schur_f32``: the trailing
   lower-triangle update S -= P·Pᵀ).
 
-What bounds them on the H100 (see the .cu file): the tile kernel is
-latency-bound (b dependent steps, two barriers each); the panel and Schur
-kernels are SIMT products that read their operands once per block.
+What bounds them on the H100 (see the .cu file): the tile kernel runs on
+one SM and is bound by its chain of b dependent pivots; it is blocked over
+32-column sub-panels (one warp factors each diagonal block in registers,
+all warps share the register-tiled products).  The panel and Schur kernels
+are SIMT products that read their operands once per block.
 
 The plain versions are ``ops.chol._factor_tile_plain`` (``cholesky_ex`` +
 ``solve_triangular``) and ``ops.chol.blocked_cholesky``.  ``LAUNCHES``
@@ -66,7 +68,8 @@ def potrf_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
     """In place on the card: T <- its lower Cholesky factor (lower triangle
     read, upper written as zeros), inv <- L⁻¹; both all-NaN on a non-PD
     tile.  T and inv are (b, b) f32 with contiguous rows, b <= 128 (views
-    into larger matrices are fine)."""
+    into larger matrices are fine; ``chol.factor_tile_`` splits wider
+    tiles around this kernel)."""
     _check_square(T, "potrf_tile_", BLOCK)
     _check_square(inv, "potrf_tile_", BLOCK)
     if inv.shape != T.shape or inv.device != T.device:

@@ -8,7 +8,9 @@ within 1e-12 relative.  So the port's ``factorize(use_pallas=True)`` is held
 against both JAX ``use_pallas=True`` and ``blocked=True``.  A non-PD input
 gives NaN and ``ok`` False in both.
 The tile factor of the sparse engine (``factor_tile_``) is held against
-the JAX engine's ``cholesky`` + ``solve_triangular``."""
+the JAX engine's ``cholesky`` + ``solve_triangular``; so is the 2 × 2 split
+that the card runs around its tile kernel for tiles wider than 128
+(``_factor_tile_split_``), here with the plain tile factor as its leaf."""
 
 import jax
 import jax.numpy as jnp
@@ -74,15 +76,31 @@ def test_factorize_options_match_jax(jax_opts, opts):
     np.testing.assert_array_equal(ft.L.numpy(), np.eye(40))
 
 
-@pytest.mark.parametrize("b", [1, 8, 16, 33])
+def _split_plain(T):
+    """The card's split route for wide tiles, in place, with the plain tile
+    factor (``factor_tile_`` on a CPU tensor) as its leaf; returns L⁻¹."""
+    inv = torch.empty_like(T)
+    tchol._factor_tile_split_(T, inv, tchol.factor_tile_)
+    return inv
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 33, 129, 160, 256])
 def test_factor_tile_matches_the_jax_engine_step(b):
+    """The plain tile factor (b <= 33) and the split route (b > 128) against
+    JAX's whole-tile cholesky + solve_triangular: L and L⁻¹ within 1e-10
+    (plain) and 1e-12 (split) relative, in f64."""
     T = _spd(b, b)
     Lj = jnp.linalg.cholesky(jnp.asarray(T))
     Ij = jax.scipy.linalg.solve_triangular(Lj, jnp.eye(b), lower=True)
     Tt = torch.from_numpy(np.tril(T) + np.triu(np.full((b, b), 7.0), 1))
-    inv = torch.empty_like(Tt)
-    tchol.factor_tile_(Tt, inv)  # reads the lower triangle only
-    assert _rel(Lj, Tt) <= 1e-10 and _rel(Ij, inv) <= 1e-10
+    split = b > chol_cuda.BLOCK
+    if split:
+        inv = _split_plain(Tt)  # reads the lower triangle only
+    else:
+        inv = torch.empty_like(Tt)
+        tchol.factor_tile_(Tt, inv)  # reads the lower triangle only
+    tol = 1e-12 if split else 1e-10
+    assert _rel(Lj, Tt) <= tol and _rel(Ij, inv) <= tol
     np.testing.assert_array_equal(np.triu(Tt.numpy(), 1), 0.0)
     np.testing.assert_array_equal(np.triu(inv.numpy(), 1), 0.0)
 
@@ -98,6 +116,21 @@ def test_factor_tile_non_pd_is_all_nan():
     # fails the engine's finiteness check.
     assert np.isnan(np.asarray(Lj)[np.tril_indices(16)]).all()
     assert bool(torch.isnan(Tt).all()) and bool(torch.isnan(inv).all())
+
+
+@pytest.mark.parametrize("b,pivot", [(256, 40), (256, 200), (160, 150)])
+def test_factor_tile_split_non_pd_is_all_nan(b, pivot):
+    """A non-positive pivot in the leading (pivot < 128) or the trailing
+    half of a split tile: the whole L and L⁻¹ NaN, ok False, as JAX's
+    whole-tile cholesky fails."""
+    bad = _spd(b, 2)
+    bad[pivot, pivot] = -1.0
+    Lj = jnp.linalg.cholesky(jnp.asarray(bad))
+    assert np.isnan(np.asarray(Lj)[np.tril_indices(b)]).all()
+    Tt = torch.from_numpy(bad)
+    inv = _split_plain(Tt)
+    assert bool(torch.isnan(Tt).all()) and bool(torch.isnan(inv).all())
+    assert not bool(torch.isfinite(Tt).all())  # the engine's ok is False
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card: the double-word matvecs, the
-blocked Cholesky (tile, panel, Schur) and the pair-schedule assembly, each
-against its plain PyTorch version, and the dense and sparse afiro solves.
+blocked Cholesky (tile, panel, Schur; tiles wider than 128 split around the
+tile kernel) and the pair-schedule assembly, each against its plain PyTorch
+version, and the dense and sparse solves (afiro; block 256).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -114,12 +115,13 @@ def _rel_err(a, b):
             / b.double().abs().max()).item()
 
 
-@pytest.mark.parametrize("b", [1, 5, 16, 64, 96, 127, 128])
+@pytest.mark.parametrize("b", [1, 5, 16, 33, 64, 96, 127, 128, 160, 256])
 def test_potrf_tile_matches_plain_and_truth(dev, b):
     """L·Lᵀ within 32·eps32 of N (f64 truth, relative in the Frobenius
     norm); L and L⁻¹ within 64·eps32 of the plain version, relative to
     their largest entry; only the lower triangle is read; upper triangles
-    are exact zeros."""
+    are exact zeros.  Above 128 the tile is split around the kernel, one
+    launch per 128-column leaf."""
     N = _spd(b, b, dev)
     T = N.clone()
     iu = torch.triu_indices(b, b, 1, device=dev)
@@ -128,7 +130,7 @@ def test_potrf_tile_matches_plain_and_truth(dev, b):
     before = chol_cuda.LAUNCHES["potrf_tile"]
     chol.factor_tile_(T, inv)
     torch.cuda.synchronize()
-    assert chol_cuda.LAUNCHES["potrf_tile"] == before + 1
+    assert chol_cuda.LAUNCHES["potrf_tile"] == before - (-b // chol_cuda.BLOCK)
     L64 = T.double()
     rel = (torch.linalg.norm(L64 @ L64.T - N.double())
            / torch.linalg.norm(N.double())).item()
@@ -141,6 +143,17 @@ def test_potrf_tile_matches_plain_and_truth(dev, b):
 def test_potrf_tile_non_pd_is_all_nan(dev):
     T = _spd(64, 2, dev)
     T[30, 30] = -1.0
+    inv = torch.empty_like(T)
+    chol.factor_tile_(T, inv)
+    assert bool(torch.isnan(T).all() & torch.isnan(inv).all())
+
+
+@pytest.mark.parametrize("pivot", [60, 200])
+def test_potrf_tile_split_non_pd_is_all_nan(dev, pivot):
+    """A 256 tile whose non-positive pivot is in the leading or the
+    trailing half: the whole L and L⁻¹ NaN."""
+    T = _spd(256, 3, dev)
+    T[pivot, pivot] = -1.0
     inv = torch.empty_like(T)
     chol.factor_tile_(T, inv)
     assert bool(torch.isnan(T).all() & torch.isnan(inv).all())
@@ -203,3 +216,20 @@ def test_solve_sparse_afiro_on_the_card(dev):
     assert chol_cuda.LAUNCHES["potrf_tile"] > before[0]
     assert tiled_cuda.LAUNCHES["assemble_pairs"] > before[1]
     assert abs(rep.objective + 464.75314285714285) <= 1e-5 * 464.75314285714285
+
+
+def test_solve_sparse_block_256_on_the_card(dev):
+    """The tile engine at block 256 (tiles split around the tile kernel):
+    the same status as the CPU run, the known optimum within 1e-5."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    sf, info = constructed_optimum_lp(m=300, seed=4)
+    kw = dict(sparse=True, block=256, dtype=torch.float32)
+    before = chol_cuda.LAUNCHES["potrf_tile"]
+    rep = cimt.solve(sf, "pdas_dd", device="cuda", **kw)
+    assert chol_cuda.LAUNCHES["potrf_tile"] > before
+    ref = cimt.solve(sf, "pdas_dd", device="cpu", **kw)
+    assert rep.status == ref.status
+    ref_obj = info["objective"]
+    assert abs(rep.objective - ref_obj) <= 1e-5 * (1.0 + abs(ref_obj))

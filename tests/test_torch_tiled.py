@@ -4,7 +4,8 @@ against the JAX package in f64 on the patterns of tests/test_tiled.py.
 - the symbolic plans and every engine schedule array are equal, with the
   native and with the Python pair schedule;
 - ``assemble_pairs`` agrees within 1e-12 relative, ``factorize`` (tiles,
-  inverses, ok) within 1e-10, and ``solve_normal_ell`` within 1e-10 with
+  inverses, ok) within 1e-10 (also at block 256, the card's split tile),
+  and ``solve_normal_ell`` within 1e-10 with
   0 / 1 / 2 refinement steps over ELL and block-ELL, and with PCG;
 - a singular normal matrix gives ok False and a zero solution in both, and
   the dbound retry recovers it in both.
@@ -43,6 +44,10 @@ def _pattern(kind, seed=9):
             blk = (rng.random((32, 64)) < 0.2) * rng.normal(size=(32, 64))
             blk[np.arange(32), np.arange(32)] += 2.0
             A[32 * k: 32 * (k + 1), 64 * k: 64 * (k + 1)] = blk
+        return A, rng
+    if kind == "wide":  # 300 rows: two panels at block 256
+        A = (rng.random((300, 420)) < 0.01) * rng.normal(size=(300, 420))
+        A[np.arange(300), np.arange(300)] += 2.0
         return A, rng
     density = {"sparse": 0.10, "denser": 0.20}[kind]
     A = (rng.random((72, 120)) < density) * rng.normal(size=(72, 120))
@@ -101,11 +106,12 @@ def test_engine_schedules_equal(kind, block, native, monkeypatch):
     assert np.all(np.diff(start) > 0)
 
 
-@pytest.mark.parametrize("kind,block", CASES)
+@pytest.mark.parametrize("kind,block", CASES + [("wide", 256)])
 def test_assemble_factorize_and_solve_match(kind, block):
     A, rng = _pattern(kind)
     m, n = A.shape
     je, te = _engines(A, block)
+    assert te.B >= 2
     d = rng.random(n) + 0.5
     boost = (rng.random(m) < 0.1).astype(np.float64)
     tj = je.assemble_pairs(jnp.asarray(d), jnp.asarray(boost))
