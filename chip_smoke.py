@@ -12,8 +12,11 @@ script then exits non-zero and never prints its last line):
 3. kernels — dd_matvec / dd_rmatvec against the f64 truth at (512, 1024)
    (rtol = atol = 1e-11), against the plain PyTorch version on the card at
    (1441, 5093) and (1536, 5120) (within 64·eps32² of Σ|a_ij x_j| per
-   output), and kernel vs plain median times by CUDA events at
-   (1536, 5120) and (4096, 8192), the L2 cache flushed before each run;
+   output; dd_matvec also against the f64 truth there), dd_matvec on rows
+   that do not start on a 16-byte boundary (A and x at a 4-byte storage
+   offset, each and both), and kernel vs plain median times by CUDA events
+   at (1536, 5120) and (4096, 8192), the L2 cache flushed before each run
+   and the card held asleep until the host has queued the launches;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum;
 5. pilot — the constructed-optimum LP at the pilot scale (1441 x 5093,
@@ -33,8 +36,13 @@ script then exits non-zero and never prints its last line):
    N (1536 x 1536, A·D²·Aᵀ of the phase-5 LP) with its launch counters
    reset before and read after (the panel and Schur kernels' path), held
    against the f64 truth and the plain blocked_cholesky and cholesky_ex,
-   with median times of all three and of the panel and Schur kernels'
-   first step; the assembly kernel against its plain version on the
+   with median times of all three (the kernel potrf and cholesky_ex also
+   back to back behind a sleep, the card's own time) and of the panel and
+   Schur kernels' first step (the panel kernel also alone, over
+   back-to-back launches on fresh copies, beside torch.matmul timed the
+   same way); the same
+   factorization and bars at n = 1441 (rows not 16-byte aligned, a last
+   panel 33 wide); the assembly kernel against its plain version on the
    m = 16384 engine's pair schedule (each entry within 8·eps32·Σ|w·d²|),
    bit-identical across two runs, with times;
 7. sparse afiro — solve(afiro, "pdas_dd", sparse=True, block=16) in f32:
@@ -99,6 +107,7 @@ AT_SCALE_KW = dict(sparse=True, block=128, mehrotra=True, entry_repair_tol=1e-6,
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12     # H100 SXM FP32 outside the tensor cores
 L2_BYTES = 50 * 2**20
+SLEEP_CYCLES_PER_MS = 2_000_000  # torch.cuda._sleep cycles, at ~2 GHz
 
 
 def say(*parts):
@@ -167,15 +176,22 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _median_ms(fn, reps=20, flush=None):
+def _median_ms(fn, reps=20, flush=None, lead=False):
     """Median ms of fn() by CUDA events; ``flush``, a buffer larger than the
-    L2 cache, is overwritten before each run (outside the timed region)."""
+    L2 cache, is read before each run (outside the timed region), so the
+    cache holds none of fn()'s inputs and no dirty lines whose write-back
+    the timed run would pay for.
+    With ``lead`` the card sleeps ~0.2 ms before the first event, so the
+    host has queued fn()'s launches before the card reaches them and the
+    time is the card's alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush.sum()
+        if lead:
+            torch.cuda._sleep(SLEEP_CYCLES_PER_MS // 5)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -186,23 +202,69 @@ def _median_ms(fn, reps=20, flush=None):
     return float(np.median(times))
 
 
-def _tile_kernel_ms(chol_cuda, N, reps=200):
-    """Device ms per launch of the tile kernel alone: ``reps`` launches back
-    to back, each on its own copy of N, between two CUDA events.  A launch
-    runs longer on the card than the host takes to launch it, so the card
-    does not wait on the host."""
-    T, inv = N.expand(reps, *N.shape).clone(), torch.empty(reps, *N.shape, device="cuda")
-    chol_cuda.potrf_tile_(N.clone(), inv[0])
+def _back_to_back_ms(launch, reps, sleep_ms=0.1):
+    """Device ms per call of ``launch(r)``, r = 0 .. reps - 1, queued back
+    to back between two CUDA events, after a warm-up call ``launch(reps)``.
+    The card sleeps first (``sleep_ms`` per call) while the host queues
+    them all, so it never waits on the host."""
+    launch(reps)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * sleep_ms * reps))
     ev[0].record()
     for r in range(reps):
-        chol_cuda.potrf_tile_(T[r], inv[r])
+        launch(r)
     ev[1].record()
     torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def _tile_kernel_ms(chol_cuda, N, reps=200):
+    """Device ms per launch of the tile kernel alone, each launch on its
+    own copy of N."""
+    T = N.expand(reps + 1, *N.shape).clone()
+    inv = torch.empty(reps + 1, *N.shape, device="cuda")
+    ms = _back_to_back_ms(lambda r: chol_cuda.potrf_tile_(T[r], inv[r]), reps)
     if not bool(torch.isfinite(T).all()):
         raise AssertionError("the tile kernel failed on copies of an SPD tile")
-    return ev[0].elapsed_time(ev[1]) / reps
+    return ms
+
+
+def _panel_step_ms(chol_cuda, A0, inv, P, matmul=False, reps=100):
+    """Device ms per call of the first panel step of A0 alone, each call on
+    its own copy of A0 (so the panel comes from device memory): the panel
+    kernel, every copy equal to ``P`` after it, or with ``matmul``
+    torch.matmul of the copy's panel by inv's transpose into a fresh
+    output."""
+    b = inv.shape[0]
+    W = A0.expand(reps + 1, *A0.shape).clone()
+    if matmul:
+        out = torch.empty(reps + 1, *P.shape, device="cuda")
+        return _back_to_back_ms(
+            lambda r: torch.matmul(W[r, b:, :b], inv.T, out=out[r]), reps)
+    ms = _back_to_back_ms(lambda r: chol_cuda.potrf_panel_(
+        W[r, b:, :b], inv, W[r, :b, b:]), reps)
+    if not (torch.equal(W[:, b:, :b], P.expand(reps + 1, *P.shape))
+            and bool((W[:, :b, b:] == 0).all())):
+        raise AssertionError("the panel kernel differs between copies")
+    return ms
+
+
+def _check_mv(ddm, A, x, tag):
+    """dd_matvec against the f64 truth (rtol = atol = 1e-11) and against its
+    plain version (PLAIN_TOL); returns the max abs error vs plain."""
+    got = _f64(ddm.dd_matvec(A, x))
+    true = A.double() @ x.double()
+    t_err = (got - true).abs()
+    t_ratio = (t_err / (1e-11 + 1e-11 * true.abs())).max().item()
+    p_err = (got - _f64(ddm._dd_matvec_plain(A, x))).abs()
+    p_ratio = (p_err / (EPS32**2 * (A.abs() @ x.abs()).double())).max().item()
+    say(f"[kernels] mv {tag}: vs f64 truth max abs err {t_err.max().item():.3e},"
+        f" worst err/tol {t_ratio:.3e}; vs plain max abs err {p_err.max().item():.3e},"
+        f" max err / (eps32^2 sum|ax|) {p_ratio:.3f} (limit {PLAIN_TOL})")
+    if not (t_ratio <= 1 and p_ratio <= PLAIN_TOL):
+        raise AssertionError(f"mv {tag} misses the f64 truth or its plain version")
+    return p_err.max().item()
 
 
 def phase_kernels(ddm):
@@ -223,23 +285,29 @@ def phase_kernels(ddm):
     stats = {}
     for m, n in ((1441, 5093), (1536, 5120)):
         A, x, y = _inputs(m, n, m)
-        for which, got, plain, scale in (
-            ("mv", ddm.dd_matvec(A, x), ddm._dd_matvec_plain(A, x),
-             A.abs() @ x.abs()),
-            ("rmv", ddm.dd_rmatvec(A, y), ddm._dd_matvec_plain(A.T, y),
-             A.abs().T @ y.abs()),
-        ):
-            err = (_f64(got) - _f64(plain)).abs()
-            ratio = (err / (EPS32**2 * scale.double())).max().item()
-            say(f"[kernels] {which} ({m}, {n}) vs plain: max abs err "
-                f"{err.max().item():.3e}, max err / (eps32^2 sum|ax|) {ratio:.3f}"
-                f" (limit {PLAIN_TOL})")
-            if not ratio <= PLAIN_TOL:
-                raise AssertionError(f"{which} disagrees with its plain version")
-            if (m, n) == (1536, 5120):
-                stats[which] = {"max_abs_err": err.max().item()}
+        mv_err = _check_mv(ddm, A, x, f"({m}, {n})")
+        err = (_f64(ddm.dd_rmatvec(A, y)) - _f64(ddm._dd_matvec_plain(A.T, y))).abs()
+        ratio = (err / (EPS32**2 * (A.abs().T @ y.abs()).double())).max().item()
+        say(f"[kernels] rmv ({m}, {n}) vs plain: max abs err "
+            f"{err.max().item():.3e}, max err / (eps32^2 sum|ax|) {ratio:.3f}"
+            f" (limit {PLAIN_TOL})")
+        if not ratio <= PLAIN_TOL:
+            raise AssertionError("rmv disagrees with its plain version")
+        if (m, n) == (1536, 5120):
+            stats["mv"] = {"max_abs_err": mv_err}
+            stats["rmv"] = {"max_abs_err": err.max().item()}
+    # Rows and x that do not start on a 16-byte boundary.
+    m, n = 1536, 5120
+    g = torch.Generator(device="cuda").manual_seed(5)
+    Abuf = torch.randn(m * n + 1, generator=g, device="cuda")
+    xbuf = torch.randn(n + 1, generator=g, device="cuda")
+    for tag, A, x in (("A at a 4-byte offset", Abuf[1:].view(m, n), xbuf[:n]),
+                      ("x at a 4-byte offset", Abuf[:-1].view(m, n), xbuf[1:]),
+                      ("A and x at a 4-byte offset", Abuf[1:].view(m, n), xbuf[1:])):
+        _check_mv(ddm, A, x, f"({m}, {n}), {tag}")
+    del Abuf, xbuf
 
-    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
+    flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
     for m, n in ((1536, 5120), (4096, 8192)):
         A, x, y = _inputs(m, n, 7)
         runs = {
@@ -248,18 +316,19 @@ def phase_kernels(ddm):
                     lambda: ddm._dd_matvec_plain(A.T, y)),
         }
         for which, (kern, plain) in runs.items():
-            p1, k1, k2, p2 = (_median_ms(f, flush=flush)
+            p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=True)
                               for f in (plain, kern, kern, plain))
             k, p = min(k1, k2), min(p1, p2)
             gbs = m * n * 4 / (k * 1e-3) / 1e9
+            nout = m if which == "mv" else n
+            # Each element of A read once; 14 flops per element (the product
+            # and its error, the compensated accumulation).
+            bound = _bound(_nbytes(A) + 4 * (m + n - nout) + 8 * nout, 14 * m * n)
             say(f"[kernels] {which} ({m}, {n}) median ms: kernel {k1:.4f} {k2:.4f}"
-                f"  plain {p1:.4f} {p2:.4f}  (kernel reads A at {gbs:.0f} GB/s)")
+                f"  plain {p1:.4f} {p2:.4f} (kernel reads A at {gbs:.0f} GB/s;"
+                f" bound {bound['bound_ms']:.4f})")
             if (m, n) == (1536, 5120):
-                # Each element of A read once; 14 flops per element (the
-                # product and its error, the compensated accumulation).
-                nout = m if which == "mv" else n
-                stats[which].update(ms=k, plain_ms=p, library_ms=None, **_bound(
-                    _nbytes(A) + 4 * (m + n - nout) + 8 * nout, 14 * m * n))
+                stats[which].update(ms=k, plain_ms=p, library_ms=None, **bound)
         del A, x, y
         torch.cuda.empty_cache()
     del flush
@@ -391,38 +460,9 @@ def phase_chol(chol, chol_cuda, dense, stats):
     g = torch.Generator(device="cuda").manual_seed(11)
     d = 0.5 + torch.rand(lp.A.shape[1], generator=g, device="cuda")
     N = dense.normal_matrix(lp.A, d, (~lp.row_mask).float())
-    _reset(chol_cuda.LAUNCHES)
-    f = dense.factorize(N, use_pallas=True)
-    torch.cuda.synchronize()
-    launches = dict(chol_cuda.LAUNCHES)
-    Lb = chol.blocked_cholesky(N)
-    Lx = torch.linalg.cholesky_ex(N)[0]
-    errs = {k: _recon_err(L, N) for k, L in (("kernel", f.L), ("blocked", Lb),
-                                               ("cholesky_ex", Lx))}
-    N64 = f.L.double() @ f.L.double().T
-    vs = {k: (torch.linalg.norm(N64 - L.double() @ L.double().T)
-              / torch.linalg.norm(N.double())).item() for k, L in
-          (("blocked", Lb), ("cholesky_ex", Lx))}
-    say(f"[chol] factorize(use_pallas=True) on N {tuple(N.shape)}: ok {bool(f.ok)},"
-        f" launches {launches}, ||LLt-N||/||N|| in eps32: "
-        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in errs.items())
-        + "; kernel vs plain reconstructions in eps32: "
-        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in vs.items())
-        + f"; max abs err vs blocked {(f.L - Lb).abs().max().item():.3e},"
-          f" vs cholesky_ex {(f.L - Lx).abs().max().item():.3e}")
-    if not (bool(f.ok) and errs["kernel"] <= 32 * EPS32
-            and max(vs.values()) <= 64 * EPS32
-            and launches["potrf_panel"] > 0 and launches["potrf_schur"] > 0):
-        raise AssertionError("factorize(use_pallas=True) on the card")
-    kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
-    xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
-    bt = _median_ms(lambda: chol.blocked_cholesky(N), 3)
-    n = N.shape[0]
-    full_bound = _bound(4 * n * (n + 1), n**3 / 3)["bound_ms"]
-    say(f"[chol] n={n} median ms: kernel potrf {kt[0]:.4f} {kt[1]:.4f}  "
-        f"cholesky_ex {xt[0]:.4f} {xt[1]:.4f}  plain blocked_cholesky {bt:.1f}"
-        f"  (bound {full_bound:.4f} ms, n³/3 flops)")
-    stats["potrf_full"] = dict(ms=min(kt), cholesky_ex_ms=min(xt), plain_ms=bt)
+    m = sf.ncons  # 1441: rows not 16-byte aligned, a last panel 33 wide
+    launches = _check_use_pallas(chol, chol_cuda, dense, N)
+    _check_use_pallas(chol, chol_cuda, dense, N[:m, :m].contiguous())
 
     # The first panel step on its own: kernel vs its plain form.
     b = chol_cuda.BLOCK
@@ -453,15 +493,18 @@ def phase_chol(chol, chol_cuda, dense, stats):
     src = A0.clone()
     scratch = A0.clone()  # the panel and its strip at the matrix's row stride
     rows = panel0.shape[0]
+    alone = [_panel_step_ms(chol_cuda, A0, inv, P) for _ in range(2)]
+    matmul_b2b = [_panel_step_ms(chol_cuda, A0, inv, P, matmul=True) for _ in range(2)]
     matmul_ms = _median_ms(lambda: panel0 @ inv.T)
     # The panel: read it and the inverse's lower triangle, write it and its
     # strip; b(b+1)/2 FMAs per row.  The Schur step: read and write S's lower
     # triangle, read P; b FMAs per lower entry.
     stats["potrf_panel"].update(
-        ms=_median_ms(lambda: (scratch[b:, :b].copy_(panel0),
-                               chol_cuda.potrf_panel_(scratch[b:, :b], inv,
-                                                      scratch[:b, b:]))),
-        plain_ms=matmul_ms, library_ms=matmul_ms,
+        ms=min(alone),
+        ms_with_copy=_median_ms(lambda: (scratch[b:, :b].copy_(panel0),
+                                         chol_cuda.potrf_panel_(scratch[b:, :b], inv,
+                                                                scratch[:b, b:]))),
+        plain_ms=min(matmul_b2b), library_ms=min(matmul_b2b),
         **_bound(4 * (3 * rows * b + b * (b + 1) // 2), rows * b * (b + 1)))
     tri = rows * (rows + 1) // 2
     stats["potrf_schur"].update(
@@ -469,11 +512,58 @@ def phase_chol(chol, chol_cuda, dense, stats):
         plain_ms=_median_ms(lambda: torch.tril(A0[b:, b:] - P @ P.T)),
         library_ms=_median_ms(lambda: torch.addmm(A0[b:, b:], P, P.T, alpha=-1)),
         **_bound(4 * (2 * tri + rows * b), 2 * tri * b))
-    say(f"[chol] first panel step median ms: panel kernel (with a restoring copy)"
-        f" {stats['potrf_panel']['ms']:.4f}"
-        f" plain {stats['potrf_panel']['plain_ms']:.4f};  schur kernel "
+    pan = stats["potrf_panel"]
+    say(f"[chol] first panel step ({rows} x {b}) median ms: panel kernel alone"
+        f" (back-to-back, fresh copies) {alone[0]:.4f} {alone[1]:.4f}, torch.matmul"
+        f" the same way {matmul_b2b[0]:.4f} {matmul_b2b[1]:.4f}; panel kernel with"
+        f" a restoring copy {pan['ms_with_copy']:.4f}, torch.matmul alone {matmul_ms:.4f}"
+        f" (bound {pan['bound_ms']:.5f});  schur kernel "
         f"{stats['potrf_schur']['ms']:.4f} plain {stats['potrf_schur']['plain_ms']:.4f}"
         f" addmm {stats['potrf_schur']['library_ms']:.4f}")
+    return launches
+
+
+def _check_use_pallas(chol, chol_cuda, dense, N):
+    """factorize(N, use_pallas=True) with its launch counters reset before
+    and read after, held against the f64 truth (32·eps32) and the plain
+    blocked_cholesky and cholesky_ex (64·eps32); median times.  Returns the
+    launches."""
+    n = N.shape[0]
+    _reset(chol_cuda.LAUNCHES)
+    f = dense.factorize(N, use_pallas=True)
+    torch.cuda.synchronize()
+    launches = dict(chol_cuda.LAUNCHES)
+    Lb = chol.blocked_cholesky(N)
+    Lx = torch.linalg.cholesky_ex(N)[0]
+    errs = {k: _recon_err(L, N) for k, L in (("kernel", f.L), ("blocked", Lb),
+                                               ("cholesky_ex", Lx))}
+    N64 = f.L.double() @ f.L.double().T
+    vs = {k: (torch.linalg.norm(N64 - L.double() @ L.double().T)
+              / torch.linalg.norm(N.double())).item() for k, L in
+          (("blocked", Lb), ("cholesky_ex", Lx))}
+    say(f"[chol] factorize(use_pallas=True) on N {tuple(N.shape)}: ok {bool(f.ok)},"
+        f" launches {launches}, ||LLt-N||/||N|| in eps32: "
+        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in errs.items())
+        + "; kernel vs plain reconstructions in eps32: "
+        + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in vs.items())
+        + f"; max abs err vs blocked {(f.L - Lb).abs().max().item():.3e},"
+          f" vs cholesky_ex {(f.L - Lx).abs().max().item():.3e}")
+    if not (bool(f.ok) and errs["kernel"] <= 32 * EPS32
+            and max(vs.values()) <= 64 * EPS32
+            and launches["potrf_panel"] > 0 and launches["potrf_schur"] > 0):
+        raise AssertionError(f"factorize(use_pallas=True) on the card at n={n}")
+    kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
+    xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
+    bt = _median_ms(lambda: chol.blocked_cholesky(N), 3)
+    # The card's own time: ~35 launches per potrf, queued behind a sleep.
+    kd = [_back_to_back_ms(lambda r: chol.cholesky(N), 10, sleep_ms=2) for _ in range(2)]
+    xd = [_back_to_back_ms(lambda r: torch.linalg.cholesky_ex(N), 10, sleep_ms=2)
+          for _ in range(2)]
+    full_bound = _bound(4 * n * (n + 1), n**3 / 3)["bound_ms"]
+    say(f"[chol] n={n} median ms: kernel potrf {kt[0]:.4f} {kt[1]:.4f}  "
+        f"cholesky_ex {xt[0]:.4f} {xt[1]:.4f}  plain blocked_cholesky {bt:.1f}"
+        f"  (bound {full_bound:.4f} ms, n³/3 flops); back-to-back behind a sleep:"
+        f" kernel potrf {kd[0]:.4f} {kd[1]:.4f}  cholesky_ex {xd[0]:.4f} {xd[1]:.4f}")
     return launches
 
 
@@ -770,12 +860,10 @@ def main() -> int:
     phase_breakdown(cimt, sf, eng, rep, chol)
     phase_block256(cimt, sf, info, eng, counters, card)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
-    kernels = [
-        dict(KERNELS[k], route="cuda", launches=launches[k],
-             **{f: stats[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")})
-        for k in KERNELS
-    ]
+    # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
+    # library_ms; the panel kernel's ms_with_copy besides.
+    kernels = [dict(KERNELS[k], route="cuda", launches=launches[k], **stats[k])
+               for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

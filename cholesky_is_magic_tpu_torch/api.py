@@ -101,7 +101,7 @@ def solve(
     problem: Union[str, "MPSData", "StandardForm"],  # noqa: F821
     solver: str = "pdas",
     *,
-    device="cpu",
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
     sparse: bool = False,
     rescale: bool = False,
@@ -122,7 +122,8 @@ def solve(
     entry_repair_tol: float = 0.0,
 ) -> SolveReport:
     """Solve an LP end to end with ``"pdas"`` or ``"pdas_dd"`` on ``device``
-    (default f32): on dense operands padded to ``pad_multiple``, or with
+    (the card unless the caller asks for ``"cpu"``; without a card the call
+    raises; default f32): on dense operands padded to ``pad_multiple``, or with
     ``sparse=True`` on the fully sparse pipeline, whose tile engine uses
     ``block``-wide panels (no dense (m, n) operand is built).
 
@@ -150,6 +151,9 @@ def solve(
     for flag, name in ((presolve, "presolve"), (crossover, "crossover")):
         if flag:
             raise NotImplementedError(f"{name}=True is not ported")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("solve: no CUDA device; pass device='cpu' to solve "
+                           "on the CPU")
     if dtype is None:
         dtype = torch.float32
     sf = _to_standard_form(problem, rescale)

@@ -21,13 +21,13 @@ from cholesky_is_magic_tpu_torch.solvers.pdas_dd import PDASDDState
 _FLOAT_FIELDS = ("A", "c", "b", "l", "u")
 
 
-def tensor_from_numpy(v, *, device="cpu", dtype=None) -> torch.Tensor:
+def tensor_from_numpy(v, *, device="cuda", dtype=None) -> torch.Tensor:
     """One array -> tensor on ``device``; ``dtype`` None keeps the array's."""
     t = torch.from_numpy(np.array(v, copy=True))
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def device_lp_from_numpy(lp, *, device="cpu", dtype=None) -> DeviceLP:
+def device_lp_from_numpy(lp, *, device="cuda", dtype=None) -> DeviceLP:
     """A DeviceLP from an object with the fields A, c, b, l, u, row_mask,
     col_mask, row_type, m, n; ``dtype`` applies to the float fields."""
     fields = {
@@ -38,7 +38,7 @@ def device_lp_from_numpy(lp, *, device="cpu", dtype=None) -> DeviceLP:
     return DeviceLP(**fields, m=int(lp.m), n=int(lp.n))
 
 
-def pdas_state_from_numpy(st, *, device="cpu", dtype=None) -> PDASState:
+def pdas_state_from_numpy(st, *, device="cuda", dtype=None) -> PDASState:
     """A PDASState from an object with fields x, y, w, z and lp."""
     put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)
     return PDASState(
@@ -47,7 +47,7 @@ def pdas_state_from_numpy(st, *, device="cpu", dtype=None) -> PDASState:
     )
 
 
-def pdas_dd_state_from_numpy(st, *, device="cpu", dtype=None) -> PDASDDState:
+def pdas_dd_state_from_numpy(st, *, device="cuda", dtype=None) -> PDASDDState:
     """A PDASDDState from an object with fields x, y, w, z (each with
     ``hi`` and ``lo``) and lp."""
     put = lambda d: DD(tensor_from_numpy(d.hi, device=device, dtype=dtype),

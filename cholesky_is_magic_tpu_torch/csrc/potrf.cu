@@ -53,8 +53,28 @@
 //          the kernel's cycles, ~430 cycles (0.2 us) per column step; only
 //          the lanes that need a quotient divide, since __fdiv_rn of a zero
 //          or stale entry takes its slow path.
-//   panel: (rows x b) . (b x b): a block owns 32 rows, staged in shared
-//          memory with the transposed inverse, so the in-place write is safe.
+//   panel: (rows x b) . (b x b)^T, b(b+1)/2 FMAs per row: at n = 1536 the
+//          first step moves ~1.5 MB (0.0007 ms at 3.35 TB/s), so it is bound
+//          by how fast its CTAs stage their operands, not by the card's
+//          rates.  A CTA owns 4 to 32 whole rows (the wrapper takes 16), so
+//          the in-place write is safe;
+//          it stages its rows and the inverse's lower triangle as they lie
+//          (both along k) with 16-byte cp.async where the pointers and
+//          strides allow, in four k-stages whose products start as each
+//          arrives, rows padded to 132 floats so that a warp's 16-byte
+//          loads of 32 rows hit distinct banks; the entries above the
+//          inverse's diagonal are staged as zeros, never read.  Two
+//          warps share each 4 rows: lane l of the first takes the columns
+//          l and l + 96, of the second l + 32 and l + 64, so both run the
+//          same depth; a 4 x 2 register tile, float4 loads along k, each
+//          column dropped after its own diagonal.  Measured on an NVIDIA
+//          H100 80GB HBM3 at 700.00 W (tools/probe_panel_kernel.py, every
+//          panel step of n = 1536 and 1441): a step takes about one CTA's
+//          latency, whatever its rows (1408 down to 33), since each CTA
+//          stages the whole inverse (33 KB) before its last products:
+//          0.0091-0.0096 ms at 16 rows per CTA, 0.0095-0.0109 at 8,
+//          0.0111-0.0117 at 32, 0.0126-0.0151 at 4; torch.matmul of the
+//          panel takes 0.0066-0.0108.
 //   schur: a SIMT product of depth b over the trailing lower triangle,
 //          64 x 64 output tiles, 4 x 4 outputs per thread, depth staged in
 //          shared memory 16 at a time; blocks above the diagonal exit.
@@ -69,8 +89,10 @@ constexpr int kTileMax = 128;
 constexpr int kSub = 32;          // sub-panel width: one warp's diagonal block
 constexpr int kXtLd = kSub + 4;   // row stride of the transposed diagonal inverse
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPanelThreads = 256;
-constexpr int kPanelRows = 32;
+constexpr int kPanelMaxRows = 32;               // rows per CTA: 4, 8, 16 or 32
+constexpr int kPanelMaxThreads = 16 * kPanelMaxRows;  // two warps per 4 rows
+constexpr int kPanelLd = kTileMax + 4;          // staged row stride: 33 float4s
+constexpr int kPanelStages = 4;                 // k-stages of 32 columns each
 constexpr int kSchurTile = 64;
 constexpr int kSchurDepth = 16;
 constexpr int kSchurThreads = 256;
@@ -310,39 +332,139 @@ potrf_tile_kernel(float* __restrict__ A, long long lda, float* __restrict__ inv,
   }
 }
 
+// Copies `valid` (0 to 4) floats from src into the 16-byte chunk dst of
+// shared memory by cp.async and zeroes the rest of the chunk; one 16-byte
+// copy when the chunk is full and `vec` says src is 16-byte aligned.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, int valid,
+                                            bool vec) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (vec && valid == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i < valid) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * i),
+                   "l"(src + i));
+    } else {
+      dst[i] = 0.0f;
+    }
+  }
+}
+
+// acc[p][j] += sum_k R[p][k] . I_j[k] over the chunks [k4_begin, k4_end),
+// for the lane's two columns from j = J0 on (column 0 is done when J0 = 1);
+// k ascending, as the plain product sums.
+template <int J0>
+__device__ __forceinline__ void panel_segment(float (&acc)[4][2], const float* Rw,
+                                              const float* I0, const float* I1,
+                                              int k4_begin, int k4_end) {
+  for (int k4 = k4_begin; k4 < k4_end; ++k4) {
+    float4 ra[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) ra[p] = lds4(Rw + p * kPanelLd + 4 * k4);
+#pragma unroll
+    for (int j = J0; j < 2; ++j) {
+      const float4 rb = lds4((j == 0 ? I0 : I1) + 4 * k4);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        acc[p][j] = __fmaf_rn(ra[p].x, rb.x, acc[p][j]);
+        acc[p][j] = __fmaf_rn(ra[p].y, rb.y, acc[p][j]);
+        acc[p][j] = __fmaf_rn(ra[p].z, rb.z, acc[p][j]);
+        acc[p][j] = __fmaf_rn(ra[p].w, rb.w, acc[p][j]);
+      }
+    }
+  }
+}
+
+// The chunks [lo, hi) of the lane's two columns: both up to e0 (the end of
+// column 0's chunks), column 1 alone from there up to e1.
+__device__ __forceinline__ void panel_chunks(float (&acc)[4][2], const float* Rw,
+                                             const float* I0, const float* I1, int lo,
+                                             int hi, int e0, int e1) {
+  if (lo < min(hi, e0)) panel_segment<0>(acc, Rw, I0, I1, lo, min(hi, e0));
+  if (max(lo, e0) < min(hi, e1)) panel_segment<1>(acc, Rw, I0, I1, max(lo, e0), min(hi, e1));
+}
+
+// Waits for the staging of k-stage S (of kPanelStages) and makes it visible.
+template <int S>
+__device__ __forceinline__ void panel_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPanelStages - 1 - S));
+  __syncthreads();
+}
+
 // P = A_panel . Minv^T for the `rows` rows below the diagonal block, in
 // place; also zeroes the upper strip entries strip[c][row] (the transposed
 // position of every panel entry), which the TPU kernel zeroes per panel.
-__global__ void __launch_bounds__(kPanelThreads)
+// Only the lower triangle of Minv is read.  CTA i owns the rows
+// [i * rpc, (i + 1) * rpc), with 16 * rpc threads; vec_a / vec_inv say that
+// the panel's / the inverse's rows start on 16-byte boundaries.
+__global__ void __launch_bounds__(kPanelMaxThreads)
 potrf_panel_kernel(float* __restrict__ A, long long lda,
                    const float* __restrict__ inv, long long ldi,
-                   float* __restrict__ strip, int rows, int b) {
-  extern __shared__ float smem[];
-  float* invT = smem;                 // b * b: invT[k * b + c] = inv[c][k]
-  float* R = invT + b * b;            // kPanelRows * b: this block's rows
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kPanelRows;
-  const int nr = min(kPanelRows, rows - row0);
-  for (int e = tid; e < b * b; e += kPanelThreads) {
-    const int c = e / b, k = e - c * b;
-    invT[k * b + c] = (k <= c) ? inv[c * ldi + k] : 0.0f;
-  }
-  for (int e = tid; e < nr * b; e += kPanelThreads) {
-    const int r = e / b, k = e - r * b;
-    R[e] = A[(row0 + r) * lda + k];
-  }
-  __syncthreads();
-  for (int e = tid; e < nr * b; e += kPanelThreads) {
-    const int r = e / b, c = e - r * b;
-    float acc = 0.0f;
-    for (int k = 0; k <= c; ++k) {
-      acc = __fmaf_rn(R[r * b + k], invT[k * b + c], acc);
+                   float* __restrict__ strip, int rows, int b, int rpc,
+                   int vec_a, int vec_inv) {
+  extern __shared__ float4 smem4[];
+  float* Is = reinterpret_cast<float*>(smem4);  // kTileMax x kPanelLd: Minv
+  float* Rs = Is + kTileMax * kPanelLd;         // rpc x kPanelLd: this CTA's rows
+  const int tid = threadIdx.x, nwarps = blockDim.x >> 5;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * rpc;
+  const int nr = min(rpc, rows - row0);
+  const int nk4 = (b + 3) / 4;
+  // Staged in 4 k-stages of 8 chunks (one cp.async group each), so that the
+  // products of a stage run while the later ones arrive: in stage st, lane
+  // l copies chunk 8 st + l % 8 of row l / 8 of every 4 rows.  Row c of
+  // Minv up to the chunk of its diagonal; the rows c >= b (the columns past
+  // b of a lane's pair) as zeros up to column b.
+  const int k4s = lane & 7, rsub = lane >> 3;
+#pragma unroll
+  for (int st = 0; st < kPanelStages; ++st) {
+    const int k4 = 8 * st + k4s;
+    for (int c = 32 * st + 4 * warp + rsub; c < kTileMax; c += 4 * nwarps) {
+      if (4 * k4 <= min(c, b - 1)) {
+        const int valid = c < b ? min(4, c + 1 - 4 * k4) : 0;
+        stage_chunk(Is + c * kPanelLd + 4 * k4, inv + c * ldi + 4 * k4, valid, vec_inv);
+      }
     }
-    A[(row0 + r) * lda + c] = acc;
+    for (int r = 4 * warp + rsub; r < rpc; r += 4 * nwarps) {
+      if (k4 < nk4) {
+        const int valid = r < nr ? min(4, b - 4 * k4) : 0;
+        stage_chunk(Rs + r * kPanelLd + 4 * k4, A + (row0 + r) * lda + 4 * k4, valid,
+                    vec_a);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
   }
-  for (int e = tid; e < nr * b; e += kPanelThreads) {
-    const int c = e / nr, r = e - c * nr;
-    strip[c * lda + row0 + r] = 0.0f;
+
+  const int r0 = 4 * (warp >> 1), h = warp & 1;
+  const int c0 = lane + 32 * h, c1 = lane + 96 - 32 * h;  // c0 < c1
+  const float* Rw = Rs + r0 * kPanelLd;
+  const float* I0 = Is + c0 * kPanelLd;
+  const float* I1 = Is + c1 * kPanelLd;
+  // Both columns up to the chunk of c0's diagonal, then c1 alone up to its
+  // own (the entries past a diagonal are staged zeros).
+  const int e0 = c0 < b ? c0 / 4 + 1 : 0;
+  const int e1 = c1 < b ? c1 / 4 + 1 : e0;
+  float acc[4][2] = {};
+  panel_wait<0>();
+  panel_chunks(acc, Rw, I0, I1, 0, 8, e0, e1);
+  panel_wait<1>();
+  panel_chunks(acc, Rw, I0, I1, 8, 16, e0, e1);
+  panel_wait<2>();
+  panel_chunks(acc, Rw, I0, I1, 16, 24, e0, e1);
+  panel_wait<3>();
+  panel_chunks(acc, Rw, I0, I1, 24, 32, e0, e1);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    if (r0 + p >= nr) break;
+    float* out = A + (row0 + r0 + p) * lda;
+    if (c0 < b) out[c0] = acc[p][0];
+    if (c1 < b) out[c1] = acc[p][1];
+  }
+  for (int c = warp; c < b; c += nwarps) {
+    if (lane < nr) strip[c * lda + row0 + lane] = 0.0f;
   }
 }
 
@@ -394,8 +516,8 @@ size_t tile_smem(int b) {
   const size_t b4 = (b + 3) & ~3;
   return ((2 * b4 + kSub) * tile_ld(b) + kSub * kXtLd) * sizeof(float);
 }
-size_t panel_smem(int b) {
-  return (static_cast<size_t>(b) * b + static_cast<size_t>(kPanelRows) * b) * sizeof(float);
+size_t panel_smem(int rpc) {
+  return static_cast<size_t>(kTileMax + rpc) * kPanelLd * sizeof(float);
 }
 
 }  // namespace
@@ -422,20 +544,23 @@ extern "C" int cim_potrf_tile_f32(float* A, long long lda, float* inv,
 
 extern "C" int cim_potrf_panel_f32(float* A, long long lda, const float* inv,
                                    long long ldi, float* strip, int rows, int b,
+                                   int rows_per_cta, int vec_a, int vec_inv,
                                    void* stream) {
-  if (b < 1 || b > kTileMax || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rpc = rows_per_cta;
+  if (b < 1 || b > kTileMax || rows < 1 || rpc < 4 || rpc > kPanelMaxRows || rpc % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         potrf_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(panel_smem(kTileMax)));
+        static_cast<int>(panel_smem(kPanelMaxRows)));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (rows + kPanelRows - 1) / kPanelRows;
-  potrf_panel_kernel<<<blocks, kPanelThreads, panel_smem(b), s>>>(A, lda, inv, ldi,
-                                                                   strip, rows, b);
+  const int blocks = (rows + rpc - 1) / rpc;
+  potrf_panel_kernel<<<blocks, 16 * rpc, panel_smem(rpc), s>>>(
+      A, lda, inv, ldi, strip, rows, b, rpc, vec_a, vec_inv);
   return static_cast<int>(cudaGetLastError());
 }
 

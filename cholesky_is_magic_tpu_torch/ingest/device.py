@@ -86,7 +86,7 @@ def to_device_lp(
     *,
     pad_multiple: int = 128,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     big: float = 1e30,
     shape: tuple[int, int] | None = None,
 ) -> DeviceLP:

@@ -57,7 +57,7 @@ def from_coo(
     dtype=torch.float32,
     max_bytes: int = 256 * 1024 * 1024,
     max_dense_frac: float = 1.0,
-    device="cpu",
+    device="cuda",
 ) -> BellMatrix | None:
     """Build a BellMatrix from COO triplets on the host (duplicates summed).
 

@@ -18,8 +18,12 @@ TPU kernel ``cholesky_is_magic_tpu/ops/pallas_chol.py`` ``_potrf_kernel``
 What bounds them on the H100 (see the .cu file): the tile kernel runs on
 one SM and is bound by its chain of b dependent pivots; it is blocked over
 32-column sub-panels (one warp factors each diagonal block in registers,
-all warps share the register-tiled products).  The panel and Schur kernels
-are SIMT products that read their operands once per block.
+all warps share the register-tiled products).  The panel kernel moves too
+few bytes to be bound by the card's rates: CTAs of ``PANEL_ROWS_PER_CTA``
+whole rows each stage the inverse and their rows along k, with 16-byte
+copies where :func:`aligned16` allows, and run 4 x 2 register tiles, two
+warps per 4 rows, that stop at each column's diagonal.  The Schur kernel is a SIMT product that reads its
+operands once per block.
 
 The plain versions are ``ops.chol._factor_tile_plain`` (``cholesky_ex`` +
 ``solve_triangular``) and ``ops.chol.blocked_cholesky``.  ``LAUNCHES``
@@ -40,11 +44,17 @@ LAUNCHES = {"potrf_tile": 0, "potrf_panel": 0, "potrf_schur": 0}
 
 _SIGNATURES = {
     "cim_potrf_tile_f32": [_P, _LL, _P, _LL, _I, _P],
-    "cim_potrf_panel_f32": [_P, _LL, _P, _LL, _P, _I, _I, _P],
+    "cim_potrf_panel_f32": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P],
     "cim_potrf_schur_f32": [_P, _LL, _P, _LL, _I, _I, _P],
 }
 
 BLOCK = 128  # panel width; also the largest tile potrf_tile_ takes
+PANEL_ROWS = (4, 8, 16, 32)  # rows per CTA the panel kernel takes
+# The wrapper's: each CTA stages the whole inverse, faster with more threads
+# (16 per row) but slower at 32 rows; 16 was the fastest at every panel step
+# of n = 1536 and 1441 on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (tools/probe_panel_kernel.py).
+PANEL_ROWS_PER_CTA = 16
 
 
 def _check_square(A: torch.Tensor, name: str, max_n: int | None = None) -> None:
@@ -89,11 +99,25 @@ def _check_rows(A: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} takes matrices with contiguous rows")
 
 
-def potrf_panel_(P: torch.Tensor, inv: torch.Tensor,
-                 strip: torch.Tensor) -> None:
+def aligned16(ptr: int, ld: int) -> bool:
+    """Whether every row of a float32 matrix at address ``ptr`` with row
+    stride ``ld`` starts on a 16-byte boundary (16-byte copies allowed)."""
+    return ptr % 16 == 0 and ld % 4 == 0
+
+
+def potrf_panel_(P: torch.Tensor, inv: torch.Tensor, strip: torch.Tensor) -> None:
     """In place on the card: P <- P·invᵀ for the (rows, b) panel P and the
-    (b, b) lower-triangular inv; ``strip`` (b, rows), the panel's mirror
-    above the diagonal, is zeroed and must share P's row stride."""
+    (b, b) inv, of which only the lower triangle is read; ``strip``
+    (b, rows), the panel's mirror above the diagonal, is zeroed and must
+    share P's row stride."""
+    _potrf_panel(P, inv, strip, PANEL_ROWS_PER_CTA)
+
+
+def _potrf_panel(P: torch.Tensor, inv: torch.Tensor, strip: torch.Tensor,
+                 rows_per_cta: int) -> None:
+    """:func:`potrf_panel_` at ``rows_per_cta`` (one of ``PANEL_ROWS``)."""
+    if rows_per_cta not in PANEL_ROWS:
+        raise ValueError(f"potrf_panel_: rows_per_cta {rows_per_cta} not in {PANEL_ROWS}")
     _check_rows(P, "potrf_panel_")
     _check_square(inv, "potrf_panel_", BLOCK)
     _check_rows(strip, "potrf_panel_")
@@ -106,9 +130,11 @@ def potrf_panel_(P: torch.Tensor, inv: torch.Tensor,
     lib = cuda_build.load(_SIGNATURES)
     LAUNCHES["potrf_panel"] += 1
     cuda_build.raise_on(
-        lib.cim_potrf_panel_f32(P.data_ptr(), P.stride(0), inv.data_ptr(),
-                                inv.stride(0), strip.data_ptr(), rows, b,
-                                _stream(P)),
+        lib.cim_potrf_panel_f32(
+            P.data_ptr(), P.stride(0), inv.data_ptr(), inv.stride(0),
+            strip.data_ptr(), rows, b, rows_per_cta,
+            aligned16(P.data_ptr(), P.stride(0)),
+            aligned16(inv.data_ptr(), inv.stride(0)), _stream(P)),
         "potrf_panel_")
 
 

@@ -43,7 +43,7 @@ def from_coo(
     shape: tuple[int, int],
     dtype=torch.float32,
     min_slots: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> ELLMatrix:
     """Build an ELLMatrix from COO triplets on the host (duplicates summed,
     the CHOLMOD triplet->CSC semantics, sparse-cholesky.lisp:433-459)."""
@@ -67,7 +67,7 @@ def from_coo(
     )
 
 
-def from_dense(A: np.ndarray, dtype=torch.float32, device="cpu") -> ELLMatrix:
+def from_dense(A: np.ndarray, dtype=torch.float32, device="cuda") -> ELLMatrix:
     rows, cols = np.nonzero(A)
     return from_coo(rows, cols, np.asarray(A)[rows, cols], A.shape,
                     dtype=dtype, device=device)

@@ -198,7 +198,7 @@ def make_pdas_sparse(
     dtype=None,
     snode_align: bool = True,
     engine=None,
-    device="cpu",
+    device="cuda",
 ):
     """StandardForm -> (PDASState over a fully sparse SparseKKTLP, engine).
 

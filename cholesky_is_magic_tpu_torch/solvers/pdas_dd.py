@@ -115,7 +115,7 @@ def make_pdas_dd_sparse(
     config: Optional[PDASConfig] = None,
     dtype=None,
     snode_align: bool = True,
-    device="cpu",
+    device="cuda",
 ):
     """StandardForm -> (dd state over a fully sparse SparseKKTLP, engine):
     the double-word promotion of solvers.pdas.make_pdas_sparse.  Pass the

@@ -54,7 +54,7 @@ def _pad2(lists, fill):
 
 
 def engine_for_sparse(A_host, block: int = 128, snode_align: bool = True,
-                      dtype=None, device="cpu") -> "TiledCholesky":
+                      dtype=None, device="cuda") -> "TiledCholesky":
     """Analyse-once engine on ``device`` with the O(nnz) pair schedule
     attached: the fully sparse entry point, no dense A anywhere.
     ``A_host`` is anything scipy.sparse converts to CSC."""
@@ -79,7 +79,7 @@ class TiledCholesky:
     cholmod_analyze / cholmod_factorize split, affine-scaling.lisp:271)."""
 
     def __init__(self, plan: FactorPlan, snode_align: bool = True,
-                 device="cpu"):
+                 device="cuda"):
         self.plan = plan
         self.device = torch.device(device)
         b = plan.block

@@ -40,7 +40,8 @@ def test_solve_pdas_dd_matches_jax_and_the_published_optimum():
     np.testing.assert_allclose(rt.solution["x"], rj.solution["x"], atol=1e-6)
     np.testing.assert_allclose(rt.solution["y"], rj.solution["y"], atol=1e-6)
     # Warm restart: phase 1 is skipped.
-    rw = cimt.solve(AFIRO, "pdas_dd", dtype=torch.float64, warm=rt, **kw)
+    rw = cimt.solve(AFIRO, "pdas_dd", dtype=torch.float64, warm=rt,
+                     device="cpu", **kw)
     assert rw.summary["phase1_iterations"] == 0
     assert rw.objective == pytest.approx(OPTIMUM, rel=1e-8)
 
@@ -48,7 +49,7 @@ def test_solve_pdas_dd_matches_jax_and_the_published_optimum():
 def test_solve_pdas_matches_jax():
     kw = dict(pad_multiple=16)
     rj = cim.solve(AFIRO, "pdas", dtype=jnp.float64, **kw)
-    rt = cimt.solve(AFIRO, "pdas", dtype=torch.float64, **kw)
+    rt = cimt.solve(AFIRO, "pdas", dtype=torch.float64, device="cpu", **kw)
     assert rt.status == rj.status == "optimal"
     assert rt.summary["iterations"] == rj.summary["iterations"]
     assert rt.objective == pytest.approx(rj.objective, rel=1e-8)
@@ -61,4 +62,4 @@ def test_solve_pdas_matches_jax():
 def test_unported_front_door_options_raise(kw):
     solver = kw.pop("solver", "pdas_dd")
     with pytest.raises(NotImplementedError):
-        cimt.solve(AFIRO, solver, **kw)
+        cimt.solve(AFIRO, solver, device="cpu", **kw)

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels on the card: the double-word matvecs, the
-blocked Cholesky (tile, panel, Schur; tiles wider than 128 split around the
-tile kernel) and the pair-schedule assembly, each against its plain PyTorch
-version, and the dense and sparse solves (afiro; block 256).
+"""The hand-written CUDA kernels on the card: the double-word matvecs (also
+on rows that do not start on a 16-byte boundary), the blocked Cholesky
+(tile, panel, Schur; tiles wider than 128 split around the tile kernel) and
+the pair-schedule assembly, each against its plain PyTorch version, and the
+dense and sparse solves (afiro; block 256).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -70,6 +71,26 @@ def test_kernels_match_plain_on_ragged_shapes(dev, m, n):
     ):
         err = np.abs(_f64(got) - _f64(plain))
         assert np.all(err <= 64 * EPS32**2 * scale.double().cpu().numpy())
+
+
+@pytest.mark.parametrize("view", ["A[1:]", "x[1:]", "both"])
+def test_dd_mv_on_misaligned_views(dev, view):
+    """A·x where the rows (lda = 5093, and a view one row in) or x (a view
+    one element in) do not start on a 16-byte boundary: against the plain
+    version within 64·eps32² of Σ|a_ij x_j| and the f64 truth within
+    1e-11."""
+    m, n = 1441, 5093
+    A, x, _y = _inputs(np.random.default_rng(11), m + 1, n + 1, dev)
+    A = A[:, :n].contiguous()
+    A = A[1:] if view in ("A[1:]", "both") else A[:m]
+    x = x[1:] if view in ("x[1:]", "both") else x[:n]
+    assert A.is_contiguous() and A.shape == (m, n) and x.shape == (n,)
+    got = _f64(ddm.dd_matvec(A, x))
+    scale = (A.abs() @ x.abs()).double().cpu().numpy()
+    assert np.all(np.abs(got - _f64(ddm._dd_matvec_plain(A, x)))
+                  <= 64 * EPS32**2 * scale)
+    np.testing.assert_allclose(got, A.double().cpu().numpy() @ x.double().cpu().numpy(),
+                               rtol=1e-11, atol=1e-11)
 
 
 def test_each_call_counts_one_launch(dev):
@@ -159,11 +180,64 @@ def test_potrf_tile_split_non_pd_is_all_nan(dev, pivot):
     assert bool(torch.isnan(T).all() & torch.isnan(inv).all())
 
 
-@pytest.mark.parametrize("n", [1, 100, 128, 129, 300, 515])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows", [1, 31, 33, 1408])
+@pytest.mark.parametrize("b", [16, 33, 100, 128])
+def test_potrf_panel_matches_plain(dev, b, rows, aligned):
+    """The panel kernel on a panel and strip that are views into a larger
+    matrix (row stride > b; rows 16-byte aligned or not), with NaN above
+    the diagonal of inv, which must not be read: P·tril(inv)ᵀ within
+    2b·eps32 of Σ|terms|, the strip exactly zero, everything else
+    untouched."""
+    rng = np.random.default_rng(b * rows)
+    width = -(-(b + rows) // 4) * 4 + (4 if aligned else 1)
+    M = torch.tensor(rng.normal(size=(b + rows, width)), dtype=torch.float32,
+                     device=dev)
+    buf = torch.tensor(np.tril(rng.normal(size=(chol_cuda.BLOCK,) * 2)),
+                       dtype=torch.float32, device=dev)
+    inv = buf[:b, :b]
+    iu = torch.triu_indices(b, b, 1, device=dev)
+    inv[iu[0], iu[1]] = float("nan")
+    M0 = M.clone()
+    panel, strip = M[b:, :b], M[:b, b:b + rows]
+    before = chol_cuda.LAUNCHES["potrf_panel"]
+    chol_cuda.potrf_panel_(panel, inv, strip)
+    torch.cuda.synchronize()
+    assert chol_cuda.LAUNCHES["potrf_panel"] == before + 1
+    low = torch.tril(torch.nan_to_num(inv, nan=0.0))
+    plain = M0[b:, :b] @ low.T
+    mag = M0[b:, :b].abs() @ low.abs().T
+    assert bool(((panel - plain).abs() <= 2 * b * EPS32 * mag).all())
+    assert bool((strip == 0).all())
+    rest = torch.ones_like(M, dtype=torch.bool)
+    rest[b:, :b] = False
+    rest[:b, b:b + rows] = False
+    assert torch.equal(M[rest], M0[rest])
+
+
+@pytest.mark.parametrize("rows,b", [(33, 33), (1408, 128)])
+def test_potrf_panel_same_at_every_rows_per_cta(dev, rows, b):
+    """The launch geometry changes who computes a row, not its sums: every
+    rows-per-CTA of ``PANEL_ROWS`` gives the same panel bit for bit."""
+    rng = np.random.default_rng(rows)
+    M0 = torch.tensor(rng.normal(size=(b + rows, b + rows)), dtype=torch.float32,
+                      device=dev)
+    inv = torch.tensor(np.tril(rng.normal(size=(b, b))), dtype=torch.float32, device=dev)
+    got = []
+    for rpc in chol_cuda.PANEL_ROWS:
+        M = M0.clone()
+        chol_cuda._potrf_panel(M[b:, :b], inv, M[:b, b:], rpc)
+        got.append(M)
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+
+
+@pytest.mark.parametrize("n", [1, 100, 128, 129, 300, 515, 1441])
 def test_potrf_matches_plain(dev, n):
     """The panel loop (tile, panel and Schur kernels) against the plain
     blocked_cholesky and cholesky_ex: within 64·eps32 of the largest
-    entry; the upper triangle exactly zero; N untouched."""
+    entry; the upper triangle exactly zero; N untouched.  At n = 1441 the
+    rows do not start on 16-byte boundaries and the last panel is 33
+    wide."""
     N = _spd(n, n, dev)
     N0 = N.clone()
     before = dict(chol_cuda.LAUNCHES)

@@ -94,11 +94,12 @@ def test_to_device_lp_equal(path, dtype, pad):
 
 def test_to_device_lp_explicit_shape():
     st = cimt.to_standard_form(cimt.read_mps_file(FIXTURES[0]))
-    lt = t_device.to_device_lp(st, shape=(st.ncons + 3, st.nvars + 2))
+    lt = t_device.to_device_lp(st, shape=(st.ncons + 3, st.nvars + 2),
+                               device="cpu")
     assert tuple(lt.A.shape) == (st.ncons + 3, st.nvars + 2)
     assert not bool(lt.row_mask[-1]) and not bool(lt.col_mask[-1])
     with pytest.raises(ValueError):
-        t_device.to_device_lp(st, shape=(1, 1))
+        t_device.to_device_lp(st, shape=(1, 1), device="cpu")
     assert t_device.round_up(27, 16) == 32 and t_device.round_up(32, 16) == 32
 
 
@@ -114,9 +115,10 @@ def test_constructed_optimum_lp_equal(kw):
 def test_convert_carries_a_device_lp_both_ways():
     sj = cim.to_standard_form(cim.read_mps_file(FIXTURES[0]))
     lj = to_device_lp(sj, pad_multiple=16, dtype=jnp.float64)
-    lt = convert.device_lp_from_numpy(lj, dtype=torch.float32)
+    lt = convert.device_lp_from_numpy(lj, dtype=torch.float32,
+                                      device="cpu")
     assert lt.A.dtype == torch.float32 and lt.row_mask.dtype == torch.bool
-    lt64 = convert.device_lp_from_numpy(lj)
+    lt64 = convert.device_lp_from_numpy(lj, device="cpu")
     back = convert.to_numpy(lt64)
     for f in LP_FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(lj, f)), back[f])

@@ -53,7 +53,7 @@ def _cfg_pair(**kw):
 def test_pdas_trajectory_matches(name, mehrotra):
     lp = _lp(name)
     jst = jpdas.make_pdas(lp)
-    tst = convert.pdas_state_from_numpy(jst)
+    tst = convert.pdas_state_from_numpy(jst, device="cpu")
     jcfg, tcfg = _cfg_pair(max_iters=300, record_iterates=True,
                            mehrotra=mehrotra)
     jr, tr = jpdas.pdas(jst, jcfg), tpdas.pdas(tst, tcfg)
@@ -75,7 +75,7 @@ def test_pdas_trajectory_matches(name, mehrotra):
 
 def test_make_pdas_and_helpers_match():
     lp = _lp("afiro")
-    tlp = convert.device_lp_from_numpy(lp)
+    tlp = convert.device_lp_from_numpy(lp, device="cpu")
     rng = np.random.default_rng(0)
     jst, tst = jpdas.make_pdas(lp), tpdas.make_pdas(tlp)
     for f in ("x", "y", "w", "z"):
@@ -93,7 +93,7 @@ def test_make_pdas_and_helpers_match():
             _close(getattr(a, f), getattr(b, f))
     jst = jpdas.PDASState(jnp.asarray(warm[0]), jnp.asarray(warm[1]),
                           jnp.asarray(warm[2]), jnp.asarray(warm[3]), lp=jst.lp)
-    tst = convert.pdas_state_from_numpy(jst)
+    tst = convert.pdas_state_from_numpy(jst, device="cpu")
     for a, b in zip(jpdas._violation(jst), tpdas._violation(tst)):
         _close(a, b)
     for a, b in zip(jpdas._objectives(jst), tpdas._objectives(tst)):
@@ -111,7 +111,7 @@ def test_make_pdas_and_helpers_match():
 
 
 def test_unported_options_raise():
-    lp = convert.device_lp_from_numpy(_lp("afiro"))
+    lp = convert.device_lp_from_numpy(_lp("afiro"), device="cpu")
     st = tpdas.make_pdas(lp)
     with pytest.raises(NotImplementedError):
         tpdas.pdas(st, tpdas.PDASConfig(mehrotra=True, gondzio_correctors=1))

@@ -58,7 +58,7 @@ def _dd_start(name, **kw):
     phase1 = jpdas.pdas(jpdas.make_pdas(lp),
                         jpdas.PDASConfig(max_iters=300, refine_steps=2))
     jst = jdd.make_pdas_dd(lp, warm=phase1, **kw)
-    return phase1, jst, convert.pdas_dd_state_from_numpy(jst)
+    return phase1, jst, convert.pdas_dd_state_from_numpy(jst, device="cpu")
 
 
 @pytest.mark.parametrize("mehrotra", [False, True])
@@ -87,7 +87,7 @@ def test_pdas_dd_pieces_match():
     # make_pdas_dd (with the mu dual reset) from the same phase-1 result.
     tp1 = convert.pdas_state_from_numpy(jpdas.PDASState(
         x=phase1.x, y=phase1.extra["y"], w=phase1.extra["w"],
-        z=phase1.extra["z"], lp=_lp("afiro")))
+        z=phase1.extra["z"], lp=_lp("afiro")), device="cpu")
     tst2 = tdd.make_pdas_dd(tp1.lp, warm=tp1)
     for f in ("x", "y", "w", "z"):
         _dd_pair(getattr(jst, f), getattr(tst2, f))

@@ -61,7 +61,8 @@ SHAPES = [(37, 300, 0.05), (300, 37, 0.1), (130, 260, 0.02)]
 def test_ell_from_coo_and_products(m, n, density):
     rows, cols, vals, rng = _coo(m + n, m, n, density)
     J = jso.from_coo(rows, cols, vals, (m, n), dtype=jnp.float64)
-    T = tso.from_coo(rows, cols, vals, (m, n), dtype=torch.float64)
+    T = tso.from_coo(rows, cols, vals, (m, n), dtype=torch.float64,
+                     device="cpu")
     np.testing.assert_array_equal(np.asarray(J.indices), T.indices.numpy())
     np.testing.assert_array_equal(np.asarray(J.values), T.values.numpy())
     assert T.shape == J.shape
@@ -71,7 +72,8 @@ def test_ell_from_coo_and_products(m, n, density):
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)
     _within(J_ELL["matvec"](J, jx), tso.matvec(T, tx), A @ np.abs(x))
     JT = jso.from_coo(cols, rows, vals, (n, m), dtype=jnp.float64)
-    TT = tso.from_coo(cols, rows, vals, (n, m), dtype=torch.float64)
+    TT = tso.from_coo(cols, rows, vals, (n, m), dtype=torch.float64,
+                      device="cpu")
     _within(J_ELL["rmatvec"](J, jy), tso.rmatvec(T, ty), A.T @ np.abs(y))
     _within(J_ELL["matvec"](JT, jy), tso.matvec(TT, ty), A.T @ np.abs(y))
     # Double-word: the same ops in the same order -> bit-equal.
@@ -89,7 +91,7 @@ def test_bell_from_coo_and_products(m, n, density):
     J = jbell.from_coo(rows, cols, vals, (m, n), dtype=jnp.float64,
                        max_dense_frac=8.0)
     T = tbell.from_coo(rows, cols, vals, (m, n), dtype=torch.float64,
-                       max_dense_frac=8.0)
+                       max_dense_frac=8.0, device="cpu")
     np.testing.assert_array_equal(np.asarray(J.blocks), T.blocks.numpy())
     np.testing.assert_array_equal(np.asarray(J.bcols), T.bcols.numpy())
     assert (T.shape, T.kb) == (J.shape, J.kb)
@@ -116,7 +118,8 @@ def test_bell_byte_gates_agree(kw):
         for dt_j, dt_t in ((jnp.float32, torch.float32),
                            (jnp.float64, torch.float64)):
             J = jbell.from_coo(rows, cols, vals, (m, n), dtype=dt_j, **kw)
-            T = tbell.from_coo(rows, cols, vals, (m, n), dtype=dt_t, **kw)
+            T = tbell.from_coo(rows, cols, vals, (m, n), dtype=dt_t,
+                               device="cpu", **kw)
             assert (J is None) == (T is None)
     assert tbell.from_coo(np.zeros(0, int), np.zeros(0, int), np.zeros(0),
-                          (4, 4)) is None
+                          (4, 4), device="cpu") is None

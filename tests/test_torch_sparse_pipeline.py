@@ -64,7 +64,8 @@ def _sfs(name):
 def _states(name, block=16):
     sj, st = _sfs(name)
     jst, jeng = jpdas.make_pdas_sparse(sj, block=block, dtype=jnp.float64)
-    tst, teng = tpdas.make_pdas_sparse(st, block=block, dtype=torch.float64)
+    tst, teng = tpdas.make_pdas_sparse(st, block=block, dtype=torch.float64,
+                                       device="cpu")
     return jst, jeng, tst, teng
 
 
@@ -155,17 +156,20 @@ def test_solve_afiro_sparse_matches_jax_and_the_published_optimum():
                                                     rel=1e-3)
     np.testing.assert_allclose(rt.solution["y"], rj.solution["y"], atol=1e-6)
     # Warm restart on the sparse path: phase 1 is skipped.
-    rw = cimt.solve(AFIRO, "pdas_dd", dtype=torch.float64, warm=rt, **kw)
+    rw = cimt.solve(AFIRO, "pdas_dd", dtype=torch.float64, warm=rt,
+                     device="cpu", **kw)
     assert rw.summary["phase1_iterations"] == 0
     assert rw.objective == pytest.approx(OPTIMUM, rel=1e-6)
 
 
 def test_solve_sparse_pdas_and_the_engine_contract():
-    rt = cimt.solve(AFIRO, "pdas", sparse=True, block=16, dtype=torch.float64)
+    rt = cimt.solve(AFIRO, "pdas", sparse=True, block=16, dtype=torch.float64,
+                    device="cpu")
     assert rt.status == "optimal"
     assert rt.objective == pytest.approx(OPTIMUM, rel=1e-3)
     _, st = _sfs("afiro")
-    tst, teng = tpdas.make_pdas_sparse(st, block=16, dtype=torch.float64)
+    tst, teng = tpdas.make_pdas_sparse(st, block=16, dtype=torch.float64,
+                                       device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tpdas.pdas(tst)
     with pytest.raises(NotImplementedError):

@@ -65,7 +65,8 @@ def _rel(a, b):
 
 def _engines(A, block):
     return (jtiled.engine_for_sparse(A, block=block, dtype=jnp.float64),
-            ttiled.engine_for_sparse(A, block=block, dtype=torch.float64))
+            ttiled.engine_for_sparse(A, block=block, dtype=torch.float64,
+                                     device="cpu"))
 
 
 @pytest.mark.parametrize("kind,block", CASES)
@@ -131,17 +132,19 @@ def _solve_pair(A, block, d, g, **kw):
     bell = kw.pop("bell", False)
     jops = [jso.from_dense(A, dtype=jnp.float64),
             jso.from_dense(A.T, dtype=jnp.float64)]
-    tops = [tso.from_dense(A, dtype=torch.float64),
-            tso.from_dense(A.T, dtype=torch.float64)]
+    tops = [tso.from_dense(A, dtype=torch.float64, device="cpu"),
+            tso.from_dense(A.T, dtype=torch.float64, device="cpu")]
     if bell:
         rows, cols = np.nonzero(A)
         shape = A.shape
-        mk = lambda mod, dt, r, c, s: mod.from_coo(  # noqa: E731
-            r, c, A[rows, cols], s, dtype=dt, max_dense_frac=64.0)
+        mk = lambda mod, dt, r, c, s, **k: mod.from_coo(  # noqa: E731
+            r, c, A[rows, cols], s, dtype=dt, max_dense_frac=64.0, **k)
         kw_j = dict(EB=mk(jbell, jnp.float64, rows, cols, shape),
                     ETB=mk(jbell, jnp.float64, cols, rows, shape[::-1]))
-        kw_t = dict(EB=mk(tbell, torch.float64, rows, cols, shape),
-                    ETB=mk(tbell, torch.float64, cols, rows, shape[::-1]))
+        kw_t = dict(EB=mk(tbell, torch.float64, rows, cols, shape,
+                           device="cpu"),
+                    ETB=mk(tbell, torch.float64, cols, rows, shape[::-1],
+                           device="cpu"))
         assert kw_t["EB"] is not None and kw_t["ETB"] is not None
     else:
         kw_j = kw_t = {}
@@ -184,7 +187,8 @@ def test_singular_and_dbound_retry_match():
 
 def test_unported_paths_raise_and_cpu_launches_nothing():
     A, rng = _pattern("sparse")
-    te = ttiled.engine_for_sparse(A, block=8, dtype=torch.float64)
+    te = ttiled.engine_for_sparse(A, block=8, dtype=torch.float64,
+                                  device="cpu")
     for call in (lambda: ttiled.engine_for(A),
                  lambda: te.assemble(A, None),
                  lambda: te.prepare_normal(A, None),
