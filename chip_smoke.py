@@ -12,13 +12,17 @@ script then exits non-zero and never prints its last line):
 3. kernels — dd_matvec / dd_rmatvec against the f64 truth at (512, 1024)
    (rtol = atol = 1e-11), against the plain PyTorch version on the card at
    (1441, 5093) and (1536, 5120) (within 64·eps32² of Σ|a_ij x_j| per
-   output; dd_matvec also against the f64 truth there), dd_matvec on rows
+   output; dd_matvec also against the f64 truth there; dd_rmatvec also bit
+   for bit against its own summation order in plain PyTorch,
+   ``dd_cuda.rmv_slab_plain``, on a first and a second call), both on rows
    that do not start on a 16-byte boundary (A and x at a 4-byte storage
    offset, each and both), and kernel vs plain median times by CUDA events
    at (1536, 5120) and (4096, 8192), the L2 cache flushed before each run
    and the card held asleep until the host has queued the launches;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
-   objective within 1e-7 relative of the published optimum;
+   objective within 1e-7 relative of the published optimum; then in f64,
+   dense and fully sparse (block 16), which takes the plain PyTorch forms on
+   the card: the same bars, and no kernel launched;
 5. pilot — the constructed-optimum LP at the pilot scale (1441 x 5093,
    padded to 1536 x 5120, f32): the main path.  Launch counters are reset
    just before and read just after; both kernels must have launched.  Gap
@@ -44,7 +48,9 @@ script then exits non-zero and never prints its last line):
    factorization and bars at n = 1441 (rows not 16-byte aligned, a last
    panel 33 wide); the assembly kernel against its plain version on the
    m = 16384 engine's pair schedule (each entry within 8·eps32·Σ|w·d²|),
-   bit-identical across two runs, with times;
+   bit-identical across two runs, with the schedule's run count, mean and
+   longest run, and times (whole, and its zeros and its runs apart, from two
+   copies of its source built by tools/probe_assembly_kernel.py);
 7. sparse afiro — solve(afiro, "pdas_dd", sparse=True, block=16) in f32:
    objective within 1e-5 relative of the published optimum;
 8. at scale — the constructed-optimum LP at m = 16384 (16384 x 49152),
@@ -176,13 +182,13 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _median_ms(fn, reps=20, flush=None, lead=False):
+def _median_ms(fn, reps=20, flush=None, lead=0.0):
     """Median ms of fn() by CUDA events; ``flush``, a buffer larger than the
     L2 cache, is read before each run (outside the timed region), so the
     cache holds none of fn()'s inputs and no dirty lines whose write-back
     the timed run would pay for.
-    With ``lead`` the card sleeps ~0.2 ms before the first event, so the
-    host has queued fn()'s launches before the card reaches them and the
+    With ``lead`` the card sleeps that many ms before the first event, so
+    the host has queued fn()'s launches before the card reaches them and the
     time is the card's alone."""
     fn()
     torch.cuda.synchronize()
@@ -191,7 +197,7 @@ def _median_ms(fn, reps=20, flush=None, lead=False):
         if flush is not None:
             flush.sum()
         if lead:
-            torch.cuda._sleep(SLEEP_CYCLES_PER_MS // 5)
+            torch.cuda._sleep(int(SLEEP_CYCLES_PER_MS * lead))
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -267,7 +273,29 @@ def _check_mv(ddm, A, x, tag):
     return p_err.max().item()
 
 
-def phase_kernels(ddm):
+def _check_rmv(ddm, dd_cuda, A, y, tag):
+    """dd_rmatvec against its plain version (PLAIN_TOL), the f64 truth
+    (rtol = atol = 1e-11) and, bit for bit on a first and a second call, its
+    own summation order in plain PyTorch; returns the max abs error vs
+    plain."""
+    got, again = ddm.dd_rmatvec(A, y), ddm.dd_rmatvec(A, y)
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    order = dd_cuda.rmv_slab_plain(A, y, *dd_cuda.rmv_slabs(*A.shape, sms))
+    same = all(torch.equal(g.hi, order.hi) and torch.equal(g.lo, order.lo)
+               for g in (got, again))
+    true = A.double().T @ y.double()
+    t_ratio = ((_f64(got) - true).abs() / (1e-11 + 1e-11 * true.abs())).max().item()
+    err = (_f64(got) - _f64(ddm._dd_matvec_plain(A.T, y))).abs()
+    ratio = (err / (EPS32**2 * (A.abs().T @ y.abs()).double())).max().item()
+    say(f"[kernels] rmv {tag}: vs plain max abs err {err.max().item():.3e}, max err /"
+        f" (eps32^2 sum|ax|) {ratio:.3f} (limit {PLAIN_TOL}); vs f64 truth worst"
+        f" err/tol {t_ratio:.3e}; bit-equal to its slab order, twice: {same}")
+    if not (ratio <= PLAIN_TOL and t_ratio <= 1 and same):
+        raise AssertionError(f"rmv {tag} misses its plain version, the truth or its order")
+    return err.max().item()
+
+
+def phase_kernels(ddm, dd_cuda):
     """Kernels against f64 truth and against the plain version; times."""
     A, x, y = _inputs(512, 1024, 3)
     A64 = A.double()
@@ -286,17 +314,11 @@ def phase_kernels(ddm):
     for m, n in ((1441, 5093), (1536, 5120)):
         A, x, y = _inputs(m, n, m)
         mv_err = _check_mv(ddm, A, x, f"({m}, {n})")
-        err = (_f64(ddm.dd_rmatvec(A, y)) - _f64(ddm._dd_matvec_plain(A.T, y))).abs()
-        ratio = (err / (EPS32**2 * (A.abs().T @ y.abs()).double())).max().item()
-        say(f"[kernels] rmv ({m}, {n}) vs plain: max abs err "
-            f"{err.max().item():.3e}, max err / (eps32^2 sum|ax|) {ratio:.3f}"
-            f" (limit {PLAIN_TOL})")
-        if not ratio <= PLAIN_TOL:
-            raise AssertionError("rmv disagrees with its plain version")
+        rmv_err = _check_rmv(ddm, dd_cuda, A, y, f"({m}, {n})")
         if (m, n) == (1536, 5120):
             stats["mv"] = {"max_abs_err": mv_err}
-            stats["rmv"] = {"max_abs_err": err.max().item()}
-    # Rows and x that do not start on a 16-byte boundary.
+            stats["rmv"] = {"max_abs_err": rmv_err}
+    # Rows, x and y that do not start on a 16-byte boundary.
     m, n = 1536, 5120
     g = torch.Generator(device="cuda").manual_seed(5)
     Abuf = torch.randn(m * n + 1, generator=g, device="cuda")
@@ -305,6 +327,7 @@ def phase_kernels(ddm):
                       ("x at a 4-byte offset", Abuf[:-1].view(m, n), xbuf[1:]),
                       ("A and x at a 4-byte offset", Abuf[1:].view(m, n), xbuf[1:])):
         _check_mv(ddm, A, x, f"({m}, {n}), {tag}")
+        _check_rmv(ddm, dd_cuda, A, x[:m], f"({m}, {n}), {tag}")
     del Abuf, xbuf
 
     flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
@@ -316,7 +339,7 @@ def phase_kernels(ddm):
                     lambda: ddm._dd_matvec_plain(A.T, y)),
         }
         for which, (kern, plain) in runs.items():
-            p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=True)
+            p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=0.2)
                               for f in (plain, kern, kern, plain))
             k, p = min(k1, k2), min(p1, p2)
             gbs = m * n * 4 / (k * 1e-3) / 1e9
@@ -354,6 +377,24 @@ def phase_afiro(cimt):
     if not rel <= 1e-7:
         raise AssertionError(f"afiro objective {rep.objective}")
     _check_solve("afiro", rep, AFIRO_OPTIMUM)
+
+
+def phase_afiro_f64(cimt, counters):
+    """afiro in f64 on the card, dense and fully sparse (block 16): the
+    plain forms carry it, no kernel launches."""
+    before = {k: v for c in counters.values() for k, v in c.items()}
+    for tag, kw in (("afiro f64", {}), ("sparse afiro f64", dict(sparse=True, block=16))):
+        rep = cimt.solve(AFIRO, "pdas_dd", device="cuda", dtype=torch.float64, **kw)
+        _check_solve(tag, rep, AFIRO_OPTIMUM)
+        rel = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+        after = {k: v for c in counters.values() for k, v in c.items()}
+        say(f"[{tag}] relative objective error {rel:.3e} (limit 1e-7); "
+            f"{rep.summary['phase1_iterations']} + {rep.summary['iterations']} iterations"
+            f" (the CPU takes 22 + 7); x is {rep.result.x.dtype} on {rep.result.x.device};"
+            f" kernel launches {sum(after.values()) - sum(before.values())}")
+        if not (rel <= 1e-7 and after == before and rep.result.x.is_cuda
+                and rep.result.x.dtype == torch.float64):
+            raise AssertionError(f"{tag}: objective {rep.objective}, launches {after}")
 
 
 def phase_pilot(cimt, dd_cuda, card):
@@ -569,6 +610,11 @@ def _check_use_pallas(chol, chol_cuda, dense, N):
 
 def phase_assembly(eng, stats):
     """The assembly kernel on the m = 16384 engine's schedule."""
+    from cholesky_is_magic_tpu_torch.tools.probe_assembly_kernel import pass_launchers
+
+    lengths = torch.diff(eng.asm_run_start)
+    say(f"[assembly] schedule: {eng.n_pairs} pairs in {lengths.numel()} runs, mean run "
+        f"{lengths.double().mean().item():.2f}, longest {int(lengths.max())}")
     g = torch.Generator(device="cuda").manual_seed(12)
     n = int(eng.asm_k.max().item()) + 1
     d = 10.0 ** (3 * torch.rand(n, generator=g, device="cuda") - 1.5)
@@ -587,20 +633,37 @@ def phase_assembly(eng, stats):
         f" {ratio:.3f} (limit 8), bit-identical across two runs {same}")
     if not (ratio <= 8 and same):
         raise AssertionError("assemble_pairs disagrees with its plain version")
-    k = [_median_ms(lambda: eng.assemble_pairs(d, boost)) for _ in range(2)]
-    p = [_median_ms(lambda: eng._assemble_pairs_plain(d, boost)) for _ in range(2)]
+    # Kernel, plain version and library call alike: the card's own time
+    # (asleep until the host has queued the launches), and with the host's
+    # launch time in it.  The kernel's zeros and runs apart come from two
+    # copies of its source built for that alone.
+    kern, plain = (lambda: eng.assemble_pairs(d, boost),
+                   lambda: eng._assemble_pairs_plain(d, boost))
     vals = eng.asm_w * (d * d)[eng.asm_k]
     flat = torch.zeros_like(t1).reshape(-1)
-    lib = _median_ms(lambda: flat.index_add_(0, eng.asm_dst_flat, vals))
-    say(f"[assembly] median ms: kernel {k[0]:.4f} {k[1]:.4f}  plain {p[0]:.4f} "
-        f"{p[1]:.4f}  index_add_ of the finished products alone {lib:.4f}")
-    # The pair arrays, run offsets, d, the boost and the diagonal maps read
-    # once, the tiles written once; 3 flops per pair.
-    read = _nbytes(eng.asm_w, eng.asm_k, eng.asm_run_start, eng.asm_run_dst, d,
-                   boost, eng.diag_panel, eng.pperm)
+    k = [_median_ms(kern, lead=0.2) for _ in range(2)]
+    p = [_median_ms(plain, lead=1.0) for _ in range(2)]  # ~10 launches to queue
+    kh, ph = ([_median_ms(f) for _ in range(2)] for f in (kern, plain))
+    lib = _median_ms(lambda: flat.index_add_(0, eng.asm_dst_flat, vals), lead=0.2)
+    zeros, runs = (_median_ms(f, lead=0.2) for f in pass_launchers(eng, d, boost))
+    # What the kernel reads once (its 32-bit schedule, the weights, d, the
+    # boost) and the tiles written once; 3 flops per pair.  Beside it the same
+    # count over the engine's int64 arrays, which the plain version and the
+    # kernel before the 32-bit schedule read.
+    sched = eng._kernel_schedule
+    bound = _bound(_nbytes(eng.asm_w, *sched[:5], d, boost, t1), 3 * eng.n_pairs)
+    bound64 = _bound(_nbytes(eng.asm_w, eng.asm_k, eng.asm_run_start, eng.asm_run_dst,
+                             d, boost, eng.diag_panel, eng.pperm, t1), 3 * eng.n_pairs)
+    say(f"[assembly] median ms, card asleep until queued: kernel {k[0]:.4f} {k[1]:.4f}"
+        f" (its zeros alone {zeros:.4f}, its runs alone {runs:.4f})  plain {p[0]:.4f}"
+        f" {p[1]:.4f}  index_add_ of the finished products alone {lib:.4f}; with the"
+        f" host's launches in it: kernel {kh[0]:.4f} {kh[1]:.4f}  plain {ph[0]:.4f}"
+        f" {ph[1]:.4f}; bound {bound['bound_ms']:.4f} ({bound64['bound_ms']:.4f} over the"
+        f" int64 arrays)")
     stats["assemble_pairs"] = dict(max_abs_err=err.max().item(), ms=min(k),
                                    plain_ms=min(p), library_ms=lib,
-                                   **_bound(read + _nbytes(t1), 3 * eng.n_pairs))
+                                   ms_with_launch=min(kh),
+                                   plain_ms_with_launch=min(ph), **bound)
 
 
 def phase_sparse_afiro(cimt):
@@ -843,8 +906,11 @@ def main() -> int:
 
     set_highest_precision()
     phase_build(cuda_build)
-    stats = phase_kernels(ddm)
+    counters = {"dd": dd_cuda.LAUNCHES, "chol": chol_cuda.LAUNCHES,
+                "tiled": tiled_cuda.LAUNCHES}
+    stats = phase_kernels(ddm, dd_cuda)
     phase_afiro(cimt)
+    phase_afiro_f64(cimt, counters)
     launches = phase_pilot(cimt, dd_cuda, card)
     chol_launches = phase_chol(chol, chol_cuda, dense, stats)
     launches.update(potrf_panel=chol_launches["potrf_panel"],
@@ -852,8 +918,6 @@ def main() -> int:
     sf, info, eng = build_at_scale_engine()
     phase_assembly(eng, stats)
     phase_sparse_afiro(cimt)
-    counters = {"dd": dd_cuda.LAUNCHES, "chol": chol_cuda.LAUNCHES,
-                "tiled": tiled_cuda.LAUNCHES}
     sparse_launches, rep = phase_at_scale(cimt, sf, info, counters, card)
     launches.update(potrf_tile=sparse_launches["potrf_tile"],
                     assemble_pairs=sparse_launches["assemble_pairs"])
@@ -861,7 +925,8 @@ def main() -> int:
     phase_block256(cimt, sf, info, eng, counters, card)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
-    # library_ms; the panel kernel's ms_with_copy besides.
+    # library_ms; the panel kernel's ms_with_copy and the assembly kernel's
+    # times with the host's launches in them besides.
     kernels = [dict(KERNELS[k], route="cuda", launches=launches[k], **stats[k])
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}))

@@ -15,19 +15,29 @@
 //
 // The TPU kernel reduces with one-hot matmuls, a Mosaic workaround.  Here
 // the schedule is sorted by destination (TiledCholesky.build_ell_assembly),
-// so every destination's pairs form one contiguous run; the host records the
-// run offsets once per engine.  One thread walks one run in schedule order,
-// so the sums are deterministic (no float atomics) and repeated solves are
-// bit-reproducible; a grid-stride pass first writes the zeros and the boost.
+// so every destination's pairs form one contiguous run, and the runs are
+// sorted by destination too.  The host records once per engine
+// (sparse/tiled_cuda.py::kernel_schedule), in 32-bit indices: the run
+// offsets and destinations, with an empty run for every diagonal slot that
+// no pair reaches; for a run on the diagonal of a diagonal tile the permuted
+// row whose boost it takes (-1 elsewhere); and, for every chunk of ``chunk``
+// consecutive tile entries, the first run that lands in it.
 //
-// What bounds it on the H100: ~16 bytes and 3 flops per pair, read once;
-// device-memory bound for long schedules, launch-bound for short ones.  The
-// pair arrays are read with neighbouring threads on neighbouring runs, so
-// short runs (the common case) keep the reads nearly coalesced.
+// One launch: block c owns chunk c of the flat tile array.  It writes the
+// chunk's zeros 16 bytes at a time, then its threads each walk one of the
+// chunk's runs in schedule order and store sum + boost.  No block touches
+// another's chunk, so there is no second pass, no read-back of the tiles, no
+// division to find the diagonal and no float atomics: the sums are
+// deterministic and repeated solves bit-reproducible.
+//
+// What bounds it on the H100: the tiles written once (4 bytes per entry)
+// plus ~12 bytes and 3 flops per pair read once; device-memory bound.
+// Neighbouring threads walk neighbouring runs, so short runs (the common
+// case) keep the pair reads nearly coalesced; d is small and stays in cache.
 //
 // Every operation is an explicit round-to-nearest intrinsic: d², w·d² and
 // the running sum round exactly as the plain version's multiply, multiply
-// and sequential index_add_.
+// and sequential index_add_, and the boost is added last, as there.
 
 #include <cuda_runtime.h>
 
@@ -35,72 +45,64 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// tiles[e] = boost on the diagonal of diagonal tiles, 0 elsewhere.
-// diag_panel[t] = k when tile t is the diagonal tile of panel k, else -1;
-// slot s = k·b + r holds permuted row pperm[s], boosted by row_boost[row]
-// for a real row (row < m) and by 1 for a padded or gap slot.
+// A real row (row < m) is boosted by row_boost[row], a padded or gap slot
+// by 1.
 __global__ void __launch_bounds__(kThreads)
-assemble_fill_kernel(float* __restrict__ tiles, long long total, int b,
-                     const long long* __restrict__ diag_panel,
-                     const long long* __restrict__ pperm,
-                     const float* __restrict__ row_boost, long long m) {
-  const long long bb = static_cast<long long>(b) * b;
-  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long t = e / bb;
-    const long long rem = e - t * bb;
-    const long long r = rem / b, c = rem - r * b;
-    float v = 0.0f;
-    if (r == c) {
-      const long long k = diag_panel[t];
-      if (k >= 0) {
-        const long long row = pperm[k * b + r];
-        v = row < m ? row_boost[row] : 1.0f;
-      }
+assemble_chunks_kernel(float* __restrict__ tiles, int total, int chunk,
+                       const float* __restrict__ w,
+                       const int* __restrict__ kcol,
+                       const float* __restrict__ d,
+                       const int* __restrict__ run_start,
+                       const int* __restrict__ run_dst,
+                       const int* __restrict__ run_row,
+                       const int* __restrict__ chunk_run,
+                       const float* __restrict__ row_boost, int m) {
+  const int c = blockIdx.x;
+  const int e0 = c * chunk;  // a multiple of 4: tiles + e0 is 16-byte aligned
+  const int e1 = min(total, e0 + chunk);
+  const int n4 = (e1 - e0) >> 2;
+  float4* t4 = reinterpret_cast<float4*>(tiles + e0);
+  for (int q = threadIdx.x; q < n4; q += kThreads) {
+    t4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int e = e0 + (n4 << 2) + threadIdx.x; e < e1; e += kThreads) {
+    tiles[e] = 0.0f;
+  }
+  __syncthreads();  // the block's zeros before the block's sums
+  const int s1 = chunk_run[c + 1];
+  for (int s = chunk_run[c] + threadIdx.x; s < s1; s += kThreads) {
+    const int p0 = run_start[s], p1 = run_start[s + 1];
+    float acc = 0.0f;
+    for (int p = p0; p < p1; ++p) {
+      const float dk = d[kcol[p]];
+      acc = __fadd_rn(acc, __fmul_rn(w[p], __fmul_rn(dk, dk)));
     }
-    tiles[e] = v;
+    const int row = run_row[s];
+    const float boost = row < 0 ? 0.0f : (row < m ? row_boost[row] : 1.0f);
+    tiles[run_dst[s]] = p1 > p0 ? __fadd_rn(acc, boost) : boost;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-assemble_runs_kernel(float* __restrict__ tiles, const float* __restrict__ w,
-                     const long long* __restrict__ kcol,
-                     const float* __restrict__ d,
-                     const long long* __restrict__ run_start,
-                     const long long* __restrict__ run_dst, long long runs) {
-  const long long s = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (s >= runs) return;
-  float acc = 0.0f;
-  for (long long p = run_start[s]; p < run_start[s + 1]; ++p) {
-    const float dk = d[kcol[p]];
-    acc = __fadd_rn(acc, __fmul_rn(w[p], __fmul_rn(dk, dk)));
-  }
-  const long long dst = run_dst[s];
-  tiles[dst] = __fadd_rn(acc, tiles[dst]);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Launches on the given stream, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
-extern "C" int cim_assemble_pairs_f32(float* tiles, long long total, int b,
-                                      const long long* diag_panel,
-                                      const long long* pperm,
-                                      const float* row_boost, long long m,
-                                      const float* w, const long long* kcol,
-                                      const float* d, const long long* run_start,
-                                      const long long* run_dst, long long runs,
+// synchronise, and returns cudaGetLastError() (0 = launched).  ``tiles`` is
+// 16-byte aligned, ``chunk`` a multiple of 4 with total + chunk < 2^31, and
+// chunk_run has ceil(total / chunk) + 1 entries.
+extern "C" int cim_assemble_pairs_f32(float* tiles, int total, int chunk,
+                                      const float* w, const int* kcol,
+                                      const float* d, const int* run_start,
+                                      const int* run_dst, const int* run_row,
+                                      const int* chunk_run,
+                                      const float* row_boost, int m,
                                       void* stream) {
-  if (b < 1 || total < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (total < 1 || chunk < 4 || chunk % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  long long fill_blocks = (total + kThreads - 1) / kThreads;
-  if (fill_blocks > 65536) fill_blocks = 65536;
-  assemble_fill_kernel<<<static_cast<unsigned>(fill_blocks), kThreads, 0, s>>>(
-      tiles, total, b, diag_panel, pperm, row_boost, m);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || runs == 0) return static_cast<int>(err);
-  const long long run_blocks = (runs + kThreads - 1) / kThreads;
-  assemble_runs_kernel<<<static_cast<unsigned>(run_blocks), kThreads, 0, s>>>(
-      tiles, w, kcol, d, run_start, run_dst, runs);
+  const int chunks = (total + chunk - 1) / chunk;
+  assemble_chunks_kernel<<<chunks, kThreads, 0, s>>>(
+      tiles, total, chunk, w, kcol, d, run_start, run_dst, run_row, chunk_run,
+      row_boost, m);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,9 @@
 // Double-word matrix-vector products for Hopper (sm_90a), f32.
 //
 // Replace the Pallas TPU kernels of cholesky_is_magic_tpu/ops/dd_pallas.py:
-//   dd_mv_kernel          <- _mv_kernel  (A @ x,  launched by _dd_mv_partials)
-//   dd_rmv_partial_kernel <- _rmv_kernel (A^T @ x, launched by _dd_rmv_partials)
-//   dd_rmv_reduce_kernel  <- the dd_sum over axis 0 that follows _rmv_kernel
+//   dd_mv_kernel  <- _mv_kernel  (A @ x,  launched by _dd_mv_partials)
+//   dd_rmv_kernel <- _rmv_kernel (A^T @ x, launched by _dd_rmv_partials) and
+//                    the dd_sum over axis 0 that follows it
 //
 // Every product a*x is split error-free into p + e with e = fma(a, x, -p)
 // (the exact product error; the same value as the Dekker split of the JAX
@@ -23,10 +23,24 @@
 //        (neighbouring threads read neighbouring addresses), a warp-shuffle
 //        dd_add tree and a shared-memory step across the block's 4 warps;
 //        no partials array.
-//   rmv: one thread per column reading A's rows in order (a warp reads 32
-//        neighbouring floats of a row), row slabs on the grid's second
-//        dimension so that enough blocks fill the card; (slabs, n) partials
-//        are combined by a second small kernel.
+//   rmv: row slabs on the grid's second dimension so that enough blocks
+//        fill the card in one wave; a thread owns kRmvCols neighbouring
+//        columns (one load per row where the rows are aligned to that many
+//        floats, 4-byte loads otherwise), each with its own accumulator
+//        chain, and loads kRmvRows rows at a time, the next rows' loads
+//        started before the current ones are accumulated.  Every column still
+//        adds its slab's rows in ascending order.  The (slabs, n) partials
+//        go through L2: the last block to arrive for a column block (an
+//        integer ticket per column block, __threadfence + atomicAdd, set
+//        back to 0 by that same block) adds that block's partials in slab
+//        order 0..S-1 with dd_add, so one launch does it all and the sums do
+//        not depend on which block came last.  No float atomics.
+//        On an NVIDIA H100 80GB HBM3 at 700.00 W (tools/probe_rmv_kernel.py)
+//        the kernel up to the tickets runs at the rate of a plain read of A
+//        whatever the threads (64-256) and columns (1, 2, 4) per thread at 8
+//        rows; what is left is the last block's combine (~2.6 us for 27
+//        slabs: a batch's L2 latency and its chain of dd_adds, four times).
+//        The registers decide the rest: all blocks must be resident at once.
 // Both kernels mask the ragged edge themselves: any m, n >= 1.
 
 #include <cuda_runtime.h>
@@ -87,7 +101,18 @@ __device__ __forceinline__ dd warp_dd_sum(dd v) {
 
 constexpr int kMvThreads = 128;
 constexpr int kMvWarps = kMvThreads / 32;
-constexpr int kRmvThreads = 256;
+
+// Aᵀ·x: threads per block, neighbouring columns per thread (one rmv_vec
+// load per row), rows per load chunk, slabs per load batch of the combine.
+// The fastest of tools/probe_rmv_kernel.py's sweep that keeps seven blocks
+// resident on an SM (72 registers).
+constexpr int kRmvThreads = 128;
+constexpr int kRmvCols = 2;
+using rmv_vec = float2;  // kRmvCols floats
+constexpr int kRmvRows = 8;
+constexpr int kRmvBatch = 8;
+constexpr int kRmvCtaCols = kRmvThreads * kRmvCols;  // dd_cuda.RMV_CTA_COLS
+static_assert(sizeof(rmv_vec) == kRmvCols * sizeof(float), "rmv_vec holds kRmvCols floats");
 
 __global__ void __launch_bounds__(kMvThreads)
 dd_mv_kernel(const float* __restrict__ A, const float* __restrict__ x,
@@ -116,37 +141,173 @@ dd_mv_kernel(const float* __restrict__ A, const float* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(kRmvThreads)
-dd_rmv_partial_kernel(const float* __restrict__ A, const float* __restrict__ x,
-                      float* __restrict__ part_hi, float* __restrict__ part_lo,
-                      int m, int n, long long lda, int rows_per_slab) {
-  const int col = blockIdx.x * kRmvThreads + threadIdx.x;
-  if (col >= n) return;
-  const int slab = blockIdx.y;
-  const int r0 = slab * rows_per_slab;
-  const int r1 = min(m, r0 + rows_per_slab);
-  dd acc = {0.0f, 0.0f};
-  for (int i = r0; i < r1; ++i) {
-    dd_accumulate(acc, A[static_cast<long long>(i) * lda + col], x[i]);
-  }
-  const long long out = static_cast<long long>(slab) * n + col;
-  part_hi[out] = acc.hi;
-  part_lo[out] = acc.lo;
+// kRmvCols neighbouring floats at ``p`` in one load (p aligned to their
+// size): through the read-only path, or from L2 past L1 (``kFromL2``).
+union rmv_pack {
+  rmv_vec vec;
+  float f[kRmvCols];
+};
+
+template <bool kFromL2>
+__device__ __forceinline__ void rmv_load_vec(const float* p, float (&v)[kRmvCols]) {
+  const rmv_vec* q = reinterpret_cast<const rmv_vec*>(p);
+  rmv_pack t;
+  t.vec = kFromL2 ? __ldcg(q) : __ldg(q);
+#pragma unroll
+  for (int j = 0; j < kRmvCols; ++j) v[j] = t.f[j];
 }
 
-__global__ void __launch_bounds__(kRmvThreads)
-dd_rmv_reduce_kernel(const float* __restrict__ part_hi,
-                     const float* __restrict__ part_lo, float* __restrict__ hi,
-                     float* __restrict__ lo, int n, int slabs) {
-  const int col = blockIdx.x * kRmvThreads + threadIdx.x;
-  if (col >= n) return;
-  dd t = {part_hi[col], part_lo[col]};
-  for (int s = 1; s < slabs; ++s) {
-    const long long k = static_cast<long long>(s) * n + col;
-    t = dd_add(t, dd{part_hi[k], part_lo[k]});
+__device__ __forceinline__ void rmv_store_vec(float* p, const float (&v)[kRmvCols]) {
+  rmv_pack t;
+#pragma unroll
+  for (int j = 0; j < kRmvCols; ++j) t.f[j] = v[j];
+  *reinterpret_cast<rmv_vec*>(p) = t.vec;
+}
+
+// One row's columns of a thread from ``a`` (already at its first column):
+// one load, or 4-byte loads with the ``left`` columns inside A and zeros
+// past them.
+template <bool kVec>
+__device__ __forceinline__ void rmv_load(const float* __restrict__ a, int left,
+                                         float (&v)[kRmvCols]) {
+  if constexpr (kVec) {
+    rmv_load_vec<false>(a, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRmvCols; ++j) v[j] = j < left ? __ldg(a + j) : 0.0f;
   }
-  hi[col] = t.hi;
-  lo[col] = t.lo;
+}
+
+// kVec: every row of A starts on a boundary of kRmvCols floats and n is a
+// multiple of kRmvCols.  part_hi / part_lo are (slabs, ldp) with ldp a
+// multiple of 4 >= n; tickets holds one zero per column block on entry and
+// on exit (the kernel traps on any other count).
+template <bool kVec>
+__global__ void __launch_bounds__(kRmvThreads)
+dd_rmv_kernel(const float* __restrict__ A, const float* __restrict__ x,
+              float* __restrict__ hi, float* __restrict__ lo,
+              float* part_hi, float* part_lo, int* tickets, int m, int n,
+              long long lda, long long ldp, int rows_per_slab) {
+  const int col = (blockIdx.x * kRmvThreads + threadIdx.x) * kRmvCols;
+  const int left = n - col;  // columns of this thread inside A, if > 0
+  const int slab = blockIdx.y;
+  const int slabs = gridDim.y;
+  const int r0 = slab * rows_per_slab;
+  const int r1 = min(m, r0 + rows_per_slab);
+  __shared__ int last;
+  dd acc[kRmvCols];
+#pragma unroll
+  for (int j = 0; j < kRmvCols; ++j) acc[j] = {0.0f, 0.0f};
+
+  if (left > 0) {
+    // Rows in chunks of kRmvRows: the next chunk's loads are started before
+    // the current chunk is accumulated, rows ascending.
+    const float* a = A + static_cast<long long>(r0) * lda + col;
+    const int chunks = (r1 - r0) / kRmvRows;
+    float cur[kRmvRows][kRmvCols], nxt[kRmvRows][kRmvCols];
+    float xc[kRmvRows], xn[kRmvRows];
+    int i = r0;
+    if (chunks > 0) {
+#pragma unroll
+      for (int r = 0; r < kRmvRows; ++r) {
+        rmv_load<kVec>(a + r * lda, left, cur[r]);
+        xc[r] = __ldg(x + i + r);
+      }
+    }
+    for (int c = 0; c < chunks; ++c) {
+      a += kRmvRows * lda;
+      i += kRmvRows;
+      const bool more = c + 1 < chunks;
+      if (more) {
+#pragma unroll
+        for (int r = 0; r < kRmvRows; ++r) {
+          rmv_load<kVec>(a + r * lda, left, nxt[r]);
+          xn[r] = __ldg(x + i + r);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRmvRows; ++r) {
+#pragma unroll
+        for (int j = 0; j < kRmvCols; ++j) dd_accumulate(acc[j], cur[r][j], xc[r]);
+      }
+      if (more) {
+#pragma unroll
+        for (int r = 0; r < kRmvRows; ++r) {
+          xc[r] = xn[r];
+#pragma unroll
+          for (int j = 0; j < kRmvCols; ++j) cur[r][j] = nxt[r][j];
+        }
+      }
+    }
+    for (; i < r1; ++i, a += lda) {
+      float v[kRmvCols];
+      rmv_load<kVec>(a, left, v);
+      const float xi = __ldg(x + i);
+#pragma unroll
+      for (int j = 0; j < kRmvCols; ++j) dd_accumulate(acc[j], v[j], xi);
+    }
+  }
+
+  if (slabs > 1) {
+    if (left > 0) {
+      float h[kRmvCols], l[kRmvCols];
+#pragma unroll
+      for (int j = 0; j < kRmvCols; ++j) { h[j] = acc[j].hi; l[j] = acc[j].lo; }
+      const long long out = static_cast<long long>(slab) * ldp + col;
+      rmv_store_vec(part_hi + out, h);
+      rmv_store_vec(part_lo + out, l);
+    }
+    // The ticket: every thread's partials are visible device-wide before
+    // thread 0 takes this block's ticket; the block that takes the last one
+    // reads all of them back from L2, past its L1 (__ldcg), where they are
+    // by then.
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int before = atomicAdd(tickets + blockIdx.x, 1);
+      // A ticket that was not zero on entry ends past the slabs: stop the
+      // launch with an error rather than combine partials not yet written.
+      if (before >= slabs) __trap();
+      last = before == slabs - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+    if (left <= 0) return;
+    // Slab order 0..S-1.  The partials come in batches of kRmvBatch slabs,
+    // a batch's loads all in flight before its chain of dd_adds starts: one L2
+    // latency per batch, not per slab.
+    const float* ph = part_hi + col;
+    const float* pl = part_lo + col;
+    for (int s0 = 0; s0 < slabs; s0 += kRmvBatch) {
+      float h[kRmvBatch][kRmvCols], l[kRmvBatch][kRmvCols];
+#pragma unroll
+      for (int q = 0; q < kRmvBatch; ++q) {
+        if (s0 + q < slabs) {
+          rmv_load_vec<true>(ph + (s0 + q) * ldp, h[q]);
+          rmv_load_vec<true>(pl + (s0 + q) * ldp, l[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kRmvBatch; ++q) {
+        if (s0 + q < slabs) {
+#pragma unroll
+          for (int j = 0; j < kRmvCols; ++j) {
+            const dd p = {h[q][j], l[q][j]};
+            acc[j] = s0 + q == 0 ? p : dd_add(acc[j], p);
+          }
+        }
+      }
+    }
+  }
+  if (left <= 0) return;
+#pragma unroll
+  for (int j = 0; j < kRmvCols; ++j) {
+    if (j < left) {
+      hi[col + j] = acc[j].hi;
+      lo[col + j] = acc[j].lo;
+    }
+  }
 }
 
 }  // namespace
@@ -162,17 +323,24 @@ extern "C" int cim_dd_mv_f32(const float* A, const float* x, float* hi,
   return static_cast<int>(cudaGetLastError());
 }
 
+// part_hi / part_lo: (slabs, ldp) scratch, ldp a multiple of 4 >= n, both
+// 16-byte aligned; tickets: one int per block of kRmvCtaCols columns, all
+// zero (the kernel leaves them zero).
 extern "C" int cim_dd_rmv_f32(const float* A, const float* x, float* hi,
-                              float* lo, float* part_hi, float* part_lo, int m,
-                              int n, long long lda, int slabs,
-                              int rows_per_slab, void* stream) {
+                              float* lo, float* part_hi, float* part_lo,
+                              int* tickets, int m, int n, long long lda,
+                              long long ldp, int slabs, int rows_per_slab,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int col_blocks = (n + kRmvThreads - 1) / kRmvThreads;
-  dd_rmv_partial_kernel<<<dim3(col_blocks, slabs), kRmvThreads, 0, s>>>(
-      A, x, part_hi, part_lo, m, n, lda, rows_per_slab);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dd_rmv_reduce_kernel<<<col_blocks, kRmvThreads, 0, s>>>(part_hi, part_lo, hi,
-                                                          lo, n, slabs);
+  const dim3 grid((n + kRmvCtaCols - 1) / kRmvCtaCols, slabs);
+  const bool vec = reinterpret_cast<unsigned long long>(A) % (4 * kRmvCols) == 0 &&
+                   lda % kRmvCols == 0 && n % kRmvCols == 0;
+  if (vec) {
+    dd_rmv_kernel<true><<<grid, kRmvThreads, 0, s>>>(
+        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab);
+  } else {
+    dd_rmv_kernel<false><<<grid, kRmvThreads, 0, s>>>(
+        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,16 +8,21 @@ panels with the matrix resident in VMEM.  Here:
 
 - :func:`blocked_cholesky`, :func:`_chol_leaf` and :func:`_rsolve_lower_T`
   are the plain PyTorch versions, operation for operation;
-- :func:`cholesky` dispatches: a CUDA tensor runs the hand-written blocked
-  potrf (:func:`.chol_cuda.potrf`, the port of ``_potrf_kernel``), a CPU
-  tensor :func:`blocked_cholesky` — exactly what the JAX ``cholesky()``
-  runs off the TPU;
+- :func:`cholesky` dispatches: a float32 CUDA tensor runs the hand-written
+  blocked potrf (:func:`.chol_cuda.potrf`, the port of ``_potrf_kernel``),
+  a CPU tensor or another dtype on the card :func:`blocked_cholesky` —
+  exactly what the JAX ``cholesky()`` runs off the TPU or on a non-f32
+  operand (``ops/pallas_chol.py:255-260``);
 - :func:`factor_tile_` factors one (b, b) diagonal tile of the sparse tile
   engine and inverts its factor (the tile engine's panel step,
-  ``sparse/tiled.py:357-358`` of the JAX package): on a CUDA tensor the
-  hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`, b <= 128), with
-  wider tiles split 2 x 2 around it (:func:`_factor_tile_split_`); on a CPU
-  tensor :func:`_factor_tile_plain` at any b.
+  ``sparse/tiled.py:357-358`` of the JAX package): on a float32 CUDA tensor
+  the hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`, b <= 128),
+  with wider tiles split 2 x 2 around it (:func:`_factor_tile_split_`); on
+  a CPU tensor, or another dtype on the card, :func:`_factor_tile_plain` at
+  any b.
+
+The route is chosen from the operands (``cuda_build.takes_kernel``) before
+any launch; it is not a fallback.
 
 All of them give NaN on a non-positive-definite input, which the callers'
 finiteness checks report as a failed factorization.
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from cholesky_is_magic_tpu_torch.ops import chol_cuda
+from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 
 # Below this size, factor with the sequential masked update instead of
 # recursing further (the JAX package's LEAF).
@@ -85,12 +91,13 @@ def blocked_cholesky(A: torch.Tensor) -> torch.Tensor:
 def cholesky(N: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor, NaN on a non-PD input.
 
-    A CUDA tensor runs the hand-written blocked potrf at any n: it works
-    from global memory, so the JAX package's VMEM gate (n > 1536 falls back
-    to the library Cholesky there) does not carry over.  A CPU tensor runs
-    :func:`blocked_cholesky`, as the JAX ``cholesky()`` does off the TPU.
+    A float32 CUDA tensor runs the hand-written blocked potrf at any n: it
+    works from global memory, so the JAX package's VMEM gate (n > 1536 falls
+    back to the library Cholesky there) does not carry over.  A CPU tensor,
+    or another dtype on the card, runs :func:`blocked_cholesky`, as the JAX
+    ``cholesky()`` does off the TPU or on a non-f32 matrix.
     """
-    if N.is_cuda:
+    if takes_kernel(N.device, N.dtype):
         return chol_cuda.potrf(N)
     return blocked_cholesky(N)
 
@@ -137,11 +144,11 @@ def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
 def factor_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
     """In place: T <- the lower factor of the (b, b) tile T (its lower
     triangle is read), inv <- that factor's inverse; upper triangles exactly
-    zero, everything NaN on a non-PD tile.  On the card the tile kernel
-    factors tiles of at most ``chol_cuda.BLOCK`` and
-    :func:`_factor_tile_split_` splits wider ones around it; on the CPU
-    :func:`_factor_tile_plain`."""
-    if T.is_cuda:
+    zero, everything NaN on a non-PD tile.  On float32 CUDA tensors the tile
+    kernel factors tiles of at most ``chol_cuda.BLOCK`` and
+    :func:`_factor_tile_split_` splits wider ones around it; on the CPU, or
+    in another dtype on the card, :func:`_factor_tile_plain`."""
+    if takes_kernel(T.device, T.dtype, inv.dtype):
         _factor_tile_split_(T, inv, chol_cuda.potrf_tile_)
         return
     L, Li = _factor_tile_plain(T)

@@ -15,7 +15,8 @@ with an explicit ``__fmaf_rn``.
 
 The wrappers (:mod:`.dd_cuda`, :mod:`.chol_cuda`,
 :mod:`..sparse.tiled_cuda`) call :func:`load` with the ctypes signatures of
-their own entry points.
+their own entry points.  The dispatchers in front of them ask
+:func:`takes_kernel` which operands go to a kernel at all.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cim_torch_kernels"
 NVCC_FLAGS = (
@@ -36,6 +39,16 @@ NVCC_FLAGS = (
 
 _lib = None
 _declared: set[str] = set()
+
+
+def takes_kernel(device: torch.device, *dtypes: torch.dtype) -> bool:
+    """Whether operands on ``device`` of these dtypes go to a hand-written
+    kernel: a CUDA device and float32 throughout, as the kernels are written.
+    Anything else takes the plain PyTorch form on its own device, as the JAX
+    package sends non-f32 operands to its XLA form
+    (``ops/dd_pallas.py`` ``_tiles``).  The dispatchers ask this before any
+    launch; it is a route chosen from the operands, never a fallback."""
+    return device.type == "cuda" and all(dt == torch.float32 for dt in dtypes)
 
 
 def sources() -> list[Path]:

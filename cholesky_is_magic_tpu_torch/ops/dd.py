@@ -12,10 +12,12 @@ never fuses, so the split is exact.  Keep ``torch.compile`` away from this
 module: a fusing compiler may contract the split and break it.
 
 ``dd_matvec`` / ``dd_rmatvec`` are the hot primitives (every refinement
-residual and the pdas_dd right-hand sides).  For a CUDA tensor they launch
-the hand-written kernels of :mod:`.dd_cuda`; for a CPU tensor they run
-``_dd_matvec_plain``, the torch form of the JAX package's
-``_dd_matvec_xla``.  There is no fallback between the two.
+residual and the pdas_dd right-hand sides).  For float32 CUDA tensors they
+launch the hand-written kernels of :mod:`.dd_cuda`; for a CPU tensor, and
+for any other dtype on the card, they run ``_dd_matvec_plain``, the torch
+form of the JAX package's ``_dd_matvec_xla`` (which takes that package's
+non-f32 operands too).  The route is chosen from the operands
+(``cuda_build.takes_kernel``); there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 
 
 class DD(NamedTuple):
@@ -221,10 +225,11 @@ def _dd_matvec_plain(A: torch.Tensor, x: torch.Tensor) -> DD:
 def dd_matvec(A: torch.Tensor, x: torch.Tensor) -> DD:
     """Compensated A @ x: error-free products, eps^2-class total.
 
-    A CUDA tensor goes to the hand-written kernel (:func:`.dd_cuda.dd_mv`,
-    which raises on what it cannot take); a CPU tensor to the plain form.
+    Float32 CUDA tensors go to the hand-written kernel
+    (:func:`.dd_cuda.dd_mv`, which raises on what it cannot take); a CPU
+    tensor, or another dtype on the card, to the plain form.
     """
-    if A.is_cuda:
+    if takes_kernel(A.device, A.dtype, x.dtype):
         from cholesky_is_magic_tpu_torch.ops import dd_cuda
 
         return DD(*dd_cuda.dd_mv(A, x))
@@ -232,9 +237,10 @@ def dd_matvec(A: torch.Tensor, x: torch.Tensor) -> DD:
 
 
 def dd_rmatvec(A: torch.Tensor, x: torch.Tensor) -> DD:
-    """Compensated Aᵀ @ x.  The CUDA kernel reads A in its natural
-    row-major layout (no transpose copy); the plain form runs on A.T."""
-    if A.is_cuda:
+    """Compensated Aᵀ @ x, routed as :func:`dd_matvec`.  The CUDA kernel
+    reads A in its natural row-major layout (no transpose copy); the plain
+    form runs on A.T."""
+    if takes_kernel(A.device, A.dtype, x.dtype):
         from cholesky_is_magic_tpu_torch.ops import dd_cuda
 
         return DD(*dd_cuda.dd_rmv(A, x))

@@ -8,8 +8,11 @@ Pallas TPU kernels of ``cholesky_is_magic_tpu/ops/dd_pallas.py``:
   sum finished inside the kernel;
 - :func:`dd_rmv` (``cim_dd_rmv_f32``) replaces ``_rmv_kernel``, launched
   there by ``_dd_rmv_partials``: Aᵀ·x in double-word, reading row-major A
-  without a transpose copy; row slabs write (slabs, n) partials that a
-  second small kernel combines with ``dd_add``.
+  without a transpose copy, in one launch; a thread accumulates two
+  neighbouring columns over its row slab, eight rows' loads at a time; the
+  slabs leave (slabs, n) partials in L2, and the last block to arrive for a
+  column block (an integer ticket) combines them in slab order with
+  ``dd_add``.
 
 What bounds them on the H100: every 4-byte element of A costs ~10 flops
 (error-free product + compensated accumulation), far below the card's
@@ -18,7 +21,9 @@ design reads A exactly once with coalesced loads (see the .cu file).
 
 The plain version of both is ``ops.dd._dd_matvec_plain`` (on ``A.T`` for
 Aᵀ·x).  The results agree with it to a few f32-eps² of Σ|aᵢⱼxⱼ| per row,
-not bit for bit: the summation order differs.
+not bit for bit: the summation order differs.  :func:`rmv_slab_plain` is
+Aᵀ·x in plain PyTorch in the kernel's own order (rows ascending inside a
+slab, slabs ascending), which the kernel matches bit for bit.
 
 The library is built at first use by :mod:`.cuda_build`.  Importing this
 module needs no CUDA toolkit.  ``LAUNCHES`` counts the wrapper calls that
@@ -34,15 +39,27 @@ from ctypes import c_void_p as _P
 import torch
 
 from cholesky_is_magic_tpu_torch.ops import cuda_build
+from cholesky_is_magic_tpu_torch.ops import dd as ddm
 
 LAUNCHES = {"mv": 0, "rmv": 0}
 
 _SIGNATURES = {
     "cim_dd_mv_f32": [_P, _P, _P, _P, _I, _I, _LL, _P],
-    "cim_dd_rmv_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+    "cim_dd_rmv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I,
+                       _P],
 }
 
-RMV_THREADS = 256  # kRmvThreads in the .cu file
+# Columns per block of the Aᵀ·x kernel (kRmvCtaCols of csrc/dd_matvec.cu):
+# one ticket each, and the width of a column block in rmv_slabs' count, which
+# fixes the slab partition and with it the order of the sums.
+RMV_CTA_COLS = 256
+
+# Per (device, stream): the zeroed tickets of dd_rmv's column blocks.  Each
+# launch leaves them zero again, and launches on one stream run in turn, so
+# no call pays for a memset.  A ticket that was not zero on entry makes the
+# kernel trap (the launch's last arrival then counts past its slabs), so a
+# stale count is a CUDA error at the next synchronisation, never a wrong sum.
+_TICKETS: dict = {}
 
 
 def _check(A: torch.Tensor, x: torch.Tensor, k: int, name: str) -> None:
@@ -63,7 +80,7 @@ def _check(A: torch.Tensor, x: torch.Tensor, k: int, name: str) -> None:
 def rmv_slabs(m: int, n: int, sms: int) -> tuple[int, int]:
     """(slabs, rows_per_slab) for Aᵀ·x: enough row slabs that the grid has
     ~4 blocks per SM, each slab at least 32 rows, at most 65535 slabs."""
-    col_blocks = -(-n // RMV_THREADS)
+    col_blocks = -(-n // RMV_CTA_COLS)
     want = max(1, -(-4 * sms // col_blocks))
     slabs = max(1, min(want, -(-m // 32), 65535))
     rows = -(-m // slabs)
@@ -98,16 +115,49 @@ def dd_rmv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
         return zero, zero.clone()
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     slabs, rows = rmv_slabs(m, n, sms)
+    ldp = -(-n // 4) * 4
     hi = torch.empty(n, dtype=torch.float32, device=A.device)
     lo = torch.empty(n, dtype=torch.float32, device=A.device)
-    part = torch.empty((2, slabs, n), dtype=torch.float32, device=A.device)
+    part = torch.empty((2, slabs, ldp), dtype=torch.float32, device=A.device)
     lib = cuda_build.load(_SIGNATURES)
     stream = torch.cuda.current_stream(A.device).cuda_stream
+    blocks = -(-n // RMV_CTA_COLS)
+    tickets = _TICKETS.get((A.device, stream))
+    if tickets is None or tickets.numel() < blocks:
+        tickets = torch.zeros(blocks, dtype=torch.int32, device=A.device)
+        _TICKETS[(A.device, stream)] = tickets
     LAUNCHES["rmv"] += 1
     cuda_build.raise_on(
         lib.cim_dd_rmv_f32(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
                            lo.data_ptr(), part[0].data_ptr(),
-                           part[1].data_ptr(), m, n, A.stride(0),
-                           slabs, rows, stream),
+                           part[1].data_ptr(), tickets.data_ptr(), m, n,
+                           A.stride(0), ldp, slabs, rows, stream),
         "dd_rmv")
     return hi, lo
+
+
+def rmv_slab_plain(A: torch.Tensor, x: torch.Tensor, slabs: int,
+                   rows: int) -> ddm.DD:
+    """Aᵀ·x for float32 A and x in plain PyTorch, in :func:`dd_rmv`'s own
+    order: each column adds its slab's rows in ascending order into a
+    double-word (the kernel's ``dd_accumulate``), and the slabs' partials
+    are added in ascending order with ``dd_add``.  The product error is the
+    kernel's fma(a, x, -p), exact here by way of float64.  One small
+    operation per row: for checks, not for speed."""
+    m, n = A.shape
+    if m and -(-m // rows) != slabs:
+        raise ValueError(f"{slabs} slabs of {rows} rows do not cover {m} rows")
+    total = None
+    for r0 in range(0, max(m, 1), rows):
+        hi = torch.zeros(n, dtype=A.dtype, device=A.device)
+        lo = torch.zeros_like(hi)
+        for i in range(r0, min(m, r0 + rows)):
+            p = A[i] * x[i]
+            e = (A[i].double() * x[i].double() - p.double()).to(A.dtype)
+            s = ddm.two_sum(hi, p)
+            low = lo + (s.lo + e)
+            hi = s.hi + low
+            lo = low - (hi - s.hi)
+        part = ddm.DD(hi, lo)
+        total = part if total is None else ddm.dd_add(total, part)
+    return total

@@ -24,9 +24,10 @@ true length and slices to it, so no padded entry is ever computed and the
 dummy row is never written.  The TRSM and SYRK products and the solves are
 ``torch.matmul`` (XLA einsums outside any Pallas kernel in the JAX
 package); the tile factor and the assembly are the hand-written kernels on
-a CUDA tensor (:mod:`..ops.chol_cuda`, :mod:`.tiled_cuda`) and their plain
-versions on a CPU tensor.  ``ok`` is read on the host once per
-factorization, and only when the dbound retry is armed.
+float32 CUDA tensors (:mod:`..ops.chol_cuda`, :mod:`.tiled_cuda`) and their
+plain versions on a CPU tensor or in another dtype on the card.  ``ok`` is
+read on the host once per factorization, and only when the dbound retry is
+armed.
 
 Not ported: the dense-A entry points (``engine_for``, ``assemble``,
 ``prepare_normal``, ``solve_normal``), which raise ``NotImplementedError``,
@@ -41,6 +42,7 @@ import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import chol
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
 
 
@@ -179,8 +181,8 @@ class TiledCholesky:
         destination in the compact tile array), mirrored inside diagonal
         tiles, sorted by destination.  The enumeration runs in C++ when
         native/symbolic.cpp is available, with this Python loop as the
-        fallback.  The run offsets of equal destinations are recorded for
-        the assembly kernel."""
+        fallback.  The run offsets of equal destinations are recorded
+        too."""
         import scipy.sparse as sp
 
         from cholesky_is_magic_tpu_torch.sparse import native
@@ -233,17 +235,28 @@ class TiledCholesky:
         self.asm_dst_flat = put(dst)
         self.n_pairs = len(ws)
         run_dst, run_start = np.unique(dst, return_index=True)
-        self.asm_run_start = put(np.append(run_start, len(dst)).astype(np.int64))
-        self.asm_run_dst = put(run_dst.astype(np.int64))
+        run_start = np.append(run_start, len(dst)).astype(np.int64)
+        run_dst = run_dst.astype(np.int64)
+        self.asm_run_start = put(run_start)
+        self.asm_run_dst = put(run_dst)
+        # The assembly kernel's 32-bit view of this schedule, where
+        # assemble_pairs will launch it.
+        self._kernel_schedule = None
+        if takes_kernel(self.device, dtype):
+            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+            self._kernel_schedule = tiled_cuda.kernel_schedule(
+                self, run_start, run_dst)
 
     def assemble_pairs(self, d, row_boost=None):
         """Resident tiles of P(A·D)(A·D)ᵀPᵀ from the pair schedule, plus the
         boosted unit diagonal of padded and gap slots (and ``row_boost`` on
-        the first len(row_boost) rows): the hand-written kernel on a CUDA
-        tensor, :meth:`_assemble_pairs_plain` on a CPU tensor."""
+        the first len(row_boost) rows): the hand-written kernel on float32
+        CUDA tensors, :meth:`_assemble_pairs_plain` on a CPU tensor or in
+        another dtype on the card."""
         if row_boost is None:
             row_boost = torch.zeros(0, dtype=self.asm_w.dtype, device=d.device)
-        if d.is_cuda:
+        if takes_kernel(d.device, d.dtype, self.asm_w.dtype):
             from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
 
             return tiled_cuda.assemble_pairs(self, d, row_boost)

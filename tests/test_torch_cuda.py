@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels on the card: the double-word matvecs (also
-on rows that do not start on a 16-byte boundary), the blocked Cholesky
-(tile, panel, Schur; tiles wider than 128 split around the tile kernel) and
-the pair-schedule assembly, each against its plain PyTorch version, and the
-dense and sparse solves (afiro; block 256).
+on rows that do not start on a 16-byte boundary; Aᵀ·x bit for bit against
+its summation order in plain PyTorch), the blocked Cholesky (tile, panel,
+Schur; tiles wider than 128 split around the tile kernel) and the
+pair-schedule assembly, each against its plain PyTorch version, the dense
+and sparse solves (afiro; block 256), and float64 on the card, which takes
+the plain forms and launches no kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -93,6 +95,51 @@ def test_dd_mv_on_misaligned_views(dev, view):
                                rtol=1e-11, atol=1e-11)
 
 
+RMV_SHAPES = [(1, 1), (7, 300), (300, 7), (129, 257), (1441, 5093), (1536, 5120)]
+
+
+def _rmv_slab_order(A, y):
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    return dd_cuda.rmv_slab_plain(A, y, *dd_cuda.rmv_slabs(*A.shape, sms))
+
+
+@pytest.mark.parametrize("m,n", RMV_SHAPES)
+def test_dd_rmv_is_bit_equal_to_its_slab_order(dev, m, n):
+    """Aᵀ·x against the same sums in plain PyTorch (rows ascending inside a
+    slab, slabs ascending): equal bit for bit, hi and lo, and again on a
+    second call (the column blocks' tickets are back at zero)."""
+    A, _x, y = _inputs(np.random.default_rng(m + n), m, n, dev)
+    want = _rmv_slab_order(A, y)
+    for _ in range(2):
+        got = ddm.dd_rmatvec(A, y)
+        assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
+    for t in dd_cuda._TICKETS.values():
+        assert not bool(t.any())
+
+
+@pytest.mark.parametrize("view", ["A[1:]", "x[1:]", "both"])
+@pytest.mark.parametrize("m,n", [(1441, 5093), (1536, 5120)])
+def test_dd_rmv_on_misaligned_views(dev, m, n, view):
+    """Aᵀ·x where the rows (a view of the storage one element in, or lda =
+    5093) or x (a view one element in) do not start on a 16-byte boundary:
+    bit-equal to the slab order, within 64·eps32² of Σ|a_ij x_i| of the
+    plain version and 1e-11 of the f64 truth."""
+    rng = np.random.default_rng(13)
+    Abuf = torch.from_numpy(rng.normal(size=m * n + 1).astype(np.float32)).to(dev)
+    ybuf = torch.from_numpy(rng.normal(size=m + 1).astype(np.float32)).to(dev)
+    A = (Abuf[1:] if view in ("A[1:]", "both") else Abuf[:-1]).view(m, n)
+    y = ybuf[1:] if view in ("x[1:]", "both") else ybuf[:m]
+    got = ddm.dd_rmatvec(A, y)
+    want = _rmv_slab_order(A, y)
+    assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
+    scale = (A.abs().T @ y.abs()).double().cpu().numpy()
+    assert np.all(np.abs(_f64(got) - _f64(ddm._dd_matvec_plain(A.T, y)))
+                  <= 64 * EPS32**2 * scale)
+    np.testing.assert_allclose(
+        _f64(got), A.double().cpu().numpy().T @ y.double().cpu().numpy(),
+        rtol=1e-11, atol=1e-11)
+
+
 def test_each_call_counts_one_launch(dev):
     A, x, y = _inputs(np.random.default_rng(0), 64, 96, dev)
     before = dict(dd_cuda.LAUNCHES)
@@ -106,13 +153,69 @@ def test_each_call_counts_one_launch(dev):
 def test_wrapper_refuses_what_the_kernels_do_not_take(dev):
     A, x, _y = _inputs(np.random.default_rng(1), 16, 32, dev)
     with pytest.raises(TypeError):
-        ddm.dd_matvec(A.double(), x.double())
+        dd_cuda.dd_mv(A.double(), x.double())
+    with pytest.raises(TypeError):
+        dd_cuda.dd_rmv(A.double(), _y.double())
+    with pytest.raises(TypeError):
+        chol_cuda.potrf(_spd(8, 0, dev).double())
     with pytest.raises(ValueError, match="contiguous"):
         ddm.dd_matvec(A[:, ::2], x[::2])
     with pytest.raises(ValueError, match="shapes"):
         ddm.dd_matvec(A, x[:5])
     with pytest.raises(ValueError, match="CUDA"):
         dd_cuda.dd_mv(A, x.cpu())
+
+
+def _counts():
+    return {**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES, **tiled_cuda.LAUNCHES}
+
+
+def test_float64_on_the_card_takes_the_plain_forms(dev):
+    """float64 CUDA operands get the plain forms' values on the card and
+    launch no kernel."""
+    rng = np.random.default_rng(2)
+    A = torch.tensor(rng.normal(size=(40, 70)), device=dev)
+    x = torch.tensor(rng.normal(size=70), device=dev)
+    y = torch.tensor(rng.normal(size=40), device=dev)
+    N = A @ A.T / 70 + torch.eye(40, dtype=torch.float64, device=dev)
+    Asp = (rng.random((40, 70)) < 0.1) * rng.normal(size=(40, 70))
+    Asp[np.arange(40), np.arange(40)] += 2.0
+    eng = tiled.engine_for_sparse(Asp, block=16, dtype=torch.float64, device=dev)
+    before = _counts()
+    for got, want in ((ddm.dd_matvec(A, x), ddm._dd_matvec_plain(A, x)),
+                      (ddm.dd_rmatvec(A, y), ddm._dd_matvec_plain(A.T, y))):
+        assert got.hi.dtype == torch.float64
+        assert torch.equal(got.hi, want.hi) and torch.equal(got.lo, want.lo)
+    assert torch.equal(chol.cholesky(N), chol.blocked_cholesky(N))
+    T, inv = N.clone(), torch.empty_like(N)
+    chol.factor_tile_(T, inv)
+    Lp, Ip = chol._factor_tile_plain(N)
+    assert torch.equal(T, Lp) and torch.equal(inv, Ip)
+    boost = torch.zeros(40, dtype=torch.float64, device=dev)
+    # index_add_ on the card adds with atomics: equal to rounding, not bitwise.
+    torch.testing.assert_close(eng.assemble_pairs(x, boost),
+                               eng._assemble_pairs_plain(x, boost),
+                               rtol=1e-13, atol=1e-13)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(sparse=True, block=16)],
+                         ids=["dense", "sparse"])
+def test_solve_afiro_in_float64_on_the_card(dev, kw):
+    """afiro in f64 on the card, through the plain forms (no kernel
+    launches): gap <= 1e-8, objective within 1e-7 relative; the CPU takes
+    22 + 7 iterations on the same call."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = _counts()
+    rep = cimt.solve(AFIRO, "pdas_dd", dtype=torch.float64, **kw)
+    assert _counts() == before
+    print(f"f64 afiro {kw}: {rep.summary['phase1_iterations']} + "
+          f"{rep.summary['iterations']} iterations (CPU: 22 + 7), gap "
+          f"{rep.summary['gap']:.3e}")
+    assert rep.result.x.is_cuda and rep.result.x.dtype == torch.float64
+    assert rep.status == "optimal" and rep.summary["gap"] <= 1e-8
+    assert abs(rep.objective + 464.75314285714285) <= 1e-7 * 464.75314285714285
 
 
 def test_solve_afiro_on_the_card(dev):
@@ -255,14 +358,19 @@ def test_potrf_matches_plain(dev, n):
     assert not bool(torch.isfinite(chol.cholesky(bad)).all())
 
 
-@pytest.mark.parametrize("block", [8, 16, 32])
+@pytest.mark.parametrize("block", [8, 16, 32, 128])
 def test_assemble_pairs_matches_plain_and_repeats_bit_for_bit(dev, block):
-    """Within 8·eps32·Σ|w·d²| of the plain version per entry (the plain
-    index_add_ sums in another order on the card); two runs are equal."""
+    """Two runs are equal, and equal bit for bit to the plain version on the
+    CPU, whose index_add_ adds in schedule order as the kernel does.  The
+    plain version on the card adds with atomics in any order: within
+    8·eps32·Σ|w·d²| of it per entry, for runs of up to 32 pairs (an order
+    apart, a longer sum's rounding grows with its length).  The schedule has
+    runs of one pair and a long diagonal run (a dense row)."""
     rng = np.random.default_rng(block)
     m, n = 150, 260
     A = (rng.random((m, n)) < 0.04) * rng.normal(size=(m, n))
     A[np.arange(m), np.arange(m)] += 2.0
+    A[7, :] = rng.normal(size=n)
     eng = tiled.engine_for_sparse(A, block=block, device=dev)
     d = torch.tensor(rng.random(n) + 0.5, dtype=torch.float32, device=dev)
     boost = torch.tensor((rng.random(m) < 0.1) * 1.0, dtype=torch.float32,
@@ -273,10 +381,16 @@ def test_assemble_pairs_matches_plain_and_repeats_bit_for_bit(dev, block):
     torch.cuda.synchronize()
     assert tiled_cuda.LAUNCHES["assemble_pairs"] == before + 2
     assert torch.equal(t1, t2)
+    sched = eng._kernel_schedule
+    lengths = torch.diff(sched.run_start)
+    assert int(lengths.min()) <= 1 and int(lengths.max()) >= n
+    host = tiled.engine_for_sparse(A, block=block, device="cpu")
+    assert torch.equal(t1.cpu(), host._assemble_pairs_plain(d.cpu(), boost.cpu()))
     plain = eng._assemble_pairs_plain(d, boost)
     mag = torch.zeros_like(plain).reshape(-1).index_add_(
         0, eng.asm_dst_flat, (eng.asm_w * (d * d)[eng.asm_k]).abs())
     err = (t1 - plain).abs().reshape(-1)
+    err[sched.run_dst[lengths > 32].long()] = 0.0
     assert bool((err <= 8 * EPS32 * mag).all())
 
 
