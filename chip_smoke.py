@@ -41,10 +41,14 @@ script then exits non-zero and never prints its last line):
    reset before and read after (the panel and Schur kernels' path), held
    against the f64 truth and the plain blocked_cholesky and cholesky_ex,
    with median times of all three (the kernel potrf and cholesky_ex also
-   back to back behind a sleep, the card's own time) and of the panel and
-   Schur kernels' first step (the panel kernel also alone, over
-   back-to-back launches on fresh copies, beside torch.matmul timed the
-   same way); the same
+   back to back behind a sleep, the card's own time), a non-PD copy coming
+   back non-finite, sha256 of the factor, and the first step of the panel and
+   Schur kernels (each alone, over back-to-back launches behind a sleep,
+   beside torch.matmul and torch.addmm timed the same way; the panel kernel
+   on fresh copies, the Schur kernel in place on one buffer, whose operands
+   lie in the L2 cache as in the loop; the Schur kernel bit for bit against
+   its own sums in plain PyTorch, ``chol_cuda.schur_fma_plain``, and its two
+   launches of the panel loop against one whole launch); the same
    factorization and bars at n = 1441 (rows not 16-byte aligned, a last
    panel 33 wide); the assembly kernel against its plain version on the
    m = 16384 engine's pair schedule (each entry within 8·eps32·Σ|w·d²|),
@@ -75,6 +79,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 import json
 import os
@@ -531,7 +536,20 @@ def phase_chol(chol, chol_cuda, dense, stats):
         if not ratio <= 2 * b:
             raise AssertionError(f"{name} disagrees with its plain version")
         stats[name] = {"max_abs_err": err.max().item()}
-    src = A0.clone()
+    # The Schur kernel's sums, bit for bit, and the panel loop's two launches
+    # (the next block column, then the block beyond it) against one.
+    exact = torch.equal(S, torch.tril(chol_cuda.schur_fma_plain(A0[b:, b:], P)))
+    split = A0[b:, b:].clone()
+    chol_cuda.potrf_schur_(split, P, cols=b)
+    chol_cuda.potrf_schur_(split[b:, b:], P[b:])
+    split_same = torch.equal(torch.tril(split), S)
+    say(f"[chol] potrf_schur first panel step: bit-equal to its fma chains in plain"
+        f" PyTorch {exact}; two launches (columns < {b}, then the rest) bit-equal to"
+        f" one {split_same}; sha256 {_digest(S)}")
+    if not (exact and split_same):
+        raise AssertionError("potrf_schur differs from its own sums")
+    src = A0[b:, b:].clone()
+    out = torch.empty_like(src)
     scratch = A0.clone()  # the panel and its strip at the matrix's row stride
     rows = panel0.shape[0]
     alone = [_panel_step_ms(chol_cuda, A0, inv, P) for _ in range(2)]
@@ -548,28 +566,49 @@ def phase_chol(chol, chol_cuda, dense, stats):
         plain_ms=min(matmul_b2b), library_ms=min(matmul_b2b),
         **_bound(4 * (3 * rows * b + b * (b + 1) // 2), rows * b * (b + 1)))
     tri = rows * (rows + 1) // 2
+    schur_runs = {
+        "kernel": lambda r: chol_cuda.potrf_schur_(src, P),
+        "plain": lambda r: torch.tril(src - P @ P.T),
+        "addmm": lambda r: torch.addmm(src, P, P.T, alpha=-1, out=out),
+        "kernel, next block column": lambda r: chol_cuda.potrf_schur_(src, P, cols=b),
+        "kernel, beyond it": lambda r: chol_cuda.potrf_schur_(src[b:, b:], P[b:]),
+    }
+    # In place on one buffer (the entries drift by P·Pᵀ per launch, far from
+    # overflow), in two turns of opposite order.
+    sch = {k: [] for k in schur_runs}
+    for turn in (list(schur_runs), list(schur_runs)[::-1]):
+        for k in turn:
+            sch[k].append(_back_to_back_ms(schur_runs[k], 100))
     stats["potrf_schur"].update(
-        ms=_median_ms(lambda: chol_cuda.potrf_schur_(src[b:, b:], P)),
-        plain_ms=_median_ms(lambda: torch.tril(A0[b:, b:] - P @ P.T)),
-        library_ms=_median_ms(lambda: torch.addmm(A0[b:, b:], P, P.T, alpha=-1)),
+        ms=min(sch["kernel"]), plain_ms=min(sch["plain"]), library_ms=min(sch["addmm"]),
+        ms_with_launch=_median_ms(lambda: chol_cuda.potrf_schur_(src, P)),
         **_bound(4 * (2 * tri + rows * b), 2 * tri * b))
-    pan = stats["potrf_panel"]
+    pan, sc = stats["potrf_panel"], stats["potrf_schur"]
     say(f"[chol] first panel step ({rows} x {b}) median ms: panel kernel alone"
         f" (back-to-back, fresh copies) {alone[0]:.4f} {alone[1]:.4f}, torch.matmul"
         f" the same way {matmul_b2b[0]:.4f} {matmul_b2b[1]:.4f}; panel kernel with"
         f" a restoring copy {pan['ms_with_copy']:.4f}, torch.matmul alone {matmul_ms:.4f}"
-        f" (bound {pan['bound_ms']:.5f});  schur kernel "
-        f"{stats['potrf_schur']['ms']:.4f} plain {stats['potrf_schur']['plain_ms']:.4f}"
-        f" addmm {stats['potrf_schur']['library_ms']:.4f}")
+        f" (bound {pan['bound_ms']:.5f})")
+    say(f"[chol] first trailing update ({rows} x {rows}, depth {b}), back to back behind"
+        f" a sleep, ms: " + "; ".join(f"{k} {v[0]:.4f} {v[1]:.4f}" for k, v in sch.items())
+        + f"; kernel with the host's launch in it {sc['ms_with_launch']:.4f}"
+        f" (bound {sc['bound_ms']:.5f}, {100 * sc['bound_ms'] / sc['ms']:.0f}% of it)")
     return launches
+
+
+def _digest(x) -> str:
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def _check_use_pallas(chol, chol_cuda, dense, N):
     """factorize(N, use_pallas=True) with its launch counters reset before
     and read after, held against the f64 truth (32·eps32) and the plain
-    blocked_cholesky and cholesky_ex (64·eps32); median times.  Returns the
-    launches."""
+    blocked_cholesky and cholesky_ex (64·eps32); its launches against the
+    panel loop's count (per step one Schur launch on the next block column,
+    and one more on the rest except at the last step); a non-PD copy; median
+    times.  Returns the launches."""
     n = N.shape[0]
+    steps = -(-n // chol_cuda.BLOCK) - 1
     _reset(chol_cuda.LAUNCHES)
     f = dense.factorize(N, use_pallas=True)
     torch.cuda.synchronize()
@@ -588,15 +627,20 @@ def _check_use_pallas(chol, chol_cuda, dense, N):
         + "; kernel vs plain reconstructions in eps32: "
         + ", ".join(f"{k} {v / EPS32:.2f}" for k, v in vs.items())
         + f"; max abs err vs blocked {(f.L - Lb).abs().max().item():.3e},"
-          f" vs cholesky_ex {(f.L - Lx).abs().max().item():.3e}")
-    if not (bool(f.ok) and errs["kernel"] <= 32 * EPS32
+          f" vs cholesky_ex {(f.L - Lx).abs().max().item():.3e}; sha256 {_digest(f.L)}")
+    bad = N.clone()
+    bad[n // 2, n // 2] = -1.0
+    bad_ok = bool(dense.factorize(bad, use_pallas=True).ok)
+    say(f"[chol] n={n} with a negative diagonal entry: ok {bad_ok}")
+    if not (bool(f.ok) and not bad_ok and errs["kernel"] <= 32 * EPS32
             and max(vs.values()) <= 64 * EPS32
-            and launches["potrf_panel"] > 0 and launches["potrf_schur"] > 0):
+            and launches == {"potrf_tile": steps + 1, "potrf_panel": steps,
+                             "potrf_schur": 2 * steps - 1}):
         raise AssertionError(f"factorize(use_pallas=True) on the card at n={n}")
     kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
     xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
     bt = _median_ms(lambda: chol.blocked_cholesky(N), 3)
-    # The card's own time: ~35 launches per potrf, queued behind a sleep.
+    # The card's own time: ~45 launches per potrf, queued behind a sleep.
     kd = [_back_to_back_ms(lambda r: chol.cholesky(N), 10, sleep_ms=2) for _ in range(2)]
     xd = [_back_to_back_ms(lambda r: torch.linalg.cholesky_ex(N), 10, sleep_ms=2)
           for _ in range(2)]

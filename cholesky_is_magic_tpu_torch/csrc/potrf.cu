@@ -75,9 +75,46 @@
 //          0.0091-0.0096 ms at 16 rows per CTA, 0.0095-0.0109 at 8,
 //          0.0111-0.0117 at 32, 0.0126-0.0151 at 4; torch.matmul of the
 //          panel takes 0.0066-0.0108.
-//   schur: a SIMT product of depth b over the trailing lower triangle,
-//          64 x 64 output tiles, 4 x 4 outputs per thread, depth staged in
-//          shared memory 16 at a time; blocks above the diagonal exit.
+//   schur: S -= P . P^T on the lower triangle, b FMAs per output: at
+//          n = 1536 the first step is 127 M FMAs (0.0038 ms at 67 TFLOP/s)
+//          over 8.7 MB, so the FP32 FMA rate bounds it, and what a SIMT product
+//          loses is shared-memory loads per FMA, staging and idle SMs.
+//          One CTA per square output tile on or below the diagonal, by a
+//          linear block index (no CTA exits unused).  The whole depth of a
+//          tile's operands (its rows' and its columns' rows of P, as they
+//          lie, k contiguous; a diagonal tile stages its rows once) comes by
+//          16-byte cp.async (4-byte where the rows are not aligned) in four
+//          k-stages, the products of a stage running while the later ones
+//          arrive; rows padded to 132 floats.  A thread's rows are kTY apart
+//          and its columns kTX apart, so that the 4 x 8 threads of a warp
+//          read 4 and 8 neighbouring rows: one conflict-free 16-byte load
+//          per 4 k of a row.  One accumulator per output, k ascending,
+//          __fmaf_rn, one __fsub_rn from S (read ahead of the last stage's
+//          products): the bits do not depend on the tiling.  A diagonal tile
+//          skips the register sub-blocks that lie wholly above the diagonal
+//          (a compile-time test on the register indices, no divergence); it
+//          is not balanced further, since a step lasts as long as its
+//          fullest SM, which holds full tiles.  `cols` limits the update to
+//          the leading columns, which lets the panel loop run the next block
+//          column ahead of the rest (ops/chol_cuda.py).
+//          Two shapes, measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+//          (tools/probe_schur_kernel.py, every step of n = 1536 and 1441,
+//          each launch alone behind a sleep).  64 x 64 tiles, 4 x 4 outputs
+//          a thread, 256 threads: 253 tiles at t = 1408, 1.92 per SM, all
+//          resident at once, 0.0128-0.0131 ms (8 x 4 outputs on 128 threads
+//          took 158 registers and 0.0144; 128 x 64 tiles would give 132 CTAs
+//          with the same two tiles' work on the fullest SM).  32 x 32 tiles,
+//          4 x 2 outputs, 128 threads, while they put at most two tiles on
+//          an SM (the next block column at every step, the whole update
+//          from t = 640 down): a launch is then one tile's latency,
+//          0.0053-0.0066 ms against 0.0085 at 64 x 64.  By clock64() stamps
+//          (1.98 GHz) a full 64 x 64 tile of the first step, two on its SM,
+//          spends ~1.5 us until its copies are queued (stage 0 has landed
+//          0.1 us later: queuing them paces it, not the k-stages), ~1.8 us per
+//          k-stage of products and ~1.3 us reading and writing S; a lone
+//          32 x 32 tile 1.1, 0.5 each and 0.4.
+//          Rows as 1-D bulk copies (cp.async.bulk, one per row and k-stage,
+//          on mbarriers) were slower: 0.0239 ms at t = 1408, 0.0124 alone.
 
 #include <cuda_runtime.h>
 
@@ -92,10 +129,20 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPanelMaxRows = 32;               // rows per CTA: 4, 8, 16 or 32
 constexpr int kPanelMaxThreads = 16 * kPanelMaxRows;  // two warps per 4 rows
 constexpr int kPanelLd = kTileMax + 4;          // staged row stride: 33 float4s
-constexpr int kPanelStages = 4;                 // k-stages of 32 columns each
-constexpr int kSchurTile = 64;
-constexpr int kSchurDepth = 16;
-constexpr int kSchurThreads = 256;
+constexpr int kStages = 4;        // k-stages of 32 columns each (panel, Schur)
+constexpr int kSchurLd = kTileMax + 4;  // staged row stride, as kPanelLd
+
+// A Schur CTA's shape: a kTile x kTile output tile, kRM x kRN outputs per
+// thread, threads in a TY x TX grid of which a warp covers 4 x 8.
+template <int kTile_, int kRM_, int kRN_>
+struct SchurShape {
+  static constexpr int kTile = kTile_, kRM = kRM_, kRN = kRN_;
+  static constexpr int kTY = kTile / kRM, kTX = kTile / kRN, kThreads = kTY * kTX;
+  static constexpr size_t kSmem = 2 * kTile * kSchurLd * sizeof(float);
+  static_assert(kTY % 4 == 0 && kTX % 8 == 0, "a warp covers 4 x 8 threads");
+};
+using SchurBig = SchurShape<64, 4, 4>;    // where its tiles fill the card
+using SchurSmall = SchurShape<32, 4, 2>;  // where a launch lasts one tile's latency
 
 // Shared-memory row stride of the tile kernel: b rounded up to a multiple of
 // 4 (rows stay 16-byte aligned for float4 loads) plus 4 (neighbouring rows
@@ -387,10 +434,10 @@ __device__ __forceinline__ void panel_chunks(float (&acc)[4][2], const float* Rw
   if (max(lo, e0) < min(hi, e1)) panel_segment<1>(acc, Rw, I0, I1, max(lo, e0), min(hi, e1));
 }
 
-// Waits for the staging of k-stage S (of kPanelStages) and makes it visible.
+// Waits for the staging of k-stage S (of kStages) and makes it visible.
 template <int S>
-__device__ __forceinline__ void panel_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPanelStages - 1 - S));
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1 - S));
   __syncthreads();
 }
 
@@ -420,7 +467,7 @@ potrf_panel_kernel(float* __restrict__ A, long long lda,
   // b of a lane's pair) as zeros up to column b.
   const int k4s = lane & 7, rsub = lane >> 3;
 #pragma unroll
-  for (int st = 0; st < kPanelStages; ++st) {
+  for (int st = 0; st < kStages; ++st) {
     const int k4 = 8 * st + k4s;
     for (int c = 32 * st + 4 * warp + rsub; c < kTileMax; c += 4 * nwarps) {
       if (4 * k4 <= min(c, b - 1)) {
@@ -448,13 +495,13 @@ potrf_panel_kernel(float* __restrict__ A, long long lda,
   const int e0 = c0 < b ? c0 / 4 + 1 : 0;
   const int e1 = c1 < b ? c1 / 4 + 1 : e0;
   float acc[4][2] = {};
-  panel_wait<0>();
+  stage_wait<0>();
   panel_chunks(acc, Rw, I0, I1, 0, 8, e0, e1);
-  panel_wait<1>();
+  stage_wait<1>();
   panel_chunks(acc, Rw, I0, I1, 8, 16, e0, e1);
-  panel_wait<2>();
+  stage_wait<2>();
   panel_chunks(acc, Rw, I0, I1, 16, 24, e0, e1);
-  panel_wait<3>();
+  stage_wait<3>();
   panel_chunks(acc, Rw, I0, I1, 24, 32, e0, e1);
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
@@ -468,47 +515,130 @@ potrf_panel_kernel(float* __restrict__ A, long long lda,
   }
 }
 
-// S -= P . P^T on the lower triangle of the (t, t) trailing block S, with P
-// the (t, b) panel.  Blocks strictly above the diagonal exit at once.
-__global__ void __launch_bounds__(kSchurThreads)
-potrf_schur_kernel(float* __restrict__ S, long long lds,
-                   const float* __restrict__ P, long long ldp, int t, int b) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bj > bi) return;
-  __shared__ float Pa[kSchurDepth][kSchurTile + 1];
-  __shared__ float Pb[kSchurDepth][kSchurTile + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = bi * kSchurTile, j0 = bj * kSchurTile;
-  float acc[4][4];
-  for (int p = 0; p < 4; ++p)
-    for (int q = 0; q < 4; ++q) acc[p][q] = 0.0f;
-  for (int k0 = 0; k0 < b; k0 += kSchurDepth) {
-    for (int e = threadIdx.x; e < kSchurTile * kSchurDepth; e += kSchurThreads) {
-      const int r = e / kSchurDepth, k = e - r * kSchurDepth;
-      const int gk = k0 + k, gi = i0 + r, gj = j0 + r;
-      Pa[k][r] = (gi < t && gk < b) ? P[gi * ldp + gk] : 0.0f;
-      Pb[k][r] = (gj < t && gk < b) ? P[gj * ldp + gk] : 0.0f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kSchurDepth; ++k) {
-      float a[4], c[4];
-      for (int p = 0; p < 4; ++p) a[p] = Pa[k][ty * 4 + p];
-      for (int q = 0; q < 4; ++q) c[q] = Pb[k][tx * 4 + q];
-      for (int p = 0; p < 4; ++p)
-        for (int q = 0; q < 4; ++q) acc[p][q] = __fmaf_rn(a[p], c[q], acc[p][q]);
-    }
-    __syncthreads();
-  }
-  for (int p = 0; p < 4; ++p) {
-    const int gi = i0 + ty * 4 + p;
-    if (gi >= t) continue;
-    for (int q = 0; q < 4; ++q) {
-      const int gj = j0 + tx * 4 + q;
-      if (gj < t && gj <= gi) {
-        float* s = S + gi * lds + gj;
-        *s = __fsub_rn(*s, acc[p][q]);
+// acc[p][q] += sum_k A[p][k] . B[q][k] over the chunks [k4_begin, k4_end) of
+// 4 k each, for the thread's rows Aw + p * kTY rows and columns
+// Bw + q * kTX rows; k ascending.  With kDiag (a diagonal tile) the
+// sub-blocks (p, q) whose every row lies above every column are skipped.
+template <class Sh, bool kDiag>
+__device__ __forceinline__ void schur_chunks(float (&acc)[Sh::kRM][Sh::kRN],
+                                             const float* Aw, const float* Bw,
+                                             int k4_begin, int k4_end) {
+  for (int k4 = k4_begin; k4 < k4_end; ++k4) {
+    float4 ra[Sh::kRM];
+#pragma unroll
+    for (int p = 0; p < Sh::kRM; ++p) ra[p] = lds4(Aw + p * Sh::kTY * kSchurLd + 4 * k4);
+#pragma unroll
+    for (int q = 0; q < Sh::kRN; ++q) {
+      const float4 rb = lds4(Bw + q * Sh::kTX * kSchurLd + 4 * k4);
+#pragma unroll
+      for (int p = 0; p < Sh::kRM; ++p) {
+        if (kDiag && Sh::kTY * p + Sh::kTY - 1 < Sh::kTX * q) continue;
+        acc[p][q] = __fmaf_rn(ra[p].x, rb.x, acc[p][q]);
+        acc[p][q] = __fmaf_rn(ra[p].y, rb.y, acc[p][q]);
+        acc[p][q] = __fmaf_rn(ra[p].z, rb.z, acc[p][q]);
+        acc[p][q] = __fmaf_rn(ra[p].w, rb.w, acc[p][q]);
       }
     }
+  }
+}
+
+// One tile's products and its update of S: the thread's outputs are the rows
+// gi0 + p * kTY and the columns gj0 + q * kTX; it owns those with
+// column <= row, row < t and column < cols.
+template <class Sh, bool kDiag>
+__device__ __forceinline__ void schur_tile(float* __restrict__ S, long long lds,
+                                           const float* Aw, const float* Bw, int gi0,
+                                           int gj0, int t, int cols, int nk4) {
+  float acc[Sh::kRM][Sh::kRN] = {};
+  float sv[Sh::kRM][Sh::kRN];
+  stage_wait<0>();
+  schur_chunks<Sh, kDiag>(acc, Aw, Bw, 0, min(8, nk4));
+  stage_wait<1>();
+  schur_chunks<Sh, kDiag>(acc, Aw, Bw, 8, min(16, nk4));
+  stage_wait<2>();
+  schur_chunks<Sh, kDiag>(acc, Aw, Bw, 16, min(24, nk4));
+  // S's entries, ahead of the last stage's products.
+#pragma unroll
+  for (int p = 0; p < Sh::kRM; ++p) {
+    const int gi = gi0 + p * Sh::kTY;
+#pragma unroll
+    for (int q = 0; q < Sh::kRN; ++q) {
+      const int gj = gj0 + q * Sh::kTX;
+      sv[p][q] = (gi < t && gj <= gi && gj < cols) ? S[gi * lds + gj] : 0.0f;
+    }
+  }
+  stage_wait<3>();
+  schur_chunks<Sh, kDiag>(acc, Aw, Bw, 24, min(32, nk4));
+#pragma unroll
+  for (int p = 0; p < Sh::kRM; ++p) {
+    const int gi = gi0 + p * Sh::kTY;
+#pragma unroll
+    for (int q = 0; q < Sh::kRN; ++q) {
+      const int gj = gj0 + q * Sh::kTX;
+      if (gi < t && gj <= gi && gj < cols) S[gi * lds + gj] = __fsub_rn(sv[p][q], acc[p][q]);
+    }
+  }
+}
+
+// S -= P . P^T on the lower triangle of the (t, t) trailing block S, columns
+// [0, cols), with P the (t, b) panel; S's upper triangle and its columns from
+// `cols` on are not touched.  Block i takes the i-th tile on or below the
+// diagonal: the rows of tiles bi < ncb hold bi + 1 tiles, the rows below
+// them ncb each (ncb: the tile columns that `cols` spans).  vec says that
+// P's rows start on 16-byte boundaries.
+template <class Sh>
+__global__ void __launch_bounds__(Sh::kThreads)
+potrf_schur_kernel(float* __restrict__ S, long long lds,
+                   const float* __restrict__ P, long long ldp, int t, int b, int cols,
+                   int vec) {
+  constexpr int kTile = Sh::kTile;
+  extern __shared__ float4 smem4[];
+  const int ncb = (cols + kTile - 1) / kTile;
+  const int tri = ncb * (ncb + 1) / 2;
+  const int idx = blockIdx.x;
+  int bi, bj;
+  if (idx < tri) {
+    bi = static_cast<int>((sqrtf(8.0f * idx + 1.0f) - 1.0f) * 0.5f);
+    while (bi * (bi + 1) / 2 > idx) --bi;
+    while ((bi + 1) * (bi + 2) / 2 <= idx) ++bi;
+    bj = idx - bi * (bi + 1) / 2;
+  } else {
+    bi = ncb + (idx - tri) / ncb;
+    bj = (idx - tri) % ncb;
+  }
+  const bool diag = bi == bj;
+  float* As = reinterpret_cast<float*>(smem4);       // kTile x kSchurLd: the rows' P
+  float* Bs = diag ? As : As + kTile * kSchurLd;     // the columns' P
+  const int tid = threadIdx.x;
+  const int i0 = bi * kTile, j0 = bj * kTile;
+  const int nk4 = (b + 3) / 4;
+  // Stage st: the chunks [8 st, 8 st + 8) of every row, 8 neighbouring
+  // threads on one row's 128 bytes; rows past t as zeros.
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    for (int e = tid; e < 8 * kTile; e += Sh::kThreads) {
+      const int r = e >> 3, k4 = 8 * st + (e & 7);
+      if (k4 >= nk4) continue;
+      const int valid = min(4, b - 4 * k4);
+      stage_chunk(As + r * kSchurLd + 4 * k4, P + (i0 + r) * ldp + 4 * k4,
+                  i0 + r < t ? valid : 0, vec);
+      if (!diag) {
+        stage_chunk(Bs + r * kSchurLd + 4 * k4, P + (j0 + r) * ldp + 4 * k4,
+                    j0 + r < t ? valid : 0, vec);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  // Warp w covers the 4 x 8 threads at (4 (w / (kTX / 8)), 8 (w % (kTX / 8))).
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = 4 * (warp / (Sh::kTX / 8)) + (lane >> 3);
+  const int tx = 8 * (warp % (Sh::kTX / 8)) + (lane & 7);
+  const float* Aw = As + ty * kSchurLd;
+  const float* Bw = Bs + tx * kSchurLd;
+  if (diag) {
+    schur_tile<Sh, true>(S, lds, Aw, Bw, i0 + ty, j0 + tx, t, cols, nk4);
+  } else {
+    schur_tile<Sh, false>(S, lds, Aw, Bw, i0 + ty, j0 + tx, t, cols, nk4);
   }
 }
 
@@ -518,6 +648,26 @@ size_t tile_smem(int b) {
 }
 size_t panel_smem(int rpc) {
   return static_cast<size_t>(kTileMax + rpc) * kPanelLd * sizeof(float);
+}
+
+// Launches the Schur kernel at shape Sh.
+template <class Sh>
+int launch_schur(float* S, long long lds, const float* P, long long ldp, int t, int b,
+                 int cols, int vec, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        potrf_schur_kernel<Sh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Sh::kSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int nrb = (t + Sh::kTile - 1) / Sh::kTile;
+  const int ncb = (cols + Sh::kTile - 1) / Sh::kTile;
+  const int tiles = ncb * (ncb + 1) / 2 + (nrb - ncb) * ncb;
+  potrf_schur_kernel<Sh><<<tiles, Sh::kThreads, Sh::kSmem, s>>>(S, lds, P, ldp, t, b, cols,
+                                                                 vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -565,10 +715,24 @@ extern "C" int cim_potrf_panel_f32(float* A, long long lda, const float* inv,
 }
 
 extern "C" int cim_potrf_schur_f32(float* S, long long lds, const float* P,
-                                   long long ldp, int t, int b, void* stream) {
-  if (b < 1 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                   long long ldp, int t, int b, int cols, int vec_p,
+                                   void* stream) {
+  if (b < 1 || b > kTileMax || t < 1 || cols < 1 || cols > t)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (t + kSchurTile - 1) / kSchurTile;
-  potrf_schur_kernel<<<dim3(tiles, tiles), kSchurThreads, 0, s>>>(S, lds, P, ldp, t, b);
-  return static_cast<int>(cudaGetLastError());
+  // The small shape while it puts at most two tiles on an SM.
+  const int nrb = (t + SchurSmall::kTile - 1) / SchurSmall::kTile;
+  const int ncb = (cols + SchurSmall::kTile - 1) / SchurSmall::kTile;
+  const int small_tiles = ncb * (ncb + 1) / 2 + (nrb - ncb) * ncb;
+  if (small_tiles <= 2 * sms)
+    return launch_schur<SchurSmall>(S, lds, P, ldp, t, b, cols, vec_p, s);
+  return launch_schur<SchurBig>(S, lds, P, ldp, t, b, cols, vec_p, s);
 }

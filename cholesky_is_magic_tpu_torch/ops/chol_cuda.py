@@ -13,7 +13,8 @@ TPU kernel ``cholesky_is_magic_tpu/ops/pallas_chol.py`` ``_potrf_kernel``
   diagonal block, :func:`potrf_panel_` (``cim_potrf_panel_f32``:
   P = A_panel·Minvᵀ in place, and the panel's upper strip zeroed) and
   :func:`potrf_schur_` (``cim_potrf_schur_f32``: the trailing
-  lower-triangle update S -= P·Pᵀ).
+  lower-triangle update S -= P·Pᵀ), the last split in two launches so that
+  the part the next panel needs does not wait for the rest.
 
 What bounds them on the H100 (see the .cu file): the tile kernel runs on
 one SM and is bound by its chain of b dependent pivots; it is blocked over
@@ -22,12 +23,21 @@ all warps share the register-tiled products).  The panel kernel moves too
 few bytes to be bound by the card's rates: CTAs of ``PANEL_ROWS_PER_CTA``
 whole rows each stage the inverse and their rows along k, with 16-byte
 copies where :func:`aligned16` allows, and run 4 x 2 register tiles, two
-warps per 4 rows, that stop at each column's diagonal.  The Schur kernel is a SIMT product that reads its
-operands once per block.
+warps per 4 rows, that stop at each column's diagonal.  The Schur kernel is
+bound by the FP32 FMA rate: one CTA per tile on or below the diagonal (64 x 64,
+or 32 x 32 while those put at most two on an SM), the whole depth of its
+operands staged by ``cp.async`` in four k-stages, 4 x 4 (4 x 2) outputs per
+thread from 16-byte shared-memory loads.  The panel loop's
+critical path is tile -> panel -> the next block column's update -> tile, so
+:func:`potrf` queues the rest of each trailing update on a second stream,
+where it runs beside the next tile kernel (one SM), and launches from
+addresses inside the matrix, so that the host stays ahead of the card.
 
 The plain versions are ``ops.chol._factor_tile_plain`` (``cholesky_ex`` +
-``solve_triangular``) and ``ops.chol.blocked_cholesky``.  ``LAUNCHES``
-counts the kernel launches.
+``solve_triangular``), ``torch.tril(S - P @ P.T)`` and
+``ops.chol.blocked_cholesky``; :func:`schur_fma_plain` is the Schur kernel's
+own sums in plain PyTorch, bit for bit.  ``LAUNCHES`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ LAUNCHES = {"potrf_tile": 0, "potrf_panel": 0, "potrf_schur": 0}
 _SIGNATURES = {
     "cim_potrf_tile_f32": [_P, _LL, _P, _LL, _I, _P],
     "cim_potrf_panel_f32": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P],
-    "cim_potrf_schur_f32": [_P, _LL, _P, _LL, _I, _I, _P],
+    "cim_potrf_schur_f32": [_P, _LL, _P, _LL, _I, _I, _I, _I, _P],
 }
 
 BLOCK = 128  # panel width; also the largest tile potrf_tile_ takes
@@ -74,6 +84,16 @@ def _stream(A: torch.Tensor) -> int:
     return torch.cuda.current_stream(A.device).cuda_stream
 
 
+def _launch(kernel: str, *args) -> None:
+    """Counts and launches ``cim_<kernel>_f32(*args)``: addresses, strides
+    and sizes as integers, the CUDA stream last.  The wrappers below check
+    their tensors first; :func:`potrf` passes addresses inside the matrix it
+    has checked."""
+    lib = cuda_build.load(_SIGNATURES)
+    LAUNCHES[kernel] += 1
+    cuda_build.raise_on(getattr(lib, f"cim_{kernel}_f32")(*args), kernel)
+
+
 def potrf_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
     """In place on the card: T <- its lower Cholesky factor (lower triangle
     read, upper written as zeros), inv <- L⁻¹; both all-NaN on a non-PD
@@ -84,12 +104,8 @@ def potrf_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
     _check_square(inv, "potrf_tile_", BLOCK)
     if inv.shape != T.shape or inv.device != T.device:
         raise ValueError("potrf_tile_: inv must match the tile")
-    lib = cuda_build.load(_SIGNATURES)
-    LAUNCHES["potrf_tile"] += 1
-    cuda_build.raise_on(
-        lib.cim_potrf_tile_f32(T.data_ptr(), T.stride(0), inv.data_ptr(),
-                               inv.stride(0), T.shape[0], _stream(T)),
-        "potrf_tile_")
+    _launch("potrf_tile", T.data_ptr(), T.stride(0), inv.data_ptr(), inv.stride(0),
+            T.shape[0], _stream(T))
 
 
 def _check_rows(A: torch.Tensor, name: str) -> None:
@@ -127,46 +143,126 @@ def _potrf_panel(P: torch.Tensor, inv: torch.Tensor, strip: torch.Tensor,
                          f"{tuple(inv.shape)}")
     if strip.shape != (b, rows) or strip.stride(0) != P.stride(0):
         raise ValueError("potrf_panel_: strip must be the panel's mirror")
-    lib = cuda_build.load(_SIGNATURES)
-    LAUNCHES["potrf_panel"] += 1
-    cuda_build.raise_on(
-        lib.cim_potrf_panel_f32(
-            P.data_ptr(), P.stride(0), inv.data_ptr(), inv.stride(0),
-            strip.data_ptr(), rows, b, rows_per_cta,
-            aligned16(P.data_ptr(), P.stride(0)),
-            aligned16(inv.data_ptr(), inv.stride(0)), _stream(P)),
-        "potrf_panel_")
+    _launch("potrf_panel", P.data_ptr(), P.stride(0), inv.data_ptr(), inv.stride(0),
+            strip.data_ptr(), rows, b, rows_per_cta, aligned16(P.data_ptr(), P.stride(0)),
+            aligned16(inv.data_ptr(), inv.stride(0)), _stream(P))
 
 
-def potrf_schur_(S: torch.Tensor, P: torch.Tensor) -> None:
+def potrf_schur_(S: torch.Tensor, P: torch.Tensor, cols: int | None = None) -> None:
     """In place on the card: the lower triangle of the (t, t) block S
-    minus P·Pᵀ for the (t, b) panel P; S's upper triangle is not touched."""
+    minus P·Pᵀ for the (t, b) panel P, b <= 128; with ``cols``, only its
+    columns [0, cols).  S's upper triangle is not touched.  Every entry is
+    one chain of fused multiply-adds, k ascending, subtracted from S once
+    (:func:`schur_fma_plain`), whatever ``cols``."""
     _check_square(S, "potrf_schur_")
     _check_rows(P, "potrf_schur_")
     t, b = P.shape
-    if S.shape[0] != t:
+    cols = t if cols is None else cols
+    if S.shape[0] != t or S.device != P.device:
         raise ValueError(f"potrf_schur_: S {tuple(S.shape)}, P {tuple(P.shape)}")
-    lib = cuda_build.load(_SIGNATURES)
-    LAUNCHES["potrf_schur"] += 1
-    cuda_build.raise_on(
-        lib.cim_potrf_schur_f32(S.data_ptr(), S.stride(0), P.data_ptr(),
-                                P.stride(0), t, b, _stream(S)),
-        "potrf_schur_")
+    if not (1 <= b <= BLOCK and 1 <= cols <= t):
+        raise ValueError(f"potrf_schur_: depth {b} (at most {BLOCK}), cols {cols} of {t}")
+    _launch("potrf_schur", S.data_ptr(), S.stride(0), P.data_ptr(), P.stride(0), t, b, cols,
+            aligned16(P.data_ptr(), P.stride(0)), _stream(S))
+
+
+def _fma32(a: torch.Tensor, c: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """float32(a·c + acc) rounded once, for float32 values held in float64
+    tensors.  The product is exact in float64 (48 bits); two_sum gives the
+    rounding error of the sum, and an inexact sum is moved to its neighbour
+    with an odd last bit (rounding to odd), after which the rounding to
+    float32 is that of the exact value (53 >= 2·24 + 2 bits).  Adding in
+    float64 and rounding again would round twice."""
+    s = a * c
+    hi = s + acc
+    bb = hi - s
+    lo = (s - (hi - bb)) + (acc - bb)
+    inexact_even = (lo != 0) & ((hi.view(torch.int64) & 1) == 0)
+    toward = torch.where(lo > 0, float("inf"), float("-inf")).to(hi.dtype)
+    hi = torch.where(inexact_even, torch.nextafter(hi, toward), hi)
+    return hi.float().double()
+
+
+def schur_fma_plain(S: torch.Tensor, P: torch.Tensor, cols: int | None = None) -> torch.Tensor:
+    """What :func:`potrf_schur_` leaves in S, in plain PyTorch on any device,
+    bit for bit (finite float32 operands): per entry one accumulator from
+    zero, ``fma(P[i, k], P[j, k], acc)`` for k ascending, one float32
+    subtraction from S; the lower triangle of the columns [0, cols).  Slow
+    (b passes over a (t, t) float64 array): for tests."""
+    t, b = P.shape
+    cols = t if cols is None else cols
+    P64 = P.double()
+    acc = torch.zeros((t, t), dtype=torch.float64, device=P.device)
+    for k in range(b):
+        acc = _fma32(P64[:, k, None], P64[None, :, k], acc)
+    idx = torch.arange(t, device=P.device)
+    owned = (idx[None, :] <= idx[:, None]) & (idx[None, :] < cols)
+    return torch.where(owned, S - acc.float(), S)
+
+
+_STREAMS: dict[int, tuple] = {}
+
+
+def _streams(device: torch.device) -> tuple:
+    """The device's two streams for :func:`potrf`, made once: one for the
+    chain of kernels that each wait on the one before, one for the updates
+    beside it; and three events."""
+    key = torch.cuda.current_device() if device.index is None else device.index
+    if key not in _STREAMS:
+        _STREAMS[key] = (torch.cuda.Stream(device), torch.cuda.Stream(device),
+                         *(torch.cuda.Event() for _ in range(3)))
+    return _STREAMS[key]
 
 
 def potrf(N: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of the SPD (n, n) f32 matrix N on the card, by
     128-column panels (N's lower triangle is read; N is not modified).  A
-    non-PD input yields NaN from the failing panel on."""
+    non-PD input yields NaN from the failing panel on.
+
+    The chain that cannot be shortened is tile kernel -> panel kernel -> the
+    update of the next block column -> the next tile kernel; it runs on one
+    stream.  Step k's update of the columns beyond the next block column runs
+    on a second stream, behind an event recorded after the chain's update,
+    beside step k + 1's tile kernel (one CTA on one SM).  The chain waits for
+    that second launch only before step k + 1's own update, which lowers the
+    same entries.  Both streams start behind the caller's, and the caller's
+    waits for the chain's end, which follows the last second launch.  Every
+    entry gets the same sums in the same order as from one whole update per
+    step, so the factor's bits do not depend on the split."""
     _check_square(N, "potrf")
     n = N.shape[0]
     A = N.contiguous().clone()
     inv = torch.empty((BLOCK, BLOCK), dtype=A.dtype, device=A.device)
+    caller = torch.cuda.current_stream(A.device)
+    chain, beside, at_caller, at_chain, at_beside = _streams(A.device)
+    on_chain, on_beside = chain.cuda_stream, beside.cuda_stream
+    # Addresses inside A and inv, not views: ~45 launches from Python, and the
+    # card should not wait for the host.
+    base, ip, vec_inv = A.data_ptr(), inv.data_ptr(), aligned16(inv.data_ptr(), BLOCK)
+
+    def at(i: int, j: int) -> int:
+        return base + 4 * (i * n + j)
+
+    at_caller.record(caller)
+    chain.wait_event(at_caller)
     for off in range(0, n, BLOCK):
-        e = min(off + BLOCK, n)
-        potrf_tile_(A[off:e, off:e], inv[: e - off, : e - off])
+        e, e2 = min(off + BLOCK, n), min(off + 2 * BLOCK, n)
+        w = e - off
+        _launch("potrf_tile", at(off, off), n, ip, BLOCK, w, on_chain)
         if e == n:
             break
-        potrf_panel_(A[e:, off:e], inv[: e - off, : e - off], A[off:e, e:])
-        potrf_schur_(A[e:, e:], A[e:, off:e])
+        _launch("potrf_panel", at(e, off), n, ip, BLOCK, at(off, e), n - e, w,
+                PANEL_ROWS_PER_CTA, aligned16(at(e, off), n), vec_inv, on_chain)
+        if off:
+            chain.wait_event(at_beside)  # the previous step's second launch
+        _launch("potrf_schur", at(e, e), n, at(e, off), n, n - e, w, e2 - e,
+                aligned16(at(e, off), n), on_chain)
+        if e2 < n:
+            at_chain.record(chain)
+            beside.wait_event(at_chain)
+            _launch("potrf_schur", at(e2, e2), n, at(e2, off), n, n - e2, w, n - e2,
+                    aligned16(at(e2, off), n), on_beside)
+            at_beside.record(beside)
+    at_chain.record(chain)
+    caller.wait_event(at_chain)
     return A

@@ -5,7 +5,8 @@ the reference's CHOLMOD pipeline, sparse-cholesky.lisp:409-431, 524-560):
 
 - :func:`normal_matrix` assembles N = (A·diag(d))·(A·diag(d))ᵀ;
 - :func:`factorize` computes L·Lᵀ = N and reports failure as ``ok=False``
-  (``torch.linalg`` by default; the blocked potrf of ops.chol on request);
+  (``torch.linalg`` by default; the blocked potrf or the plain blocked
+  factorization of ops.chol on request);
 - :func:`prepare_normal` factors once and returns a refined solve, with the
   dbound singular-retry and double-word refinement.
 
@@ -50,7 +51,8 @@ def normal_matrix(
     return _scaled_normal(A, d, row_boost)[1]
 
 
-def factorize(N: torch.Tensor, use_pallas: bool = False) -> CholFactors:
+def factorize(N: torch.Tensor, use_pallas: bool = False,
+              blocked: bool = False) -> CholFactors:
     """L·Lᵀ = N with failure detection.
 
     ``torch.linalg.cholesky_ex`` reports a non-PD input through ``info``
@@ -63,13 +65,16 @@ def factorize(N: torch.Tensor, use_pallas: bool = False) -> CholFactors:
     n (the JAX package's VMEM gate at n > 1536 does not carry over); on a
     CPU tensor ``blocked_cholesky``, as the JAX ``cholesky()`` does off the
     TPU.  Either gives NaN on a non-PD input, which the same finiteness
-    check reports.  No solver sets it yet.  The JAX ``blocked`` option is not
-    carried over: ``ops.chol.blocked_cholesky`` is called directly.
+    check reports.  No solver sets it yet.
+
+    ``blocked`` runs ``ops.chol.blocked_cholesky``, the statically recursive
+    matmul-rich factorization, on any device, as in the JAX package
+    (``use_pallas`` wins when both are set, as there).
     """
-    if use_pallas:
+    if use_pallas or blocked:
         from cholesky_is_magic_tpu_torch.ops import chol
 
-        L = chol.cholesky(N)
+        L = chol.cholesky(N) if use_pallas else chol.blocked_cholesky(N)
         info = torch.zeros((), dtype=torch.int32, device=N.device)
     else:
         L, info = torch.linalg.cholesky_ex(N)

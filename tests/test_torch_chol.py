@@ -60,6 +60,7 @@ def test_blocked_cholesky_matches_jax(n):
 @pytest.mark.parametrize("jax_opts, opts", [
     (dict(use_pallas=True), dict(use_pallas=True)),
     (dict(blocked=True), dict(use_pallas=True)),
+    (dict(blocked=True), dict(blocked=True)),
     (dict(), dict()),
 ])
 def test_factorize_options_match_jax(jax_opts, opts):

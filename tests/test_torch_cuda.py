@@ -158,6 +158,11 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(dev):
         dd_cuda.dd_rmv(A.double(), _y.double())
     with pytest.raises(TypeError):
         chol_cuda.potrf(_spd(8, 0, dev).double())
+    S, P = _spd(8, 0, dev), torch.ones(8, chol_cuda.BLOCK + 1, device=dev)
+    with pytest.raises(ValueError, match="depth"):
+        chol_cuda.potrf_schur_(S, P)
+    with pytest.raises(ValueError, match="cols"):
+        chol_cuda.potrf_schur_(S, P[:, :4], cols=9)
     with pytest.raises(ValueError, match="contiguous"):
         ddm.dd_matvec(A[:, ::2], x[::2])
     with pytest.raises(ValueError, match="shapes"):
@@ -334,13 +339,73 @@ def test_potrf_panel_same_at_every_rows_per_cta(dev, rows, b):
     assert all(torch.equal(g, got[0]) for g in got[1:])
 
 
+def _schur_operands(dev, t, b, aligned, seed):
+    """S (t, t) and P (t, b) as views into one larger matrix (row stride
+    > t + b; rows 16-byte aligned or not), NaN in S's strict upper triangle;
+    the matrix, its untouched copy, and the two views."""
+    rng = np.random.default_rng(seed)
+    width = -(-(b + t) // 4) * 4 + (4 if aligned else 1)
+    M = torch.tensor(rng.normal(size=(t, width)), dtype=torch.float32, device=dev)
+    S, P = M[:, b:b + t], M[:, :b]
+    iu = torch.triu_indices(t, t, 1, device=dev)
+    S[iu[0], iu[1]] = float("nan")
+    return M, M.clone(), S, P
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("t", [1, 31, 33, 128, 1408])
+@pytest.mark.parametrize("b", [16, 33, 100, 128])
+def test_potrf_schur_matches_plain(dev, b, t, aligned):
+    """The Schur kernel on views into a larger matrix, NaN planted in S's
+    strict upper triangle: each lower entry within 2b·eps32 of Σ|terms| of
+    tril(S - P·Pᵀ) and bit-equal to its own sums in plain PyTorch
+    (``schur_fma_plain``); the upper triangle and everything else untouched;
+    one launch."""
+    M, M0, S, P = _schur_operands(dev, t, b, aligned, b * t)
+    assert chol_cuda.aligned16(P.data_ptr(), P.stride(0)) == aligned
+    want = chol_cuda.schur_fma_plain(S, P)
+    low = torch.tril(S)
+    plain = torch.tril(low - P @ P.T)
+    mag = torch.tril(low.abs() + P.abs() @ P.abs().T)
+    before = chol_cuda.LAUNCHES["potrf_schur"]
+    chol_cuda.potrf_schur_(S, P)
+    torch.cuda.synchronize()
+    assert chol_cuda.LAUNCHES["potrf_schur"] == before + 1
+    assert bool(((torch.tril(S) - plain).abs() <= 2 * b * EPS32 * mag).all())
+    assert torch.equal(torch.tril(S), torch.tril(want))
+    assert bool(torch.isnan(S[tuple(torch.triu_indices(t, t, 1, device=dev))]).all())
+    rest = torch.ones_like(M, dtype=torch.bool)
+    rest[:, b:b + t] = False
+    assert torch.equal(M[rest], M0[rest])
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("t,cols", [(1408, 128), (1313, 128), (300, 100), (161, 128),
+                                    (129, 128), (64, 1)])
+def test_potrf_split_update_equals_whole(dev, t, cols, aligned):
+    """The panel loop's two launches (the leading ``cols`` columns, then the
+    block beyond them) give the bits of one whole launch, and the first
+    leaves every column from ``cols`` on untouched."""
+    b = chol_cuda.BLOCK
+    _M, _M0, S, P = _schur_operands(dev, t, b, aligned, t + cols)
+    whole, split = S.clone(), S.clone()
+    chol_cuda.potrf_schur_(whole, P)
+    chol_cuda.potrf_schur_(split, P, cols=cols)
+    assert torch.equal(torch.tril(split)[:, cols:], torch.tril(S)[:, cols:])
+    chol_cuda.potrf_schur_(split[cols:, cols:], P[cols:])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.tril(split), torch.tril(whole))
+    assert bool(torch.isnan(split[tuple(torch.triu_indices(t, t, 1, device=dev))]).all())
+
+
 @pytest.mark.parametrize("n", [1, 100, 128, 129, 300, 515, 1441])
 def test_potrf_matches_plain(dev, n):
     """The panel loop (tile, panel and Schur kernels) against the plain
     blocked_cholesky and cholesky_ex: within 64·eps32 of the largest
     entry; the upper triangle exactly zero; N untouched.  At n = 1441 the
     rows do not start on 16-byte boundaries and the last panel is 33
-    wide."""
+    wide.  Each of the panels - 1 steps launches the Schur kernel on the
+    next block column, and every step but the last once more on the rest."""
     N = _spd(n, n, dev)
     N0 = N.clone()
     before = dict(chol_cuda.LAUNCHES)
@@ -348,7 +413,9 @@ def test_potrf_matches_plain(dev, n):
     torch.cuda.synchronize()
     panels = -(-n // chol_cuda.BLOCK)
     assert chol_cuda.LAUNCHES["potrf_tile"] == before["potrf_tile"] + panels
-    assert chol_cuda.LAUNCHES["potrf_schur"] == before["potrf_schur"] + panels - 1
+    assert chol_cuda.LAUNCHES["potrf_panel"] == before["potrf_panel"] + panels - 1
+    assert (chol_cuda.LAUNCHES["potrf_schur"]
+            == before["potrf_schur"] + max(panels - 1, 0) + max(panels - 2, 0))
     assert torch.equal(N, N0)
     assert bool((torch.triu(L, 1) == 0).all())
     for plain in (chol.blocked_cholesky(N), torch.linalg.cholesky_ex(N)[0]):
@@ -356,6 +423,11 @@ def test_potrf_matches_plain(dev, n):
     bad = N.clone()
     bad[n // 2, n // 2] = -1.0
     assert not bool(torch.isfinite(chol.cholesky(bad)).all())
+    # Twice more on a side stream of the caller's: the same bits.
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        again = [chol.cholesky(N) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(L, a) for a in again)
 
 
 @pytest.mark.parametrize("block", [8, 16, 32, 128])
