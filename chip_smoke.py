@@ -11,13 +11,14 @@ script then exits non-zero and never prints its last line):
 2. build  — compile every kernel from csrc/ (one nvcc per source, timed);
 3. kernels — dd_matvec / dd_rmatvec against the f64 truth at (512, 1024)
    (rtol = atol = 1e-11), against the plain PyTorch version on the card at
-   (1441, 5093) and (1536, 5120) (within 64·eps32² of Σ|a_ij x_j| per
+   (1441, 5093), (1536, 5120) and (1536, 1536), dense affine's normal
+   matrix (within 64·eps32² of Σ|a_ij x_j| per
    output; dd_matvec also against the f64 truth there; dd_rmatvec also bit
    for bit against its own summation order in plain PyTorch,
    ``dd_cuda.rmv_slab_plain``, on a first and a second call), both on rows
    that do not start on a 16-byte boundary (A and x at a 4-byte storage
    offset, each and both), and kernel vs plain median times by CUDA events
-   at (1536, 5120) and (4096, 8192), the L2 cache flushed before each run
+   at (1536, 5120), (1536, 1536) and (4096, 8192), the L2 cache flushed before each run
    and the card held asleep until the host has queued the launches;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum; then in f64,
@@ -67,13 +68,32 @@ script then exits non-zero and never prints its last line):
 9. block 256 — the same LP at block 256 (every diagonal tile split around
    the tile kernel), launch counters reset before and read after (the tile
    kernel must have launched), the same bars; a second, timed solve, and
-   one factorization timed beside block 128's.
+   one factorization timed beside block 128's;
+10. affine — solve(..., "affine"): afiro in f32 after row equilibration
+   (optimal, within 2e-3 of the optimum: the f32 iterate floor), in f64
+   dense and sparse (block 16; within 1e-6, x float64 on the card, no
+   kernel launched), then the pilot LP in f32 (counters reset before and
+   read after: dd A·x must have launched; optimal, objective error <= 1e-3;
+   dd A·x against its plain version on the pilot's own normal matrix at the
+   last iterate's slack; a second, timed solve) and in f64 (<= 1e-6); each
+   iteration count beside the JAX package's on the CPU;
+11. affine at scale — the m = 16384 LP, sparse, f32, block 128: the state
+   and its own engine (built on the raw A) timed on their own, counters
+   reset before and read after (the tile and assembly kernels must have
+   launched), optimal, objective error <= 1e-3; a second, timed solve with
+   its repair steps and its objective error by iteration, and a third with
+   the stage timers of phase 8;
+12. presolve — solve(afiro, "pdas_dd", presolve=True) in f32: the presolve
+   report, counters reset before and read after, gap <= 1e-8, objective
+   within 1e-7, x and y restored to the original space.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
 tensor cores; H100 SXM data sheet), from this run's shapes.
 
-The second-to-last line is a JSON object describing each kernel; the last
+The second-to-last line is a JSON object describing each kernel (its
+``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
+pilot, affine at scale and the presolved pdas_dd, each also apart); the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -316,13 +336,16 @@ def phase_kernels(ddm, dd_cuda):
             raise AssertionError(f"{which} misses the f64 truth at rtol 1e-11")
 
     stats = {}
-    for m, n in ((1441, 5093), (1536, 5120)):
+    normal = {}  # dd A·x at the pilot's normal matrix, dense affine's shape
+    for m, n in ((1441, 5093), (1536, 5120), (1536, 1536)):
         A, x, y = _inputs(m, n, m)
         mv_err = _check_mv(ddm, A, x, f"({m}, {n})")
         rmv_err = _check_rmv(ddm, dd_cuda, A, y, f"({m}, {n})")
         if (m, n) == (1536, 5120):
             stats["mv"] = {"max_abs_err": mv_err}
             stats["rmv"] = {"max_abs_err": rmv_err}
+        if (m, n) == (1536, 1536):
+            normal["max_abs_err"] = mv_err
     # Rows, x and y that do not start on a 16-byte boundary.
     m, n = 1536, 5120
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -336,7 +359,7 @@ def phase_kernels(ddm, dd_cuda):
     del Abuf, xbuf
 
     flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
-    for m, n in ((1536, 5120), (4096, 8192)):
+    for m, n in ((1536, 5120), (1536, 1536), (4096, 8192)):
         A, x, y = _inputs(m, n, 7)
         runs = {
             "mv": (lambda: ddm.dd_matvec(A, x), lambda: ddm._dd_matvec_plain(A, x)),
@@ -357,10 +380,35 @@ def phase_kernels(ddm, dd_cuda):
                 f" bound {bound['bound_ms']:.4f})")
             if (m, n) == (1536, 5120):
                 stats[which].update(ms=k, plain_ms=p, library_ms=None, **bound)
+            if (m, n) == (1536, 1536) and which == "mv":
+                normal.update(ms=k, plain_ms=p, library_ms=None, **bound)
         del A, x, y
         torch.cuda.empty_cache()
     del flush
+    stats["mv"]["at_1536x1536"] = normal
     return stats
+
+
+def _counted(counters):
+    """Every launch counter's value, by kernel."""
+    return {k: v for c in counters.values() for k, v in c.items()}
+
+
+def _affine_line(tag, rep, ref, jax_cpu, took=None):
+    err = abs(rep.objective - ref) / abs(ref)
+    say(f"[{tag}] status {rep.status}  iterations {rep.summary['iterations']}"
+        f" (the JAX package on the CPU: {jax_cpu})  objective {rep.objective:.12f}"
+        f"  objective error {err:.3e}  residual {rep.summary['residual']:.3e}"
+        + ("" if took is None else f"  {took:.3f} s"))
+    return err
+
+
+def _timed_solve(cimt, problem, solver, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = cimt.solve(problem, solver, **kw)
+    torch.cuda.synchronize()
+    return rep, time.perf_counter() - t
 
 
 def _check_solve(tag, rep, ref_obj):
@@ -387,12 +435,12 @@ def phase_afiro(cimt):
 def phase_afiro_f64(cimt, counters):
     """afiro in f64 on the card, dense and fully sparse (block 16): the
     plain forms carry it, no kernel launches."""
-    before = {k: v for c in counters.values() for k, v in c.items()}
+    before = _counted(counters)
     for tag, kw in (("afiro f64", {}), ("sparse afiro f64", dict(sparse=True, block=16))):
         rep = cimt.solve(AFIRO, "pdas_dd", device="cuda", dtype=torch.float64, **kw)
         _check_solve(tag, rep, AFIRO_OPTIMUM)
         rel = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
-        after = {k: v for c in counters.values() for k, v in c.items()}
+        after = _counted(counters)
         say(f"[{tag}] relative objective error {rel:.3e} (limit 1e-7); "
             f"{rep.summary['phase1_iterations']} + {rep.summary['iterations']} iterations"
             f" (the CPU takes 22 + 7); x is {rep.result.x.dtype} on {rep.result.x.device};"
@@ -409,21 +457,14 @@ def phase_pilot(cimt, dd_cuda, card):
     say(f"[pilot] constructed optimum LP {sf.ncons} x {sf.nvars}, "
         f"padded to 1536 x 5120, f32")
     _reset(dd_cuda.LAUNCHES)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rep = cimt.solve(sf, "pdas_dd", device="cuda", dtype=torch.float32)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
+    rep, first_s = _timed_solve(cimt, sf, "pdas_dd", device="cuda", dtype=torch.float32)
     launches = dict(dd_cuda.LAUNCHES)
     say(f"[pilot] first solve {first_s:.3f} s, kernel launches {launches}")
     _check_solve("pilot", rep, info["objective"])
     if not all(launches[k] > 0 for k in ("mv", "rmv")):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rep2 = cimt.solve(sf, "pdas_dd", device="cuda", dtype=torch.float32)
-    torch.cuda.synchronize()
-    say(f"[pilot] second solve wall-clock {time.perf_counter() - t:.3f} s "
+    rep2, took = _timed_solve(cimt, sf, "pdas_dd", device="cuda", dtype=torch.float32)
+    say(f"[pilot] second solve wall-clock {took:.3f} s "
         f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
         f"iterations) on {card}")
     return launches
@@ -762,12 +803,8 @@ def phase_at_scale(cimt, sf, info, counters, card, kw=AT_SCALE_KW):
     Returns the launches and the second report."""
     tag = f"at scale, block {kw['block']}"
     _reset(*counters.values())
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rep = cimt.solve(sf, "pdas_dd", **kw)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = {k: v for c in counters.values() for k, v in c.items()}
+    rep, first_s = _timed_solve(cimt, sf, "pdas_dd", **kw)
+    launches = _counted(counters)
     ref = info["objective"]
     gap = rep.summary["gap"]
     obj_err = abs(rep.objective - ref) / abs(ref)
@@ -782,17 +819,14 @@ def phase_at_scale(cimt, sf, info, counters, card, kw=AT_SCALE_KW):
     if not (np.isfinite(rep.result.x.cpu().numpy()).all() and gap <= 1e-6
             and obj_err <= 1e-5):
         raise AssertionError(f"{tag}: gap {gap} / objective error {obj_err}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rep2 = cimt.solve(sf, "pdas_dd", **kw)
-    torch.cuda.synchronize()
-    say(f"[{tag}] second solve wall-clock {time.perf_counter() - t:.3f} s "
+    rep2, took = _timed_solve(cimt, sf, "pdas_dd", **kw)
+    say(f"[{tag}] second solve wall-clock {took:.3f} s "
         f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
         f"iterations, gap {rep2.summary['gap']:.3e}) on {card}")
     return launches, rep2
 
 
-def _attribute(cimt, sf, kw):
+def _attribute(cimt, sf, kw, solver="pdas_dd"):
     """One more at-scale solve with host timers (synchronize on entry and
     exit) wrapped around the stages; returns seconds and calls by stage.
     Stages nest: the tile kernel runs inside the panel loop, raw solves
@@ -800,12 +834,14 @@ def _attribute(cimt, sf, kw):
     from cholesky_is_magic_tpu_torch.ops import bell, chol, sparse_ops
     from cholesky_is_magic_tpu_torch.sparse.tiled import TiledCholesky
 
-    # The module (the package re-exports a function of the same name).
-    pdas_mod = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    # The set-up's module (the package re-exports a function of its name).
+    mod, setup = (("affine", "make_affine_state_sparse") if solver == "affine"
+                  else ("pdas", "make_pdas_sparse"))
+    setup_mod = importlib.import_module(f"cholesky_is_magic_tpu_torch.solvers.{mod}")
 
     acc = {}
-    stages = [("setup: make_pdas_sparse (analysis, schedules, ELL/BELL)",
-               pdas_mod, "make_pdas_sparse"),
+    stages = [(f"setup: {setup} (analysis, schedules, ELL/BELL)",
+               setup_mod, setup),
               ("assembly (kernel)", TiledCholesky, "assemble_pairs"),
               ("panel loop (factorize)", TiledCholesky, "factorize"),
               ("  of which tile kernel", chol, "factor_tile_"),
@@ -832,7 +868,7 @@ def _attribute(cimt, sf, kw):
             setattr(obj, name, timed(label, fn))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        rep = cimt.solve(sf, "pdas_dd", **kw)
+        rep = cimt.solve(sf, solver, **kw)
         torch.cuda.synchronize()
         total = time.perf_counter() - t
     finally:
@@ -939,6 +975,143 @@ def phase_block256(cimt, sf, info, eng128, counters, card):
         f" block 256 {f256:.3f} ms ({eng256.B} panels) on {card}")
 
 
+def _check_mv_on_pilot_normal(sf, x):
+    """dd A·x on the pilot LP's own normal matrix N = A·D²·Aᵀ (1536 x 1536),
+    D the slack (capped at 1e8) of the f32 affine solve's last iterate x: the
+    shape and the range of entries its refined solves give the kernel.
+    Against the plain version only (PLAIN_TOL): N's rows cancel past what the
+    f64 truth's 1e-11 can hold."""
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.ops import dd as ddm
+    from cholesky_is_magic_tpu_torch.ops import dense
+
+    lp = to_device_lp(sf, pad_multiple=128, device="cuda")
+    if x.shape != lp.c.shape:
+        raise AssertionError(f"affine pilot x {tuple(x.shape)} is not padded as "
+                             f"{tuple(lp.c.shape)}")
+    slack = torch.clamp(torch.minimum(x - lp.l, lp.u - x), 1e-30, 1e8)
+    N = dense.normal_matrix(lp.A, torch.where(lp.col_mask, slack, 1.0),
+                            (~lp.row_mask).float())
+    g = torch.Generator(device="cuda").manual_seed(13)
+    y = torch.randn(N.shape[0], generator=g, device="cuda")
+    err = (_f64(ddm.dd_matvec(N, y)) - _f64(ddm._dd_matvec_plain(N, y))).abs()
+    ratio = (err / (EPS32**2 * (N.abs() @ y.abs()).double())).max().item()
+    say(f"[affine pilot f32] mv on the pilot's normal matrix {tuple(N.shape)}"
+        f" (entries up to {N.abs().max().item():.3e}): vs plain max abs err"
+        f" {err.max().item():.3e}, max err / (eps32^2 sum|ax|) {ratio:.3f}"
+        f" (limit {PLAIN_TOL})")
+    if not ratio <= PLAIN_TOL:
+        raise AssertionError("mv misses its plain version on the pilot's normal matrix")
+
+
+def phase_affine(cimt, counters, card):
+    """solve(..., "affine") dense: afiro in f32 (rows equilibrated) and in
+    f64 dense and sparse (block 16, the plain forms, no launch), then the
+    pilot LP in f32 (the dd A·x kernel in every refined solve; counters
+    reset before, read after) and in f64.  Returns the f32 pilot solve's
+    launches."""
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    rep, took = _timed_solve(cimt, AFIRO, "affine", rescale=True, pad_multiple=16,
+                             max_iters=600, refine_steps=2, device="cuda",
+                             dtype=torch.float32)
+    err = _affine_line("affine afiro f32", rep, AFIRO_OPTIMUM, 24, took)
+    if not (rep.status == "optimal" and err <= 2e-3):
+        raise AssertionError(f"affine afiro f32: {rep.status}, error {err}")
+    for tag, kw, jax_cpu in (("affine afiro f64", {}, 22),
+                             ("sparse affine afiro f64", dict(sparse=True, block=16), 23)):
+        before = _counted(counters)
+        rep, took = _timed_solve(cimt, AFIRO, "affine", device="cuda",
+                                 dtype=torch.float64, **kw)
+        err = _affine_line(tag, rep, AFIRO_OPTIMUM, jax_cpu, took)
+        x = rep.result.x
+        if not (rep.status == "optimal" and err <= 1e-6 and x.is_cuda
+                and x.dtype == torch.float64 and _counted(counters) == before):
+            raise AssertionError(f"{tag}: {rep.status}, error {err}, x {x.dtype} "
+                                 f"on {x.device}, launches {_counted(counters)}")
+
+    sf, info = constructed_optimum_lp("pilot", seed=0)
+    ref = info["objective"]
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, sf, "affine", device="cuda", dtype=torch.float32)
+    launches = _counted(counters)
+    say(f"[affine pilot f32] first solve {took:.3f} s, kernel launches {launches}")
+    err = _affine_line("affine pilot f32", rep, ref, 21)
+    if not (rep.status == "optimal" and err <= 1e-3
+            and np.isfinite(rep.result.x.cpu().numpy()).all()):
+        raise AssertionError(f"affine pilot f32: {rep.status}, error {err}")
+    if not launches["mv"] > 0:
+        raise AssertionError(f"affine pilot f32: dd A·x never launched: {launches}")
+    _check_mv_on_pilot_normal(sf, rep.result.x)
+    rep, took = _timed_solve(cimt, sf, "affine", device="cuda", dtype=torch.float32)
+    say(f"[affine pilot f32] second solve wall-clock {took:.3f} s "
+        f"({rep.summary['iterations']} iterations) on {card}")
+    rep, took = _timed_solve(cimt, sf, "affine", device="cuda", dtype=torch.float64)
+    err = _affine_line("affine pilot f64", rep, ref, 25, took)
+    if not (rep.status == "optimal" and err <= 1e-6):
+        raise AssertionError(f"affine pilot f64: {rep.status}, error {err}")
+    return launches
+
+
+def phase_affine_at_scale(cimt, sf, info, counters, card):
+    """The m = 16384 LP through solve(..., "affine", sparse=True, block=128)
+    in f32: the second engine (on the raw A: affine scaling does not
+    equilibrate rows) timed on its own, a counted and checked solve (the
+    tile and assembly kernels must launch), and a second, timed one."""
+    from cholesky_is_magic_tpu_torch.solvers.affine import make_affine_state_sparse
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    make_affine_state_sparse(sf, block=128, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    say(f"[affine at scale] set-up of the state and its own engine "
+        f"(make_affine_state_sparse, block 128): {time.perf_counter() - t:.3f} s")
+    kw = dict(sparse=True, block=128, device="cuda", dtype=torch.float32)
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, sf, "affine", **kw)
+    launches = _counted(counters)
+    say(f"[affine at scale] first solve {took:.3f} s, kernel launches {launches}")
+    err = _affine_line("affine at scale", rep, info["objective"],
+                       "27 at m = 2048, 23 at m = 8192, 27 at m = 16384")
+    if not (launches["potrf_tile"] > 0 and launches["assemble_pairs"] > 0):
+        raise AssertionError(f"a kernel of the sparse affine path never launched: {launches}")
+    if not (rep.status == "optimal" and err <= 1e-3
+            and np.isfinite(rep.result.x.cpu().numpy()).all()):
+        raise AssertionError(f"affine at scale: {rep.status}, error {err}")
+    rep, took = _timed_solve(cimt, sf, "affine", record_trace=True, **kw)
+    k = rep.summary["iterations"]
+    tr = {key: v[:k].cpu().numpy() for key, v in rep.result.extra["trace"].items()}
+    repairs = int((tr["residual"] > 1e-6 * sf.ncons).sum())
+    say(f"[affine at scale] second solve wall-clock {took:.3f} s ({k} iterations, "
+        f"{repairs} of them repair steps, status {rep.status}) on {card}")
+    say("[affine at scale] objective error by iteration: " + " ".join(
+        f"{abs(o - info['objective']) / abs(info['objective']):.1e}" for o in tr["objective"]))
+    total, acc, rep3 = _attribute(cimt, sf, kw, solver="affine")
+    say(f"[affine breakdown] timed solve {total:.3f} s, {rep3.summary['iterations']} "
+        f"iterations (host clock, synchronize around every stage):")
+    for label, (sec, calls) in acc.items():
+        say(f"[affine breakdown]   {label}: {sec:.3f} s in {calls} calls "
+            f"({100 * sec / total:.1f}%)")
+    return launches
+
+
+def phase_presolve(cimt, counters):
+    """solve(afiro, "pdas_dd", presolve=True) in f32 on the card: the
+    reduced LP's solve (both dd kernels), restored to the original space."""
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, AFIRO, "pdas_dd", presolve=True, device="cuda",
+                             dtype=torch.float32)
+    launches = _counted(counters)
+    say(f"[presolve] {rep.summary['presolve']}")
+    say(f"[presolve] {took:.3f} s, kernel launches {launches}")
+    _check_solve("presolve", rep, AFIRO_OPTIMUM)
+    say(f"[presolve] {rep.summary['phase1_iterations']} + {rep.summary['iterations']}"
+        f" iterations (the JAX package on the CPU: 70 + 18)")
+    if rep.solution["x"].shape != (32,) or not np.isfinite(rep.solution["y"]).all():
+        raise AssertionError(f"presolve: x {rep.solution['x'].shape} not restored")
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -967,11 +1140,19 @@ def main() -> int:
                     assemble_pairs=sparse_launches["assemble_pairs"])
     phase_breakdown(cimt, sf, eng, rep, chol)
     phase_block256(cimt, sf, info, eng, counters, card)
+    by_path = {"pdas_dd": dict(launches),
+               "affine pilot f32": phase_affine(cimt, counters, card),
+               "affine at scale": phase_affine_at_scale(cimt, sf, info, counters, card),
+               "presolve pdas_dd": phase_presolve(cimt, counters)}
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's
-    # times with the host's launches in them besides.
-    kernels = [dict(KERNELS[k], route="cuda", launches=launches[k], **stats[k])
+    # times with the host's launches in them besides.  ``launches`` sums
+    # every main path's run; ``launches_by_path`` keeps each apart.
+    kernels = [dict(KERNELS[k], route="cuda",
+                    launches=sum(p.get(k, 0) for p in by_path.values()),
+                    launches_by_path={n: p.get(k, 0) for n, p in by_path.items()},
+                    **stats[k])
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

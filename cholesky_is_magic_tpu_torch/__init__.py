@@ -1,11 +1,11 @@
-"""cholesky-is-magic on PyTorch and CUDA: the pdas -> pdas_dd solve, dense
-and fully sparse.
+"""cholesky-is-magic on PyTorch and CUDA: primal affine scaling and the
+pdas -> pdas_dd solve, dense and fully sparse, with the host presolve.
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
 against; the module paths mirror it, so each counterpart is easy to find:
 
-- :mod:`.ingest`  — MPS reader, standard form (NumPy copies), the padded
+- :mod:`.ingest`  — MPS reader, standard form and presolve (NumPy copies), the padded
   dense operand set :class:`~.ingest.device.DeviceLP` and the fully sparse
   :class:`~.ingest.device.SparseKKTLP`;
 - :mod:`.ops`     — double-word arithmetic, ELL / block-ELL products, the
@@ -13,9 +13,10 @@ against; the module paths mirror it, so each counterpart is easy to find:
   the wrappers of the hand-written CUDA kernels (``csrc/``);
 - :mod:`.sparse`  — host symbolic analysis and the tile engine;
 - :mod:`.kkt`     — the block-eliminated KKT Newton step;
-- :mod:`.solvers` — pdas and its double-word pdas_dd finisher;
-- :mod:`.api`     — ``solve(problem, "pdas" | "pdas_dd", sparse=...,
-  device=...)``.
+- :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
+  finisher;
+- :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd",
+  sparse=..., presolve=..., device=...)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.

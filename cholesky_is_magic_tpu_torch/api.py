@@ -1,13 +1,16 @@
 """One-call front door: ``solve(problem, solver, device=...) -> SolveReport``.
 
-Counterpart of ``cholesky_is_magic_tpu/api.py`` for the ``"pdas"`` and
-two-phase ``"pdas_dd"`` flows, on dense padded operands or, with
-``sparse=True``, on the fully sparse pipeline (ELL / block-ELL operands and
-the pair-schedule tile engine): pdas to its native 1e-4 gap, then the
-double-word finisher warm-started from its iterates, escalating to PCG
-refinement when the finisher stops at the precision floor short of the
-target gap.  The other solver families, ``presolve`` and ``crossover`` are
-not ported and raise ``NotImplementedError``.
+Counterpart of ``cholesky_is_magic_tpu/api.py`` for the ``"affine"``,
+``"pdas"`` and two-phase ``"pdas_dd"`` flows, on dense padded operands or,
+with ``sparse=True``, on the fully sparse pipeline (ELL / block-ELL operands
+and the pair-schedule tile engine): primal affine scaling; pdas to its
+native 1e-4 gap; pdas then the double-word finisher warm-started from its
+iterates, escalating to PCG refinement when the finisher stops at the
+precision floor short of the target gap.  ``presolve=True`` runs the host
+presolve (ingest.presolve) first and restores the solution and duals to the
+original variable space.  The other solver families (``"alm"``,
+``"aalm"``, ``"selfdual"``) and ``crossover`` are not ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,20 +124,24 @@ def solve(
     crossover: bool = False,
     entry_repair_tol: float = 0.0,
 ) -> SolveReport:
-    """Solve an LP end to end with ``"pdas"`` or ``"pdas_dd"`` on ``device``
-    (the card unless the caller asks for ``"cpu"``; without a card the call
-    raises; default f32): on dense operands padded to ``pad_multiple``, or with
-    ``sparse=True`` on the fully sparse pipeline, whose tile engine uses
-    ``block``-wide panels (no dense (m, n) operand is built).
+    """Solve an LP end to end with ``"affine"``, ``"pdas"`` or ``"pdas_dd"``
+    on ``device`` (the card unless the caller asks for ``"cpu"``; without a
+    card the call raises; default f32): on dense operands padded to
+    ``pad_multiple``, or with ``sparse=True`` on the fully sparse pipeline,
+    whose tile engine uses ``block``-wide panels (no dense (m, n) operand is
+    built).
 
     The options mean what they mean in the JAX package's ``api.solve``:
     ``gap_tol`` (pdas default 1e-4, pdas_dd finisher 1e-9),
     ``krylov_steps`` / ``krylov_gate_gap`` (PCG refinement; with 0 the
     pdas_dd finisher escalates to PCG by itself at the precision floor),
-    ``mehrotra``, ``entry_repair_tol``, and ``warm`` / ``warm_push`` /
-    ``warm_blend`` (restart from a previous report of the same LP, solved
-    with the same ``sparse`` and ``pad_multiple``; pdas_dd then skips
-    phase 1).
+    ``mehrotra``, ``entry_repair_tol``, ``presolve`` (the host reductions
+    of ingest.presolve; the report is in the original variable space, its
+    summary carries ``presolve``), and ``warm`` / ``warm_push`` /
+    ``warm_blend`` (pdas / pdas_dd only: restart from a previous report of
+    the same LP, solved with the same ``sparse`` and ``pad_multiple``;
+    pdas_dd then skips phase 1).  The affine summary has no gap, ``y`` or
+    ``gap_bound``.
     """
     from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
     from cholesky_is_magic_tpu_torch.ingest.standard_form import extract_solution
@@ -146,25 +153,62 @@ def solve(
         pdas,
     )
 
-    if solver not in ("pdas", "pdas_dd"):
+    if sparse and solver not in ("affine", "pdas", "pdas_dd"):
+        raise ValueError("sparse=True supports solver affine, pdas, or pdas_dd")
+    if warm is not None:
+        if solver not in ("pdas", "pdas_dd"):
+            raise ValueError("warm starts support solver pdas or pdas_dd")
+        if presolve:
+            raise ValueError(
+                "warm + presolve is unsupported: the reduced variable "
+                "spaces of the two solves may differ"
+            )
+    if crossover and solver not in ("pdas", "pdas_dd"):
+        raise ValueError("crossover supports solver pdas or pdas_dd")
+    if solver in ("alm", "aalm", "selfdual"):
         raise NotImplementedError(f"solver {solver!r} is not ported")
-    for flag, name in ((presolve, "presolve"), (crossover, "crossover")):
-        if flag:
-            raise NotImplementedError(f"{name}=True is not ported")
+    if solver not in ("affine", "pdas", "pdas_dd"):
+        raise ValueError(f"unknown solver {solver!r}")
+    if crossover:
+        raise NotImplementedError("crossover=True is not ported")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("solve: no CUDA device; pass device='cpu' to solve "
                            "on the CPU")
     if dtype is None:
         dtype = torch.float32
     sf = _to_standard_form(problem, rescale)
+    psv = None
+    sf_solve = sf
+    if presolve:
+        from cholesky_is_magic_tpu_torch.ingest.presolve import presolve as _presolve
+
+        sf_red, psv = _presolve(sf)
+        if psv.status in ("infeasible", "unbounded"):
+            return SolveReport(
+                solver=solver, status=psv.status, objective=float("nan"),
+                summary=dict(status=psv.status, detail=psv.detail,
+                             presolve=psv.report()),
+                result=None, sf=sf, solution={},
+            )
+        if psv.status == "solved":
+            solution = extract_solution(sf, psv.restore(None))
+            return SolveReport(
+                solver=solver, status="optimal",
+                objective=solution["objective"],
+                summary=dict(status="optimal", iterations=0,
+                             objective=solution["standard_form_objective"],
+                             presolve=psv.report()),
+                result=None, sf=sf, solution=solution,
+            )
+        sf_solve = sf_red
     put = lambda v: torch.as_tensor(v).to(device=device, dtype=dtype)  # noqa: E731
     engine = lp = cold = None
-    if sparse:
-        cold, engine = make_pdas_sparse(sf, block=block, dtype=dtype,
-                                        device=device)
-    else:
-        lp = to_device_lp(sf, pad_multiple=pad_multiple, dtype=dtype,
+    if not sparse:
+        lp = to_device_lp(sf_solve, pad_multiple=pad_multiple, dtype=dtype,
                           device=device)
+    elif solver != "affine":
+        cold, engine = make_pdas_sparse(sf_solve, block=block, dtype=dtype,
+                                        device=device)
 
     def warm_state():
         r = warm.result
@@ -192,7 +236,27 @@ def solve(
         wx = _into_interior(wx, l, u, mask)
         return dataclasses.replace(cold, x=wx, y=wy, w=ww, z=wz)
 
-    if solver == "pdas":
+    if solver == "affine":
+        from cholesky_is_magic_tpu_torch.solvers.affine import (
+            AffineConfig,
+            affine_scaling,
+            make_affine_state,
+            make_affine_state_sparse,
+        )
+
+        cfg = AffineConfig(max_iters=max_iters, refine_steps=refine_steps,
+                           record_trace=record_trace)
+        if sparse:
+            st, engine = make_affine_state_sparse(sf_solve, block=block,
+                                                  dtype=dtype, device=device)
+        else:
+            st = make_affine_state(lp)
+        res = affine_scaling(st, cfg, engine=engine)
+        summary = dict(
+            status=res.status_name, objective=float(res.objective),
+            iterations=int(res.iterations), residual=float(res.residual_norm),
+        )
+    elif solver == "pdas":
         kw = {} if gap_tol is None else {"gap_tol": gap_tol}
         cfg = PDASConfig(
             max_iters=max_iters, refine_steps=refine_steps,
@@ -281,17 +345,32 @@ def solve(
             summary["krylov_escalated"] = True
 
     x = res.x.cpu().numpy()
-    solution = extract_solution(sf, x)
-    # Row duals in the ORIGINAL row space (make_pdas equilibrated the rows:
-    # the user-space dual is s_i * y_i); reduced costs z - w.
-    y = res.extra["y"].cpu().numpy()
-    solution["y"] = y[: sf.ncons] * _row_scale(sf)
-    solution["reduced_costs"] = (
-        (res.extra["z"] - res.extra["w"]).cpu().numpy()[: sf.nvars]
-    )
-    summary["gap_bound"] = _feasibility_gap_bound(
-        sf, x, y, summary["gap"], summary["objective"],
-    )
+    if psv is not None:
+        x_full = psv.restore(x)
+        solution = extract_solution(sf, x_full)
+        summary["presolve"] = psv.report()
+        # Solver metrics are in the REDUCED space; the eliminated columns
+        # contribute the constant c'x_fixed to both primal and dual
+        # objectives: shift so the summary matches `solution`.
+        for key in ("objective", "dual_objective"):
+            if key in summary:
+                summary[key] += psv.obj_offset
+    else:
+        solution = extract_solution(sf, x)
+    if solver != "affine":
+        # Row duals in the ORIGINAL row space (make_pdas equilibrated the
+        # rows: the user-space dual is s_i * y_i); reduced costs z - w; with
+        # presolve, the exact dual postsolve (Presolve.restore_duals).
+        y = res.extra["y"].cpu().numpy()
+        ys = y[: sf_solve.ncons] * _row_scale(sf_solve)
+        rc = (res.extra["z"] - res.extra["w"]).cpu().numpy()[: sf_solve.nvars]
+        if psv is not None:
+            ys, rc = psv.restore_duals(sf, ys, rc, x_full=x_full)
+        solution["y"], solution["reduced_costs"] = ys, rc
+        # Reduced space when presolve ran, the space of the gap itself.
+        summary["gap_bound"] = _feasibility_gap_bound(
+            sf_solve, x, y, summary["gap"], summary["objective"],
+        )
     return SolveReport(
         solver=solver,
         status=summary["status"],

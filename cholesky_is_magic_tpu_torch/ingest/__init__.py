@@ -1,11 +1,12 @@
 """Host-side problem ingest: MPS files -> standard form -> device operands.
 
-``mps`` and ``standard_form`` are NumPy-only copies of the JAX package's
-modules; ``device`` builds the padded dense tensors the solvers consume.
+``mps``, ``standard_form`` and ``presolve`` are NumPy-only copies of the
+JAX package's modules; ``device`` builds the padded dense tensors the solvers consume.
 """
 
 from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, to_device_lp
 from cholesky_is_magic_tpu_torch.ingest.mps import MPSData, read_mps, read_mps_file
+from cholesky_is_magic_tpu_torch.ingest.presolve import Presolve, presolve
 from cholesky_is_magic_tpu_torch.ingest.standard_form import (
     StandardForm,
     extract_solution,
@@ -23,6 +24,8 @@ __all__ = [
     "rescale_sf",
     "scale_constraints",
     "extract_solution",
+    "Presolve",
+    "presolve",
     "DeviceLP",
     "to_device_lp",
 ]

@@ -1,6 +1,13 @@
-"""Interior-point solver loops: pdas and pdas_dd, on dense or fully sparse
-operands."""
+"""Interior-point solver loops: primal affine scaling, pdas and pdas_dd, on
+dense or fully sparse operands."""
 
+from cholesky_is_magic_tpu_torch.solvers.affine import (
+    AffineConfig,
+    AffineState,
+    affine_scaling,
+    make_affine_state,
+    make_affine_state_sparse,
+)
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
@@ -17,6 +24,11 @@ from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 
 __all__ = [
+    "AffineConfig",
+    "AffineState",
+    "affine_scaling",
+    "make_affine_state",
+    "make_affine_state_sparse",
     "PDASConfig",
     "PDASState",
     "PDASDDState",

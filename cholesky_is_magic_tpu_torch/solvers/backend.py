@@ -71,3 +71,12 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
         dbound=dbound, krylov_steps=krylov_steps,
         krylov_gate=krylov_gate, method=method,
     )
+
+
+def solve_normal_backend(lp, engine, d, g, row_boost, refine_steps):
+    """(A·diag(d))(A·diag(d))ᵀ y = g on the backend the operand set
+    selects: one :func:`prepare_normal_backend` and one solve.  Returns
+    (y, ok)."""
+    solve_fn, ok = prepare_normal_backend(lp, engine, d, row_boost,
+                                          refine_steps)
+    return solve_fn(g), ok

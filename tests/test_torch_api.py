@@ -2,8 +2,9 @@
 
 ``solve(afiro, "pdas_dd")`` in f64 agrees with the JAX package's within
 1e-8 relative and reaches the published optimum; ``solve(afiro, "pdas")``
-takes the same iterations; the unported options (the other solver families,
-sparse affine, presolve, crossover) raise NotImplementedError."""
+takes the same iterations; the unported options (the alm, aalm and selfdual
+families, crossover) raise NotImplementedError, and the combinations the JAX
+package refuses raise its ValueError."""
 
 import os
 
@@ -56,10 +57,35 @@ def test_solve_pdas_matches_jax():
     assert rt.summary["gap_bound"] >= abs(rt.objective - OPTIMUM) / (1 + abs(OPTIMUM))
 
 
-@pytest.mark.parametrize("kw", [dict(solver="affine"), dict(solver="alm"),
-                                dict(sparse=True, solver="affine"),
-                                dict(presolve=True), dict(crossover=True)])
+@pytest.mark.parametrize("kw", [dict(solver="alm"), dict(solver="aalm"),
+                                dict(solver="selfdual"), dict(crossover=True),
+                                dict(solver="pdas", crossover=True)])
 def test_unported_front_door_options_raise(kw):
     solver = kw.pop("solver", "pdas_dd")
     with pytest.raises(NotImplementedError):
         cimt.solve(AFIRO, solver, device="cpu", **kw)
+
+
+def _report(api):
+    return api.SolveReport(solver="pdas", status="optimal", objective=0.0,
+                           summary={}, result=None, sf=None, solution={})
+
+
+@pytest.mark.parametrize("solver,kw", [
+    ("alm", dict(sparse=True)),
+    ("affine", dict(warm=True)),
+    ("pdas", dict(warm=True, presolve=True)),
+    ("affine", dict(crossover=True)),
+])
+def test_invalid_front_door_combinations_raise_as_in_jax(solver, kw):
+    """The JAX package's ValueErrors: sparse=True off affine/pdas/pdas_dd,
+    warm with affine, warm with presolve, crossover with affine."""
+    from cholesky_is_magic_tpu import api as japi
+    from cholesky_is_magic_tpu_torch import api as tapi
+
+    for api, extra in ((japi, {}), (tapi, dict(device="cpu"))):
+        args = dict(kw, **extra)
+        if args.get("warm"):
+            args["warm"] = _report(api)
+        with pytest.raises(ValueError):
+            api.solve(AFIRO, solver, **args)

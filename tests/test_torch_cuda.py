@@ -231,6 +231,40 @@ def test_solve_afiro_on_the_card(dev):
     assert abs(rep.objective + 464.75314285714285) <= 1e-7 * 464.75314285714285
 
 
+def test_affine_afiro_on_the_card_launches_dd_mv(dev):
+    """Dense f32 affine on afiro (rows equilibrated): every refined normal
+    solve's residual launches dd A·x; the f32 iterate floor within 2e-3."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = _counts()
+    rep = cimt.solve(AFIRO, "affine", rescale=True, pad_multiple=16,
+                     max_iters=600, refine_steps=2)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    print(f"f32 afiro affine: {rep.summary['iterations']} iterations, "
+          f"launches {launched}")
+    assert launched["mv"] > 0
+    assert rep.status == "optimal"
+    assert abs(rep.objective + 464.75314285714285) <= 2e-3 * 464.75314285714285
+
+
+def test_sparse_affine_on_the_card_launches_tile_and_assembly(dev):
+    """Sparse f32 affine at block 16 on the m = 256 constructed LP: the tile
+    and assembly kernels launch in every factorization."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    sf, info = constructed_optimum_lp(m=256, seed=0)
+    before = _counts()
+    rep = cimt.solve(sf, "affine", sparse=True, block=16)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    print(f"sparse f32 affine m = 256: {rep.summary['iterations']} iterations, "
+          f"launches {launched}")
+    assert launched["potrf_tile"] > 0 and launched["assemble_pairs"] > 0
+    assert rep.status == "optimal"
+    ref = info["objective"]
+    assert abs(rep.objective - ref) <= 1e-3 * abs(ref)
+
+
 def _spd(n, seed, dev):
     """A well-conditioned SPD f32 matrix on the card."""
     rng = np.random.default_rng(seed)

@@ -21,6 +21,7 @@ from cholesky_is_magic_tpu_torch.ops import bell, chol_cuda, sparse_ops
 from cholesky_is_magic_tpu_torch.sparse import tiled
 
 # The modules (the package re-exports functions of the same names).
+affine = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.affine")
 pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
 pdas_dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
 
@@ -28,6 +29,7 @@ AFIRO = os.path.join(os.path.dirname(__file__), "fixtures", "afiro.mps")
 
 DEVICE_FUNCTIONS = [
     api.solve, t_device.to_device_lp, pdas.make_pdas_sparse,
+    affine.make_affine_state_sparse,
     pdas_dd.make_pdas_dd_sparse, tiled.engine_for_sparse, tiled.TiledCholesky,
     sparse_ops.from_coo, sparse_ops.from_dense, bell.from_coo,
     convert.tensor_from_numpy, convert.device_lp_from_numpy,
@@ -51,6 +53,8 @@ def test_solve_without_a_card_raises_unless_asked_for_the_cpu():
         cimt.solve(AFIRO, "pdas_dd")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cimt.solve(AFIRO, "pdas_dd", sparse=True, block=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cimt.solve(AFIRO, "affine", presolve=True)
     rep = cimt.solve(AFIRO, "pdas_dd", device="cpu", dtype=torch.float64,
                      pad_multiple=16)
     assert rep.status == "optimal"
@@ -65,12 +69,15 @@ def _coo(m=2, n=3):
     lambda: t_device.to_device_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO))),
     lambda: pdas.make_pdas_sparse(cimt.to_standard_form(cimt.read_mps_file(AFIRO)),
                                   block=16),
+    lambda: affine.make_affine_state_sparse(
+        cimt.to_standard_form(cimt.read_mps_file(AFIRO)), block=16),
     lambda: tiled.engine_for_sparse(np.eye(4), block=2),
     lambda: sparse_ops.from_coo(*_coo()),
     lambda: sparse_ops.from_dense(np.eye(3)),
     lambda: bell.from_coo(*_coo(8, 128)),
     lambda: convert.tensor_from_numpy(np.ones(3)),
-], ids=["to_device_lp", "make_pdas_sparse", "engine_for_sparse",
+], ids=["to_device_lp", "make_pdas_sparse", "make_affine_state_sparse",
+        "engine_for_sparse",
         "ell_from_coo", "ell_from_dense", "bell_from_coo", "tensor_from_numpy"])
 def test_device_unset_without_a_card_raises(call):
     _needs_no_card()
