@@ -85,7 +85,19 @@ script then exits non-zero and never prints its last line):
    the stage timers of phase 8;
 12. presolve — solve(afiro, "pdas_dd", presolve=True) in f32: the presolve
    report, counters reset before and read after, gap <= 1e-8, objective
-   within 1e-7, x and y restored to the original space.
+   within 1e-7, x and y restored to the original space;
+13. crossover — solve(..., crossover=True) and crossover() in f32, each
+   case's certificate on one line, counters reset before and read after:
+   (a) afiro dense pdas_dd at pad 32 (certified, certificate gap < 1e-9,
+   objective within 2e-6; dd A·x and Aᵀ·x launched); (b) afiro sparse
+   block 16 (certified, within 1e-5; the tile and assembly kernels
+   launched), then in f64 (no launch); (c) afiro's f32 pdas stop at the
+   1e-4 gap through crossover() alone: never worse (certified within 2e-6,
+   or x and status returned unchanged); (d) the pilot LP dense through
+   "pdas" (certified, objective error <= 2e-6; dd launches; a second,
+   timed call beside phase 5's pdas_dd); (e) phase 8's result and engine
+   through crossover() (certified, objective error <= 1e-5; the tile and
+   assembly kernels launched; one call timed).
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -93,8 +105,8 @@ tensor cores; H100 SXM data sheet), from this run's shapes.
 
 The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
-pilot, affine at scale and the presolved pdas_dd, each also apart); the last
-line is {"ok": true, "device": {...}}.
+pilot, affine at scale, the presolved pdas_dd and the crossover cases, each
+also apart); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -467,7 +479,7 @@ def phase_pilot(cimt, dd_cuda, card):
     say(f"[pilot] second solve wall-clock {took:.3f} s "
         f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
         f"iterations) on {card}")
-    return launches
+    return launches, took
 
 
 def _recon_err(L, N):
@@ -1112,6 +1124,124 @@ def phase_presolve(cimt, counters):
     return launches
 
 
+def _cert_line(tag, cert, extra=""):
+    say(f"[crossover {tag}] certified {cert['certified']}  repairs {cert['repairs']}"
+        f"  widened {int(cert['widened'])}  n_basic {cert['n_basic']}"
+        f"  primal {cert['primal_rel']:.3e}  dual {cert['dual_rel']:.3e}  gap {cert['gap']:.3e}"
+        f"  bound violation {cert['bound_violation']:.3e}"
+        + ("" if "entry_repair_pviol" not in cert
+           else f"  entry repair {cert['entry_repair_pviol']}") + extra)
+
+
+def _launched(counters, before):
+    return {k: v - before[k] for k, v in _counted(counters).items()}
+
+
+def _sum_launches(*runs):
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def phase_crossover(cimt, counters, card, pilot_s, sf, info, eng, at_scale_rep):
+    """solve(..., crossover=True) and crossover() on the card: afiro dense
+    and sparse (and f64), afiro's f32 pdas stop, the pilot LP through
+    "pdas", and phase 8's m = 16384 result on its engine.  Returns the
+    launches of the afiro, pilot and at-scale cases."""
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.solvers import (
+        PDASConfig,
+        crossover,
+        make_pdas,
+        make_pdas_sparse,
+        pdas,
+    )
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    f32 = dict(device="cuda", dtype=torch.float32)
+    # (a) afiro dense.
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, AFIRO, "pdas_dd", crossover=True, pad_multiple=32, **f32)
+    dense = _counted(counters)
+    cert = rep.summary["crossover"]
+    err = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    _cert_line("afiro dense", cert, f"  objective error {err:.3e}  {took:.3f} s on {card}"
+               f"  launches {dense}")
+    if not (cert["certified"] and cert["gap"] < 1e-9 and err <= 2e-6
+            and dense["mv"] > 0 and dense["rmv"] > 0):
+        raise AssertionError(f"crossover afiro dense: {cert}, error {err}, {dense}")
+    # (b) afiro sparse, then in f64.
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, AFIRO, "pdas_dd", sparse=True, block=16,
+                             crossover=True, **f32)
+    sparse = _counted(counters)
+    cert = rep.summary["crossover"]
+    err = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    _cert_line("afiro sparse", cert, f"  objective error {err:.3e}  {took:.3f} s on {card}"
+               f"  launches {sparse}")
+    if not (cert["certified"] and err <= 1e-5 and sparse["potrf_tile"] > 0
+            and sparse["assemble_pairs"] > 0):
+        raise AssertionError(f"crossover afiro sparse: {cert}, error {err}, {sparse}")
+    before = _counted(counters)
+    rep, took = _timed_solve(cimt, AFIRO, "pdas_dd", sparse=True, block=16,
+                             crossover=True, device="cuda", dtype=torch.float64)
+    cert = rep.summary["crossover"]
+    err = abs(rep.objective - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    launched = _launched(counters, before)
+    _cert_line("afiro sparse f64", cert, f"  objective error {err:.3e}  {took:.3f} s on"
+               f" {card}  kernel launches {sum(launched.values())}")
+    if not (cert["certified"] and err <= 1e-9 and not any(launched.values())):
+        raise AssertionError(f"crossover afiro sparse f64: {cert}, {launched}")
+    # (c) afiro's f32 pdas stop, through crossover() alone: never worse.
+    lp = to_device_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO)),
+                      pad_multiple=32, **f32)
+    st = make_pdas(lp)
+    res = pdas(st, PDASConfig(gap_tol=1e-4))
+    before = _counted(counters)
+    out = crossover(res, st.lp)
+    stall = _launched(counters, before)
+    cert = out.extra["crossover"]
+    err = abs(float(out.objective) - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    _cert_line("afiro pdas stop", cert, f"  pdas {res.status_name} gap"
+               f" {float(res.extra['gap']):.3e}; objective error {err:.3e}; the crossover's"
+               f" own launches {stall}")
+    if cert["certified"] and not err <= 2e-6:
+        raise AssertionError(f"crossover certified afiro's pdas stop at error {err}")
+    if not cert["certified"] and not (out.x is res.x and int(out.status) == int(res.status)):
+        raise AssertionError("an uncertified crossover changed the result")
+    # (d) the pilot LP through "pdas" + crossover, then a timed call.
+    psf, pinfo = constructed_optimum_lp("pilot", seed=0)
+    ref = pinfo["objective"]
+    _reset(*counters.values())
+    rep, took = _timed_solve(cimt, psf, "pdas", crossover=True, **f32)
+    pilot = _counted(counters)
+    cert = rep.summary["crossover"]
+    err = abs(rep.objective - ref) / abs(ref)
+    _cert_line("pilot", cert, f"  pdas {rep.summary['iterations']} iterations, objective"
+               f" error {err:.3e}  first call {took:.3f} s on {card}  launches {pilot}")
+    if not (cert["certified"] and err <= 2e-6 and pilot["mv"] > 0 and pilot["rmv"] > 0):
+        raise AssertionError(f"crossover pilot: {cert}, error {err}, {pilot}")
+    rep, took = _timed_solve(cimt, psf, "pdas", crossover=True, **f32)
+    say(f"[crossover pilot] second call wall-clock {took:.3f} s (pdas "
+        f"{rep.summary['iterations']} iterations + crossover, {rep.summary['crossover']['repairs']}"
+        f" repairs) beside phase 5's pdas_dd second solve {pilot_s:.3f} s, on {card}")
+    # (e) phase 8's m = 16384 result, on its engine.
+    st, _ = make_pdas_sparse(sf, engine=eng, device="cuda")
+    _reset(*counters.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = crossover(at_scale_rep.result, st.lp, engine=eng)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    scale = _counted(counters)
+    cert = out.extra["crossover"]
+    err = abs(float(out.objective) - info["objective"]) / abs(info["objective"])
+    _cert_line("at scale", cert, f"  entry gap {at_scale_rep.summary['gap']:.3e};"
+               f" objective error {err:.3e}  {took:.3f} s on {card}  launches {scale}")
+    if not (cert["certified"] and err <= 1e-5 and scale["potrf_tile"] > 0
+            and scale["assemble_pairs"] > 0):
+        raise AssertionError(f"crossover at scale: {cert}, error {err}, {scale}")
+    return _sum_launches(dense, sparse, stall), pilot, scale
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -1128,7 +1258,7 @@ def main() -> int:
     stats = phase_kernels(ddm, dd_cuda)
     phase_afiro(cimt)
     phase_afiro_f64(cimt, counters)
-    launches = phase_pilot(cimt, dd_cuda, card)
+    launches, pilot_s = phase_pilot(cimt, dd_cuda, card)
     chol_launches = phase_chol(chol, chol_cuda, dense, stats)
     launches.update(potrf_panel=chol_launches["potrf_panel"],
                     potrf_schur=chol_launches["potrf_schur"])
@@ -1144,6 +1274,9 @@ def main() -> int:
                "affine pilot f32": phase_affine(cimt, counters, card),
                "affine at scale": phase_affine_at_scale(cimt, sf, info, counters, card),
                "presolve pdas_dd": phase_presolve(cimt, counters)}
+    (by_path["crossover afiro"], by_path["crossover pilot"],
+     by_path["crossover at scale"]) = phase_crossover(cimt, counters, card, pilot_s,
+                                                      sf, info, eng, rep)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

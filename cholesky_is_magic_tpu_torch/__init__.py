@@ -1,5 +1,6 @@
 """cholesky-is-magic on PyTorch and CUDA: primal affine scaling and the
-pdas -> pdas_dd solve, dense and fully sparse, with the host presolve.
+pdas -> pdas_dd solve, dense and fully sparse, with the host presolve and
+crossover.
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
@@ -14,9 +15,9 @@ against; the module paths mirror it, so each counterpart is easy to find:
 - :mod:`.sparse`  — host symbolic analysis and the tile engine;
 - :mod:`.kkt`     — the block-eliminated KKT Newton step;
 - :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
-  finisher;
+  finisher, and crossover (a certified vertex polish);
 - :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd",
-  sparse=..., presolve=..., device=...)``.
+  sparse=..., presolve=..., crossover=..., device=...)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.

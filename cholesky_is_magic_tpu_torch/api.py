@@ -8,8 +8,11 @@ native 1e-4 gap; pdas then the double-word finisher warm-started from its
 iterates, escalating to PCG refinement when the finisher stops at the
 precision floor short of the target gap.  ``presolve=True`` runs the host
 presolve (ingest.presolve) first and restores the solution and duals to the
-original variable space.  The other solver families (``"alm"``,
-``"aalm"``, ``"selfdual"``) and ``crossover`` are not ported and raise
+original variable space.  ``crossover=True`` (pdas / pdas_dd, dense and
+sparse, with or without presolve) polishes the final iterate to a
+certified vertex (solvers.crossover) and reports its certificate in
+``summary["crossover"]``.  The other solver families (``"alm"``,
+``"aalm"``, ``"selfdual"``) are not ported and raise
 ``NotImplementedError``.
 """
 
@@ -135,7 +138,9 @@ def solve(
     ``gap_tol`` (pdas default 1e-4, pdas_dd finisher 1e-9),
     ``krylov_steps`` / ``krylov_gate_gap`` (PCG refinement; with 0 the
     pdas_dd finisher escalates to PCG by itself at the precision floor),
-    ``mehrotra``, ``entry_repair_tol``, ``presolve`` (the host reductions
+    ``mehrotra``, ``entry_repair_tol``, ``crossover`` (pdas / pdas_dd:
+    polish the final iterate to a certified vertex, certificate in
+    ``summary["crossover"]``), ``presolve`` (the host reductions
     of ingest.presolve; the report is in the original variable space, its
     summary carries ``presolve``), and ``warm`` / ``warm_push`` /
     ``warm_blend`` (pdas / pdas_dd only: restart from a previous report of
@@ -169,8 +174,6 @@ def solve(
         raise NotImplementedError(f"solver {solver!r} is not ported")
     if solver not in ("affine", "pdas", "pdas_dd"):
         raise ValueError(f"unknown solver {solver!r}")
-    if crossover:
-        raise NotImplementedError("crossover=True is not ported")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("solve: no CUDA device; pass device='cpu' to solve "
                            "on the CPU")
@@ -202,6 +205,15 @@ def solve(
             )
         sf_solve = sf_red
     put = lambda v: torch.as_tensor(v).to(device=device, dtype=dtype)  # noqa: E731
+
+    def _apply_crossover(res, state_lp, engine):
+        # Certify against the SOLVER state's lp (post row-equilibration):
+        # x/z/w are invariant under row scaling, and the returned y stays in
+        # the scaled row space the duals below expect.
+        from cholesky_is_magic_tpu_torch.solvers.crossover import crossover as _xo
+
+        return _xo(res, state_lp, engine=engine)
+
     engine = lp = cold = None
     if not sparse:
         lp = to_device_lp(sf_solve, pad_multiple=pad_multiple, dtype=dtype,
@@ -271,6 +283,8 @@ def solve(
                 warm_push=warm_push, warm_blend=warm_blend,
             )
         res = pdas(st, cfg, engine=engine)
+        if crossover:
+            res = _apply_crossover(res, st.lp, engine)
         summary = dict(
             status=res.status_name, objective=float(res.objective),
             dual_objective=float(res.extra["dual_objective"]),
@@ -333,6 +347,8 @@ def solve(
             if float(res2.extra["gap"]) < float(res.extra["gap"]):
                 res = res2
                 res.extra["krylov_escalated"] = True
+        if crossover:
+            res = _apply_crossover(res, st_dd.lp, engine)
         summary = dict(
             status=res.status_name, objective=float(res.objective),
             dual_objective=float(res.extra["dual_objective"]),
@@ -343,6 +359,16 @@ def solve(
         )
         if res.extra.get("krylov_escalated"):
             summary["krylov_escalated"] = True
+
+    if crossover and res.extra.get("crossover") is not None:
+        cert = res.extra["crossover"]
+        summary["crossover"] = {
+            k: (v if isinstance(v, bool)
+                else int(v) if (k.startswith("n_") or k == "repairs")
+                else [float(t) for t in v] if isinstance(v, (tuple, list))
+                else float(v))
+            for k, v in cert.items()
+        }
 
     x = res.x.cpu().numpy()
     if psv is not None:

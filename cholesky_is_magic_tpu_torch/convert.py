@@ -17,6 +17,7 @@ from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 from cholesky_is_magic_tpu_torch.solvers.pdas import PDASState
 from cholesky_is_magic_tpu_torch.solvers.pdas_dd import PDASDDState
+from cholesky_is_magic_tpu_torch.solvers.result import SolveResult
 
 _FLOAT_FIELDS = ("A", "c", "b", "l", "u")
 
@@ -55,6 +56,23 @@ def pdas_dd_state_from_numpy(st, *, device="cuda", dtype=None) -> PDASDDState:
     return PDASDDState(
         x=put(st.x), y=put(st.y), w=put(st.w), z=put(st.z),
         lp=device_lp_from_numpy(st.lp, device=device, dtype=dtype),
+    )
+
+
+_RESULT_EXTRA = ("y", "w", "z", "x_lo", "gap", "dual_objective")
+
+
+def solve_result_from_numpy(res, *, device="cuda", dtype=None) -> SolveResult:
+    """A SolveResult from an object with fields x, objective, status,
+    iterations, residual_norm and ``extra`` (of which y, w, z, x_lo, gap and
+    dual_objective are carried where present); ``dtype`` applies to the
+    float fields, status and iterations become int32."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)
+    count = lambda v: tensor_from_numpy(v, device=device, dtype=torch.int32)
+    return SolveResult(
+        x=put(res.x), objective=put(res.objective), status=count(res.status),
+        iterations=count(res.iterations), residual_norm=put(res.residual_norm),
+        extra={k: put(res.extra[k]) for k in _RESULT_EXTRA if k in res.extra},
     )
 
 

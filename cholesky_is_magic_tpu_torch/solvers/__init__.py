@@ -1,5 +1,6 @@
 """Interior-point solver loops: primal affine scaling, pdas and pdas_dd, on
-dense or fully sparse operands."""
+dense or fully sparse operands, and the crossover polish of a pdas or
+pdas_dd result to a certified vertex."""
 
 from cholesky_is_magic_tpu_torch.solvers.affine import (
     AffineConfig,
@@ -7,6 +8,11 @@ from cholesky_is_magic_tpu_torch.solvers.affine import (
     affine_scaling,
     make_affine_state,
     make_affine_state_sparse,
+)
+from cholesky_is_magic_tpu_torch.solvers.crossover import (
+    CrossoverConfig,
+    classify_basis,
+    crossover,
 )
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
@@ -27,6 +33,9 @@ __all__ = [
     "AffineConfig",
     "AffineState",
     "affine_scaling",
+    "classify_basis",
+    "crossover",
+    "CrossoverConfig",
     "make_affine_state",
     "make_affine_state_sparse",
     "PDASConfig",

@@ -2,8 +2,10 @@
 
 ``solve(afiro, "pdas_dd")`` in f64 agrees with the JAX package's within
 1e-8 relative and reaches the published optimum; ``solve(afiro, "pdas")``
-takes the same iterations; the unported options (the alm, aalm and selfdual
-families, crossover) raise NotImplementedError, and the combinations the JAX
+takes the same iterations; ``crossover=True`` gives the JAX package's
+certificate (the same keys, Python types, ``certified`` and ``repairs``) and
+polished duals, also after the presolve; the unported solver families (alm,
+aalm and selfdual) raise NotImplementedError, and the combinations the JAX
 package refuses raise its ValueError."""
 
 import os
@@ -57,9 +59,26 @@ def test_solve_pdas_matches_jax():
     assert rt.summary["gap_bound"] >= abs(rt.objective - OPTIMUM) / (1 + abs(OPTIMUM))
 
 
+@pytest.mark.parametrize("solver,kw", [("pdas", {}), ("pdas_dd", {}),
+                                       ("pdas_dd", dict(presolve=True))])
+def test_solve_crossover_matches_jax(solver, kw):
+    kw = dict(kw, pad_multiple=16, crossover=True)
+    rj = cim.solve(AFIRO, solver, dtype=jnp.float64, **kw)
+    rt = cimt.solve(AFIRO, solver, dtype=torch.float64, device="cpu", **kw)
+    jc, tc = rj.summary["crossover"], rt.summary["crossover"]
+    assert {k: type(v) for k, v in tc.items()} == {k: type(v) for k, v in jc.items()}
+    assert tc["certified"] == jc["certified"] is True
+    assert tc["repairs"] == jc["repairs"]
+    assert tc["gap"] < 1e-9 and rt.summary["gap"] == tc["gap"]
+    assert rt.objective == pytest.approx(OPTIMUM, rel=1e-9)
+    for key in ("y", "reduced_costs"):
+        np.testing.assert_allclose(rt.solution[key], rj.solution[key], atol=1e-8)
+    assert rt.summary["gap_bound"] == pytest.approx(rj.summary["gap_bound"],
+                                                    rel=1e-3, abs=1e-12)
+
+
 @pytest.mark.parametrize("kw", [dict(solver="alm"), dict(solver="aalm"),
-                                dict(solver="selfdual"), dict(crossover=True),
-                                dict(solver="pdas", crossover=True)])
+                                dict(solver="selfdual")])
 def test_unported_front_door_options_raise(kw):
     solver = kw.pop("solver", "pdas_dd")
     with pytest.raises(NotImplementedError):

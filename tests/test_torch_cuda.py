@@ -3,8 +3,10 @@ on rows that do not start on a 16-byte boundary; Aᵀ·x bit for bit against
 its summation order in plain PyTorch), the blocked Cholesky (tile, panel,
 Schur; tiles wider than 128 split around the tile kernel) and the
 pair-schedule assembly, each against its plain PyTorch version, the dense
-and sparse solves (afiro; block 256), and float64 on the card, which takes
-the plain forms and launches no kernel.
+and sparse solves (afiro; block 256), crossover on both paths (its dd
+products and its B·Bᵀ factorizations launch the kernels; a singular first
+basis takes the dbound retry), and float64 on the card, which takes the
+plain forms and launches no kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -527,3 +529,124 @@ def test_solve_sparse_block_256_on_the_card(dev):
     assert rep.status == ref.status
     ref_obj = info["objective"]
     assert abs(rep.objective - ref_obj) <= 1e-5 * (1.0 + abs(ref_obj))
+
+
+def test_crossover_afiro_dense_on_the_card(dev):
+    """solve(afiro, "pdas_dd", crossover=True) in f32 on the card: a
+    certified vertex (certificate gap < 1e-9), the published optimum within
+    2e-6; the crossover's own double-word products launch both dd kernels."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.solvers import (
+        PDASConfig,
+        crossover,
+        make_pdas,
+        pdas,
+    )
+
+    rep = cimt.solve(AFIRO, "pdas_dd", crossover=True, pad_multiple=32)
+    cert = rep.summary["crossover"]
+    assert cert["certified"] and cert["gap"] < 1e-9, cert
+    assert abs(rep.objective + 464.75314285714285) <= 2e-6 * 464.75314285714285
+    # The crossover alone, from a pdas stop: its launches, and never worse.
+    sf = cimt.to_standard_form(cimt.read_mps_file(AFIRO))
+    st = make_pdas(to_device_lp(sf, pad_multiple=32, device=dev))
+    res = pdas(st, PDASConfig(gap_tol=1e-4))
+    before = _counts()
+    out = crossover(res, st.lp)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    assert launched["mv"] > 0 and launched["rmv"] > 0
+    if out.extra["crossover"]["certified"]:
+        assert abs(float(out.objective) + 464.75314285714285) <= 2e-6 * 464.75314285714285
+    else:
+        assert out.x is res.x and int(out.status) == int(res.status)
+
+
+def test_crossover_afiro_sparse_on_the_card(dev):
+    """sparse=True, block 16: certified, within 1e-5; each repair pass's
+    B·Bᵀ factorization launches the tile and assembly kernels."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = _counts()
+    rep = cimt.solve(AFIRO, "pdas_dd", sparse=True, block=16, crossover=True)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    assert launched["potrf_tile"] > 0 and launched["assemble_pairs"] > 0
+    assert rep.summary["crossover"]["certified"]
+    assert abs(rep.objective + 464.75314285714285) <= 1e-5 * 464.75314285714285
+
+
+def test_crossover_sparse_afiro_in_float64_on_the_card(dev):
+    """f64 on the card takes the plain forms (no launch) and the same
+    repair decisions as the CPU."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    kw = dict(sparse=True, block=16, crossover=True, dtype=torch.float64)
+    before = _counts()
+    rep = cimt.solve(AFIRO, "pdas_dd", device="cuda", **kw)
+    assert _counts() == before
+    cpu = cimt.solve(AFIRO, "pdas_dd", device="cpu", **kw)
+    for k in ("certified", "repairs", "widened", "n_basic", "n_lower", "n_upper"):
+        assert rep.summary["crossover"][k] == cpu.summary["crossover"][k], k
+    assert rep.summary["crossover"]["certified"] and rep.result.x.is_cuda
+    assert abs(rep.objective + 464.75314285714285) <= 1e-9 * 464.75314285714285
+
+
+WIDEN_MPS = """NAME          WIDEN
+ROWS
+ N  COST
+ E  R1
+ E  R2
+ E  R3
+COLUMNS
+    X1        COST      1.0        R1        1.0
+    X2        COST      2.0        R1        1.0
+    X2        R2        1.0        R3        1.0
+    X3        COST      1.0        R2        1.0
+RHS
+    RHS       R1        1.0005     R2        1.0005
+    RHS       R3        0.0005
+BOUNDS
+ UP BND       X1        2.0
+ UP BND       X2        2.0
+ UP BND       X3        2.0
+ENDATA
+"""
+
+
+def test_crossover_widen_fixture_on_the_card(dev, monkeypatch):
+    """tests/test_crossover.py's widen fixture (x2 misread as at-lower by a
+    stale 2e-3 dual): the first basis leaves row 3 empty, so its B·Bᵀ is
+    singular and the dbound retry factors it; one widen pass certifies."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    from cholesky_is_magic_tpu_torch.ops import dense
+    from cholesky_is_magic_tpu_torch.solvers import SolveResult, Status, crossover
+
+    oks = []
+    factorize = dense.factorize
+
+    def recorded(N, *args, **kwargs):
+        f = factorize(N, *args, **kwargs)
+        oks.append(bool(f.ok))
+        return f
+
+    monkeypatch.setattr(dense, "factorize", recorded)
+    sf = cimt.to_standard_form(read_mps_string(WIDEN_MPS))
+    lp = to_device_lp(sf, pad_multiple=4, device=dev)
+    pad = lambda v: torch.tensor(v + [0.0] * (4 - len(v)), device=dev)  # noqa: E731
+    x = pad([1.0, 5e-4, 1.0])
+    res = SolveResult(
+        x=x, objective=torch.dot(lp.c, x),
+        status=torch.tensor(Status.OPTIMAL, dtype=torch.int32),
+        iterations=torch.tensor(10, dtype=torch.int32),
+        residual_norm=torch.tensor(0.0, device=dev),
+        extra={"y": pad([1.0, 1.0, 0.0]), "w": torch.zeros(4, device=dev),
+               "z": pad([0.0, 2e-3, 0.0]), "gap": torch.tensor(1e-6)},
+    )
+    out = crossover(res, lp)
+    cert = out.extra["crossover"]
+    assert oks[:2] == [False, True]  # singular, then the dbound retry
+    assert cert["certified"] and cert["widened"] == 1 and cert["repairs"] >= 1
+    assert float(out.objective) == pytest.approx(2.001, rel=1e-6)
+    assert float(out.x[1]) == pytest.approx(5e-4, rel=1e-3)
