@@ -97,7 +97,22 @@ script then exits non-zero and never prints its last line):
    "pdas" (certified, objective error <= 2e-6; dd launches; a second,
    timed call beside phase 5's pdas_dd); (e) phase 8's result and engine
    through crossover() (certified, objective error <= 1e-5; the tile and
-   assembly kernels launched; one call timed).
+   assembly kernels launched; one call timed);
+14. matrix-free family — (a) solve(simple, "alm") in f32 and "aalm" /
+   "selfdual" in f64, solve(afiro, "alm", pad 16) in f64: optimal, the
+   value within the JAX tests' bars (1e-2, 5e-2, 1e-4; afiro 2e-3), no
+   kernel launched, each count beside the JAX package's on the CPU; (b) the
+   pilot LP dense in f32: an ALM phase at a bounded budget (ALM_PILOT),
+   then the dd_gradient phase from its multipliers with mu reset to 100,
+   counters reset before each phase and read after: dd A·x must launch
+   exactly 2·run + 2·outer times and dd Aᵀ·x 2·run in the dd phase (run:
+   the inner iterations the chunked loops ran), with ms per inner
+   iteration, the violation after every outer step, the objective error,
+   and the device-busy share of each inner loop (profiler) over one
+   eager chunk and over ten chunks, nine of them CUDA-graph replays;
+   (c) the m = 16384 LP through to_sparse_lp, its block-ELL renderings
+   required, the same two phases (ALM_AT_SCALE) and measurements, and
+   the operands' bytes on the card.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -105,8 +120,9 @@ tensor cores; H100 SXM data sheet), from this run's shapes.
 
 The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
-pilot, affine at scale, the presolved pdas_dd and the crossover cases, each
-also apart); the last line is {"ok": true, "device": {...}}.
+pilot, affine at scale, the presolved pdas_dd, the crossover cases and the
+dense dd ALM phase, each also apart); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -893,8 +909,6 @@ def phase_breakdown(cimt, sf, eng, rep, chol):
     """Where an at-scale solve's time goes: a solve with stage timers, then
     device-busy share and CUDA-event times of one factorization and one
     raw solve at the final iterate's scaling."""
-    from torch.profiler import ProfilerActivity, profile
-
     from cholesky_is_magic_tpu_torch.solvers.pdas import make_pdas_sparse
 
     total, acc, rep3 = _attribute(cimt, sf, AT_SCALE_KW)
@@ -914,35 +928,7 @@ def phase_breakdown(cimt, sf, eng, rep, chol):
     rhs = torch.ones(eng.B * eng.b, device="cuda")
     for fn, what in ((lambda: eng.factorize(tiles), "one factorization"),
                      (lambda: eng.solve(L, invd, rhs), "one raw solve")):
-        fn()
-        torch.cuda.synchronize()
-        # The profiler is a measurement, not a check: its own failure is
-        # reported and skipped; a failure of fn() propagates.
-        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        try:
-            prof.start()
-        except RuntimeError as err:
-            say(f"[breakdown] {what}: device busy share not measured ({err})")
-            continue
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        try:
-            prof.stop()
-            events = list(prof.key_averages())
-        except RuntimeError as err:
-            say(f"[breakdown] {what}: device busy share not measured ({err})")
-            continue
-        dev = {e.key: getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0)) for e in events}
-        dev_us = sum(dev.values())
-        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-        top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
-        say(f"[breakdown] {what}: wall {wall * 1e3:.3f} ms, device busy "
-            f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
-            f"{launches} kernel launches; top device time: "
-            + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in top))
+        _device_busy("breakdown", what, fn)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     Td = [tiles[int(k)].clone() for k in eng._diag_ids_np]
     ev[0].record()
@@ -952,6 +938,42 @@ def phase_breakdown(cimt, sf, eng, rep, chol):
     torch.cuda.synchronize()
     say(f"[breakdown] {eng.B} tile-kernel launches on this factorization's "
         f"diagonal tiles: {ev[0].elapsed_time(ev[1]):.3f} ms (CUDA events), ok {bool(ok)}")
+
+
+def _device_busy(tag, what, fn):
+    """Profile one call of fn() after a warm-up call: wall ms, device-busy
+    ms and share, kernel launches and the top device time, on one line.
+    The profiler is a measurement, not a check: its own failure is reported
+    and skipped; a failure of fn() propagates."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as err:
+        say(f"[{tag}] {what}: device busy share not measured ({err})")
+        return
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    try:
+        prof.stop()
+        events = list(prof.key_averages())
+    except RuntimeError as err:
+        say(f"[{tag}] {what}: device busy share not measured ({err})")
+        return
+    dev = {e.key: getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) for e in events}
+    dev_us = sum(dev.values())
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:4]
+    say(f"[{tag}] {what}: wall {wall * 1e3:.3f} ms, device busy "
+        f"{dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.1f}%), "
+        f"{launches} kernel launches; top device time: "
+        + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in top))
 
 
 def _factorization_ms(eng):
@@ -1242,6 +1264,154 @@ def phase_crossover(cimt, counters, card, pilot_s, sf, info, eng, at_scale_rep):
     return _sum_launches(dense, sparse, stall), pilot, scale
 
 
+# Phase 14's budgets: (outer steps, inner iterations per step) of each ALM
+# phase, sized so that the phase adds well under a minute to the smoke on an
+# H100 (ms per inner iteration in PERF.md).  The dd phase warm-starts from
+# the f32 phase's multipliers with mu reset to 100 (the JAX package's
+# TestALMDD protocol, at the reference's 1e-5 / 1e-5 stop).
+ALM_PILOT = dict(f32=(4, 1500), dd=(2, 500))
+ALM_AT_SCALE = dict(f32=(4, 1000), dd=(2, 200))
+
+
+def _alm_line(tag, res, took, extra=""):
+    inner, slots = int(res.inner_iterations), res.inner_slots
+    say(f"[{tag}] outer {int(res.outer_iterations)}  inner {inner}"
+        f" (run {slots}, the masked tails of the chunks included)"
+        f"  violation {float(res.violation):.3e}  pg {float(res.pg):.3e}"
+        f"  value {float(res.value):.10f}  {took:.3f} s,"
+        f" {1e3 * took / max(slots, 1):.4f} ms per inner iteration run" + extra)
+    if not (torch.isfinite(res.x).all() and np.isfinite(float(res.violation))):
+        raise AssertionError(f"{tag}: non-finite result")
+
+
+def _alm_two_phase(tag, lp, budgets, counters, objective, card):
+    """The f32 ALM phase at its budget, then the dd phase warm-started from
+    its multipliers with mu reset to 100; each timed, its launches counted
+    (counters reset just before, read just after), its violation after
+    every outer step printed.  Returns the dd phase's result and launches."""
+    import dataclasses
+
+    from cholesky_is_magic_tpu_torch.solvers import ALMConfig, alm, make_alm
+
+    (outA, innA), (outB, innB) = budgets["f32"], budgets["dd"]
+    cfgA = ALMConfig(max_outer=outA, inner_iters=innA, violation_tol=1e-5,
+                     pg_tol=1e-5, omega_floor=1e-6, record_trace=True)
+    cfgB = dataclasses.replace(cfgA, dd_gradient=True, omega_floor=1e-7,
+                               max_outer=outB, inner_iters=innB)
+    out = {}
+    for phase, cfg, start in (("f32", cfgA, lambda: (make_alm(lp), None)),
+                              ("dd", cfgB, lambda: (make_alm(
+                                  lp, mu=100.0, multipliers=out["f32"].multipliers),
+                                  out["f32"].x))):
+        st, x0 = start()
+        _reset(*counters.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = alm(st, x0=x0, config=cfg)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launches = _counted(counters)
+        err = abs(float(lp.c @ res.x) - objective) / abs(objective)
+        _alm_line(f"{tag} {phase}", res, took, f"  objective error {err:.3e}"
+                  f"  launches {launches}  on {card}")
+        k = int(res.outer_iterations)
+        say(f"[{tag} {phase}] violation after each outer step: " + " ".join(
+            f"{v:.3e}" for v in res.trace["violation"][:k].tolist()))
+        out[phase], out[phase + " launches"] = res, launches
+    return out
+
+
+def _chunk_busy(tag, lp, res):
+    """Device-busy share of the f32 and of the dd inner loop at the dd
+    phase's last multipliers (accuracy 0: every iteration runs): one chunk,
+    which runs eagerly, then ten, of which the first runs eagerly and the
+    other nine replay the chunk's CUDA graph."""
+    from cholesky_is_magic_tpu_torch.ops import dd as ddm
+
+    # The module (the package re-exports a function of its name).
+    am = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.approx")
+    n = am._CHUNK
+    prob = am.make_alm_subproblem(lp, res.multipliers, res.mu)
+    zero = torch.zeros((), dtype=res.x.dtype, device=res.x.device)
+    x0 = am.project_box(prob, res.x)
+    xdd = ddm.dd_from(res.x)
+    for chunks in (1, 10):
+        k = chunks * n
+        for what, fn in (
+                (f"{k} f32 inner iterations",
+                 lambda: am._approx_jit(prob, x0, zero, k)),
+                (f"{k} dd inner iterations",
+                 lambda: am._approx_dd(lp, prob, res.multipliers, res.mu, xdd, zero, k))):
+            _device_busy(tag, what + (" (one eager chunk)" if chunks == 1 else
+                                      " (one eager chunk, then graph replays)"), fn)
+
+
+def phase_alm(cimt, counters, card, sf_scale, info_scale):
+    """The matrix-free family on the card: (a) the front door on simple.mps
+    and afiro; (b) the pilot LP dense, f32 then dd (the dd A·x and Aᵀ·x
+    kernels, counted exactly); (c) the m = 16384 LP on block-ELL operands,
+    f32 then dd.  Returns the dense dd phase's launches."""
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp, to_sparse_lp
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    simple = os.path.join(os.path.dirname(AFIRO), "simple.mps")
+    # (a) the front door; the JAX package's counts on the CPU beside each.
+    for problem, solver, dt, kw, jax_cpu, ref, tol in (
+            (simple, "alm", torch.float32, dict(pad_multiple=16, max_iters=300),
+             "4 / 65", -7.0, 1e-2),
+            (simple, "aalm", torch.float64, dict(max_iters=60), "25 / 370", -7.0, 5e-2),
+            (simple, "selfdual", torch.float64, {}, "119", -7.0, 1e-4),
+            (AFIRO, "alm", torch.float64, dict(pad_multiple=16, max_iters=60),
+             "9 / 1768", AFIRO_OPTIMUM, 2e-3)):
+        before = _counted(counters)
+        rep, took = _timed_solve(cimt, problem, solver, device="cuda", dtype=dt, **kw)
+        launched = _launched(counters, before)
+        sm = rep.summary
+        key, counts = (("objective", f"{sm['iterations']}") if solver == "selfdual"
+                       else ("value", f"{sm['outer_iterations']} / {sm['inner_iterations']}"))
+        tag = f"alm {os.path.basename(problem)} {solver} {str(dt)[6:]}"
+        say(f"[{tag}] status {rep.status}  {key} {sm[key]:.10f}  pg {sm['pg']:.3e}"
+            f"  iterations {counts} (the JAX package on the CPU: {jax_cpu})"
+            f"  {took:.3f} s  kernel launches {sum(launched.values())}")
+        if not (rep.status == "optimal" and abs(sm[key] - ref) <= tol
+                and not any(launched.values())):
+            raise AssertionError(f"{tag}: {sm}, launches {launched}")
+    # (b) the pilot LP, dense f32: the dd phase launches dd A·x twice per
+    # inner iteration run plus twice per outer step, dd Aᵀ·x twice per
+    # inner iteration run.
+    psf, pinfo = constructed_optimum_lp("pilot", seed=0)
+    lp = to_device_lp(psf, dtype=torch.float32, device="cuda")
+    say(f"[alm pilot] {psf.ncons} x {psf.nvars} padded to {tuple(lp.A.shape)}, f32;"
+        f" budgets (outer x inner) {ALM_PILOT}")
+    out = _alm_two_phase("alm pilot", lp, ALM_PILOT, counters, pinfo["objective"], card)
+    res, got = out["dd"], out["dd launches"]
+    outer, slots = int(res.outer_iterations), res.inner_slots
+    want = dict(mv=2 * slots + 2 * outer, rmv=2 * slots)
+    say(f"[alm pilot dd] dd A·x launches {got['mv']} (2·{slots} + 2·{outer} ="
+        f" {want['mv']}), dd Aᵀ·x {got['rmv']} (2·{slots} = {want['rmv']});"
+        f" inner iterations {int(res.inner_iterations)}, run {slots}")
+    if not (got["mv"] == want["mv"] and got["rmv"] == want["rmv"] and slots > 0):
+        raise AssertionError(f"alm pilot dd: launches {got}, want {want}")
+    _chunk_busy("alm pilot", lp, res)
+    # (c) the m = 16384 LP on block-ELL operands.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    slp = to_sparse_lp(sf_scale, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    if slp.EB is None or slp.ETB is None:
+        raise AssertionError("alm at scale: the block-ELL renderings were gated out")
+    sizes = {k: _nbytes(*([v.blocks, v.bcols] if k in ("EB", "ETB") else [v.indices, v.values]))
+             for k, v in (("E", slp.E), ("EB", slp.EB), ("ETB", slp.ETB))}
+    say(f"[alm at scale] to_sparse_lp {time.perf_counter() - t:.3f} s; operand bytes on the"
+        f" card: " + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items())
+        + f"; EB {tuple(slp.EB.blocks.shape)}, ETB {tuple(slp.ETB.blocks.shape)};"
+        f" budgets (outer x inner) {ALM_AT_SCALE}")
+    scale = _alm_two_phase("alm at scale", slp, ALM_AT_SCALE, counters,
+                           info_scale["objective"], card)
+    _chunk_busy("alm at scale", slp, scale["dd"])
+    return got
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -1277,6 +1447,7 @@ def main() -> int:
     (by_path["crossover afiro"], by_path["crossover pilot"],
      by_path["crossover at scale"]) = phase_crossover(cimt, counters, card, pilot_s,
                                                       sf, info, eng, rep)
+    by_path["alm dd pilot"] = phase_alm(cimt, counters, card, sf, info)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

@@ -1,13 +1,14 @@
 """cholesky-is-magic on PyTorch and CUDA: primal affine scaling and the
 pdas -> pdas_dd solve, dense and fully sparse, with the host presolve and
-crossover.
+crossover, and the matrix-free family (APPROX and the ALM outer loops).
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
 against; the module paths mirror it, so each counterpart is easy to find:
 
 - :mod:`.ingest`  — MPS reader, standard form and presolve (NumPy copies), the padded
-  dense operand set :class:`~.ingest.device.DeviceLP` and the fully sparse
+  dense operand set :class:`~.ingest.device.DeviceLP`, the matrix-free
+  :class:`~.ingest.device.SparseLP` and the fully sparse
   :class:`~.ingest.device.SparseKKTLP`;
 - :mod:`.ops`     — double-word arithmetic, ELL / block-ELL products, the
   dense normal equations, the blocked Cholesky, Krylov refinement, and
@@ -15,9 +16,11 @@ against; the module paths mirror it, so each counterpart is easy to find:
 - :mod:`.sparse`  — host symbolic analysis and the tile engine;
 - :mod:`.kkt`     — the block-eliminated KKT Newton step;
 - :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
-  finisher, and crossover (a certified vertex polish);
-- :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd",
-  sparse=..., presolve=..., crossover=..., device=...)``.
+  finisher, crossover (a certified vertex polish), APPROX and the ALM /
+  AALM / ADCD outer loops;
+- :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd" | "alm" |
+  "aalm" | "selfdual", sparse=..., presolve=..., crossover=...,
+  device=...)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.

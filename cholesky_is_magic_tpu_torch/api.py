@@ -1,19 +1,20 @@
 """One-call front door: ``solve(problem, solver, device=...) -> SolveReport``.
 
-Counterpart of ``cholesky_is_magic_tpu/api.py`` for the ``"affine"``,
-``"pdas"`` and two-phase ``"pdas_dd"`` flows, on dense padded operands or,
-with ``sparse=True``, on the fully sparse pipeline (ELL / block-ELL operands
-and the pair-schedule tile engine): primal affine scaling; pdas to its
-native 1e-4 gap; pdas then the double-word finisher warm-started from its
-iterates, escalating to PCG refinement when the finisher stops at the
-precision floor short of the target gap.  ``presolve=True`` runs the host
-presolve (ingest.presolve) first and restores the solution and duals to the
-original variable space.  ``crossover=True`` (pdas / pdas_dd, dense and
-sparse, with or without presolve) polishes the final iterate to a
-certified vertex (solvers.crossover) and reports its certificate in
-``summary["crossover"]``.  The other solver families (``"alm"``,
-``"aalm"``, ``"selfdual"``) are not ported and raise
-``NotImplementedError``.
+Counterpart of ``cholesky_is_magic_tpu/api.py`` for every solver family:
+the ``"affine"``, ``"pdas"`` and two-phase ``"pdas_dd"`` flows, on dense
+padded operands or, with ``sparse=True``, on the fully sparse pipeline (ELL /
+block-ELL operands and the pair-schedule tile engine): primal affine
+scaling; pdas to its native 1e-4 gap; pdas then the double-word finisher
+warm-started from its iterates, escalating to PCG refinement when the
+finisher stops at the precision floor short of the target gap.  The
+matrix-free family runs on dense padded operands: ``"alm"`` and ``"aalm"``
+(the augmented Lagrangian over the APPROX inner solver, with the JAX
+package's f32 tolerances) and ``"selfdual"`` (APPROX on the self-dual
+reformulation).  ``presolve=True`` runs the host presolve (ingest.presolve)
+first and restores the solution and duals to the original variable space.
+``crossover=True`` (pdas / pdas_dd, dense and sparse, with or without
+presolve) polishes the final iterate to a certified vertex
+(solvers.crossover) and reports its certificate in ``summary["crossover"]``.
 """
 
 from __future__ import annotations
@@ -127,12 +128,12 @@ def solve(
     crossover: bool = False,
     entry_repair_tol: float = 0.0,
 ) -> SolveReport:
-    """Solve an LP end to end with ``"affine"``, ``"pdas"`` or ``"pdas_dd"``
-    on ``device`` (the card unless the caller asks for ``"cpu"``; without a
-    card the call raises; default f32): on dense operands padded to
-    ``pad_multiple``, or with ``sparse=True`` on the fully sparse pipeline,
-    whose tile engine uses ``block``-wide panels (no dense (m, n) operand is
-    built).
+    """Solve an LP end to end with ``"affine"``, ``"pdas"``, ``"pdas_dd"``,
+    ``"alm"``, ``"aalm"`` or ``"selfdual"`` on ``device`` (the card unless
+    the caller asks for ``"cpu"``; without a card the call raises; default
+    f32): on dense operands padded to ``pad_multiple``, or (affine, pdas,
+    pdas_dd) with ``sparse=True`` on the fully sparse pipeline, whose tile
+    engine uses ``block``-wide panels (no dense (m, n) operand is built).
 
     The options mean what they mean in the JAX package's ``api.solve``:
     ``gap_tol`` (pdas default 1e-4, pdas_dd finisher 1e-9),
@@ -146,7 +147,10 @@ def solve(
     ``warm_blend`` (pdas / pdas_dd only: restart from a previous report of
     the same LP, solved with the same ``sparse`` and ``pad_multiple``;
     pdas_dd then skips phase 1).  The affine summary has no gap, ``y`` or
-    ``gap_bound``.
+    ``gap_bound``.  ``"alm"`` / ``"aalm"`` take ``max_iters`` outer steps at
+    most and report ``value``, ``violation``, ``pg``, ``outer_iterations``
+    and ``inner_iterations``; ``"selfdual"`` reports ``objective``, ``pg``
+    and ``iterations``.
     """
     from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
     from cholesky_is_magic_tpu_torch.ingest.standard_form import extract_solution
@@ -170,9 +174,7 @@ def solve(
             )
     if crossover and solver not in ("pdas", "pdas_dd"):
         raise ValueError("crossover supports solver pdas or pdas_dd")
-    if solver in ("alm", "aalm", "selfdual"):
-        raise NotImplementedError(f"solver {solver!r} is not ported")
-    if solver not in ("affine", "pdas", "pdas_dd"):
+    if solver not in ("affine", "pdas", "pdas_dd", "alm", "aalm", "selfdual"):
         raise ValueError(f"unknown solver {solver!r}")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("solve: no CUDA device; pass device='cpu' to solve "
@@ -291,6 +293,49 @@ def solve(
             gap=float(res.extra["gap"]), iterations=int(res.iterations),
             residual=float(res.residual_norm),
         )
+    elif solver in ("alm", "aalm"):
+        from cholesky_is_magic_tpu_torch.solvers.alm import (
+            ALMConfig,
+            aalm,
+            alm,
+            make_alm,
+        )
+
+        # The f32 tolerances of the JAX package (ALMConfig docstring): the
+        # reference's f64 targets sit below f32 resolution, and the inner
+        # APPROX loop would burn its whole budget every outer step.
+        tol_kw = (
+            dict(violation_tol=1e-4, pg_tol=1e-4, omega_floor=1e-4,
+                 inner_iters=50_000)
+            if dtype == torch.float32 else {}
+        )
+        driver = aalm if solver == "aalm" else alm
+        res = driver(
+            make_alm(lp),
+            config=ALMConfig(max_outer=max_iters, record_trace=record_trace,
+                             **tol_kw),
+        )
+        summary = dict(
+            status="optimal" if float(res.violation) < 1e-4 else "max_iters",
+            value=float(res.value), violation=float(res.violation),
+            pg=float(res.pg), outer_iterations=int(res.outer_iterations),
+            inner_iterations=int(res.inner_iterations),
+        )
+    elif solver == "selfdual":
+        from cholesky_is_magic_tpu_torch.solvers.approx import (
+            approx,
+            make_approx_selfdual,
+        )
+
+        prob = make_approx_selfdual(lp, complementarity=True,
+                                    pad_multiple=pad_multiple)
+        res = approx(prob, 1_000_000, accuracy=1e-9)
+        x = res.x.cpu().numpy()[: lp.n]
+        summary = dict(
+            status="optimal" if float(res.pg) < 1e-6 else "max_iters",
+            objective=float(x @ lp.c.cpu().numpy()[: lp.n]),
+            pg=float(res.pg), iterations=int(res.iterations),
+        )
     else:
         from cholesky_is_magic_tpu_torch.ops import dd as ddm
         from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
@@ -378,12 +423,12 @@ def solve(
         # Solver metrics are in the REDUCED space; the eliminated columns
         # contribute the constant c'x_fixed to both primal and dual
         # objectives: shift so the summary matches `solution`.
-        for key in ("objective", "dual_objective"):
+        for key in ("objective", "value", "dual_objective"):
             if key in summary:
                 summary[key] += psv.obj_offset
     else:
         solution = extract_solution(sf, x)
-    if solver != "affine":
+    if solver in ("pdas", "pdas_dd"):
         # Row duals in the ORIGINAL row space (make_pdas equilibrated the
         # rows: the user-space dual is s_i * y_i); reduced costs z - w; with
         # presolve, the exact dual postsolve (Presolve.restore_duals).

@@ -13,8 +13,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseLP
+from cholesky_is_magic_tpu_torch.ops.bell import BellMatrix
 from cholesky_is_magic_tpu_torch.ops.dd import DD
+from cholesky_is_magic_tpu_torch.ops.sparse_ops import ELLMatrix
+from cholesky_is_magic_tpu_torch.solvers.alm import ALMState
+from cholesky_is_magic_tpu_torch.solvers.approx import ApproxProblem, comp_fields
 from cholesky_is_magic_tpu_torch.solvers.pdas import PDASState
 from cholesky_is_magic_tpu_torch.solvers.pdas_dd import PDASDDState
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult
@@ -56,6 +60,74 @@ def pdas_dd_state_from_numpy(st, *, device="cuda", dtype=None) -> PDASDDState:
     return PDASDDState(
         x=put(st.x), y=put(st.y), w=put(st.w), z=put(st.z),
         lp=device_lp_from_numpy(st.lp, device=device, dtype=dtype),
+    )
+
+
+def _ell_from_numpy(E, *, device, dtype) -> ELLMatrix:
+    return ELLMatrix(
+        indices=tensor_from_numpy(np.asarray(E.indices, np.int64), device=device),
+        values=tensor_from_numpy(E.values, device=device, dtype=dtype),
+        n_cols=int(E.n_cols),
+    )
+
+
+def _bell_from_numpy(B, *, device, dtype):
+    if B is None:
+        return None
+    return BellMatrix(
+        blocks=tensor_from_numpy(B.blocks, device=device, dtype=dtype),
+        bcols=tensor_from_numpy(np.asarray(B.bcols, np.int64), device=device),
+        n_rows=int(B.n_rows),
+        n_cols=int(B.n_cols),
+    )
+
+
+def sparse_lp_from_numpy(lp, *, device="cuda", dtype=None) -> SparseLP:
+    """A SparseLP from an object with the fields E (indices, values,
+    n_cols), EB and ETB (blocks, bcols, n_rows, n_cols; or None), c, b, l,
+    u, row_type, m, n; ``dtype`` applies to the float fields, indices
+    become int64."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)  # noqa: E731
+    return SparseLP(
+        E=_ell_from_numpy(lp.E, device=device, dtype=dtype),
+        EB=_bell_from_numpy(lp.EB, device=device, dtype=dtype),
+        ETB=_bell_from_numpy(lp.ETB, device=device, dtype=dtype),
+        c=put(lp.c), b=put(lp.b), l=put(lp.l), u=put(lp.u),
+        row_type=tensor_from_numpy(lp.row_type, device=device),
+        m=int(lp.m), n=int(lp.n),
+    )
+
+
+def approx_problem_from_numpy(prob, *, device="cuda", dtype=None) -> ApproxProblem:
+    """An ApproxProblem from an object with its fields (Q dense, or an ELL
+    matrix with QB / QTB block-ELL renderings or None)."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)  # noqa: E731
+    Q = (_ell_from_numpy(prob.Q, device=device, dtype=dtype)
+         if hasattr(prob.Q, "indices") else put(prob.Q))
+    dtype = dtype or torch.from_numpy(np.array(prob.q)).dtype
+    return ApproxProblem(
+        Q=Q,
+        QB=_bell_from_numpy(prob.QB, device=device, dtype=dtype),
+        QTB=_bell_from_numpy(prob.QTB, device=device, dtype=dtype),
+        q=put(prob.q), s=put(prob.s), beta=put(prob.beta),
+        c_lin=put(prob.c_lin), nu=put(prob.nu), l=put(prob.l), u=put(prob.u),
+        z0=put(prob.z0), n_quads=int(prob.n_quads), n_vars=int(prob.n_vars),
+        **comp_fields(*(np.asarray(getattr(prob, f)) for f in (
+            "comp_a", "comp_b", "comp_a0", "comp_b0", "comp_sign")),
+            dtype=dtype, device=device),
+    )
+
+
+def alm_state_from_numpy(st, *, device="cuda", dtype=None) -> ALMState:
+    """An ALMState from an object with the fields lp (a dense or a sparse
+    LP), mu, omega, nu, multipliers, mult_l and mult_u."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)  # noqa: E731
+    lp = (sparse_lp_from_numpy if hasattr(st.lp, "E") else device_lp_from_numpy)(
+        st.lp, device=device, dtype=dtype)
+    return ALMState(
+        lp=lp, mu=put(st.mu), omega=put(st.omega), nu=put(st.nu),
+        multipliers=put(st.multipliers), mult_l=put(st.mult_l),
+        mult_u=put(st.mult_u),
     )
 
 

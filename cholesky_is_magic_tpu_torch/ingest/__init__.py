@@ -1,10 +1,16 @@
 """Host-side problem ingest: MPS files -> standard form -> device operands.
 
 ``mps``, ``standard_form`` and ``presolve`` are NumPy-only copies of the
-JAX package's modules; ``device`` builds the padded dense tensors the solvers consume.
+JAX package's modules; ``device`` builds the padded dense tensors and the
+matrix-free sparse operands (``to_sparse_lp``) the solvers consume.
 """
 
-from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, to_device_lp
+from cholesky_is_magic_tpu_torch.ingest.device import (
+    DeviceLP,
+    SparseLP,
+    to_device_lp,
+    to_sparse_lp,
+)
 from cholesky_is_magic_tpu_torch.ingest.mps import MPSData, read_mps, read_mps_file
 from cholesky_is_magic_tpu_torch.ingest.presolve import Presolve, presolve
 from cholesky_is_magic_tpu_torch.ingest.standard_form import (
@@ -28,4 +34,6 @@ __all__ = [
     "presolve",
     "DeviceLP",
     "to_device_lp",
+    "SparseLP",
+    "to_sparse_lp",
 ]

@@ -1,8 +1,9 @@
 """Standard form -> device operands.
 
 Counterpart of ``cholesky_is_magic_tpu/ingest/device.py``: ``round_up``,
-``DeviceLP``, ``to_device_lp`` and the fully sparse ``SparseKKTLP`` (built
-by ``solvers.pdas.make_pdas_sparse``).  Every dense LP is embedded into a
+``DeviceLP``, ``to_device_lp``, the matrix-free ``SparseLP`` (built by
+``to_sparse_lp``) and the fully sparse ``SparseKKTLP`` (built by
+``solvers.pdas.make_pdas_sparse``).  Every dense LP is embedded into a
 (M, N) box rounded up to ``pad_multiple`` with boolean validity masks, and
 the padding is inert exactly as in the JAX package:
 
@@ -52,6 +53,31 @@ class DeviceLP:
     @property
     def shape(self) -> tuple[int, int]:
         return self.A.shape[-2], self.A.shape[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseLP:
+    """Sparse operands of the matrix-free path (APPROX / ALM).
+
+    No padding: the APPROX / ALM solvers are gathers and elementwise work,
+    so memory follows nnz(A), not m*n.  ``EB`` / ``ETB`` are the block-ELL
+    renderings of A and Aᵀ (ops.bell) that the products ride when the byte
+    gates of ``bell.from_coo`` admit them; ``None`` otherwise, and the
+    products fall back to the ELL gather and scatter-add
+    (``sparse_ops.rmatvec``, whose ``index_add_`` sums in no fixed order on
+    the card).
+    """
+
+    E: object  # ops.sparse_ops.ELLMatrix, (m, n)
+    EB: object  # ops.bell.BellMatrix of A, or None (gate: bell.from_coo)
+    ETB: object  # ops.bell.BellMatrix of Aᵀ, or None
+    c: torch.Tensor  # (n,)
+    b: torch.Tensor  # (m,)
+    l: torch.Tensor  # (n,)
+    u: torch.Tensor  # (n,)
+    row_type: torch.Tensor  # (m,) int8
+    m: int
+    n: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,4 +163,38 @@ def to_device_lp(
         row_type=put(row_type),
         m=m,
         n=n,
+    )
+
+
+def to_sparse_lp(sf: StandardForm, *, dtype: torch.dtype = torch.float32,
+                 device="cuda", big: float = 1e30,
+                 bell_max_bytes: int = 256 * 1024 * 1024,
+                 bell_max_dense_frac: float = 1.0) -> SparseLP:
+    """StandardForm -> ELL-backed sparse operands on ``device`` (no padding).
+
+    ``bell_max_bytes`` / ``bell_max_dense_frac`` are the storage gates of
+    ``ops.bell.from_coo`` for the EB / ETB renderings, as in the JAX
+    package: raise ``bell_max_dense_frac`` for small LPs whose blocked
+    footprint is marginally above the dense bytes (``ALMConfig.dd_gradient``
+    needs the block-ELL forms)."""
+    from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
+
+    shape, shape_t = (sf.ncons, sf.nvars), (sf.nvars, sf.ncons)
+    gates = dict(dtype=dtype, device=device, max_bytes=bell_max_bytes,
+                 max_dense_frac=bell_max_dense_frac)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    put = lambda v: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(np.asarray(v, np.float64).astype(np_dtype))).to(device)
+    return SparseLP(
+        E=sparse_ops.from_coo(sf.a_rows, sf.a_cols, sf.a_vals, shape,
+                              dtype=dtype, device=device),
+        EB=bell.from_coo(sf.a_rows, sf.a_cols, sf.a_vals, shape, **gates),
+        ETB=bell.from_coo(sf.a_cols, sf.a_rows, sf.a_vals, shape_t, **gates),
+        c=put(sf.c),
+        b=put(sf.b),
+        l=put(np.clip(sf.l, -big, big)),
+        u=put(np.clip(sf.u, -big, big)),
+        row_type=torch.from_numpy(np.asarray(sf.row_type)).to(device),
+        m=sf.ncons,
+        n=sf.nvars,
     )

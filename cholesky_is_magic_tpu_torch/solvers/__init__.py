@@ -1,6 +1,7 @@
-"""Interior-point solver loops: primal affine scaling, pdas and pdas_dd, on
-dense or fully sparse operands, and the crossover polish of a pdas or
-pdas_dd result to a certified vertex."""
+"""Solver loops: primal affine scaling, pdas and pdas_dd, on dense or fully
+sparse operands, the crossover polish of a pdas or pdas_dd result to a
+certified vertex, and the matrix-free family (APPROX coordinate descent,
+its self-dual form, and the ALM / AALM / ADCD outer loops over it)."""
 
 from cholesky_is_magic_tpu_torch.solvers.affine import (
     AffineConfig,
@@ -8,6 +9,21 @@ from cholesky_is_magic_tpu_torch.solvers.affine import (
     affine_scaling,
     make_affine_state,
     make_affine_state_sparse,
+)
+from cholesky_is_magic_tpu_torch.solvers.alm import (
+    ALMConfig,
+    ALMState,
+    aalm,
+    adcd,
+    alm,
+    alm_iteration,
+    make_alm,
+)
+from cholesky_is_magic_tpu_torch.solvers.approx import (
+    ApproxProblem,
+    approx,
+    make_alm_subproblem,
+    make_approx_selfdual,
 )
 from cholesky_is_magic_tpu_torch.solvers.crossover import (
     CrossoverConfig,
@@ -30,6 +46,17 @@ from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 
 __all__ = [
+    "ALMConfig",
+    "ALMState",
+    "ApproxProblem",
+    "aalm",
+    "adcd",
+    "alm",
+    "alm_iteration",
+    "approx",
+    "make_alm",
+    "make_alm_subproblem",
+    "make_approx_selfdual",
     "AffineConfig",
     "AffineState",
     "affine_scaling",

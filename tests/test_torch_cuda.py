@@ -5,8 +5,10 @@ Schur; tiles wider than 128 split around the tile kernel) and the
 pair-schedule assembly, each against its plain PyTorch version, the dense
 and sparse solves (afiro; block 256), crossover on both paths (its dd
 products and its B·Bᵀ factorizations launch the kernels; a singular first
-basis takes the dbound retry), and float64 on the card, which takes the
-plain forms and launches no kernel.
+basis takes the dbound retry), the matrix-free family (ALM in f32 and f64;
+the dense dd ALM's exact launch counts; the sparse two-phase protocol; the
+inner loop's CUDA graph against its eager chunks), and float64 on the card,
+which takes the plain forms and launches no kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -650,3 +652,142 @@ def test_crossover_widen_fixture_on_the_card(dev, monkeypatch):
     assert cert["certified"] and cert["widened"] == 1 and cert["repairs"] >= 1
     assert float(out.objective) == pytest.approx(2.001, rel=1e-6)
     assert float(out.x[1]) == pytest.approx(5e-4, rel=1e-3)
+
+
+SIMPLE = os.path.join(os.path.dirname(__file__), "fixtures", "simple.mps")
+
+
+def test_alm_simple_in_float32_on_the_card(dev):
+    """solve(simple, "alm") in f32 (the JAX package on the CPU: 4 / 65):
+    optimal, value -7 within the JAX tests' 1e-2; the f32 products are
+    library calls, so no kernel launches."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = _counts()
+    rep = cimt.solve(SIMPLE, "alm", pad_multiple=16, max_iters=300)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    print(f"f32 simple alm: {rep.summary}")
+    assert rep.status == "optimal"
+    assert rep.summary["value"] == pytest.approx(-7.0, abs=1e-2)
+    assert not any(launched.values())
+    assert rep.result.x.is_cuda and rep.result.x.dtype == torch.float32
+
+
+def test_dense_dd_alm_launches_the_dd_kernels_exactly(dev):
+    """ALMConfig(dd_gradient=True) on dense f32 afiro: each inner iteration
+    run launches dd A·x and dd Aᵀ·x twice (the gradients at y and z'), each
+    outer step dd A·x twice more (the residuals at entry and at z): the
+    counts are 2·run + 2·outer and 2·run, where run counts the masked tail
+    of each stopped inner loop's last chunk too."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.solvers import ALMConfig, alm, make_alm
+
+    lp = to_device_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO)),
+                      pad_multiple=16, device=dev)
+    before = _counts()
+    res = alm(make_alm(lp), config=ALMConfig(
+        max_outer=4, inner_iters=300, violation_tol=1e-5, pg_tol=1e-5,
+        omega_floor=1e-7, dd_gradient=True))
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    outer, run = int(res.outer_iterations), res.inner_slots
+    print(f"dense dd alm afiro: outer {outer}, inner {int(res.inner_iterations)},"
+          f" run {run}, launches {launched}")
+    assert outer == 4 and run >= int(res.inner_iterations) > 0
+    assert launched["mv"] == 2 * run + 2 * outer
+    assert launched["rmv"] == 2 * run
+    assert torch.isfinite(res.x).all() and res.x.dtype == torch.float32
+
+
+def test_alm_in_float64_on_the_card_launches_nothing(dev):
+    """f64 ALM on afiro (pad 16) takes the plain forms on the card: no
+    kernel launches; optimal, its value within 2e-3 of the published
+    optimum (the JAX package on the CPU: 9 / 1768)."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    before = _counts()
+    rep = cimt.solve(AFIRO, "alm", pad_multiple=16, max_iters=60,
+                     dtype=torch.float64)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    print(f"f64 afiro alm: {rep.summary}")
+    assert not any(launched.values())
+    assert rep.status == "optimal"
+    assert rep.summary["value"] == pytest.approx(-464.75314285714285, abs=2e-3)
+    assert rep.result.x.is_cuda and rep.result.x.dtype == torch.float64
+
+
+def test_sparse_alm_two_phase_on_the_card(dev):
+    """The two-phase protocol on the m = 2048 constructed LP's block-ELL
+    operands, at a bounded budget: an f32 phase, then the dd phase from its
+    multipliers with mu reset to 100.  Both run on the block-ELL products
+    (plain PyTorch: no kernel launches), finite, the dd phase's violation
+    below the f32 phase's."""
+    import dataclasses
+
+    from cholesky_is_magic_tpu_torch.ingest.device import to_sparse_lp
+    from cholesky_is_magic_tpu_torch.solvers import ALMConfig, alm, make_alm
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    sf, info = constructed_optimum_lp(m=2048, seed=0)
+    lp = to_sparse_lp(sf, device=dev)
+    assert lp.EB is not None and lp.ETB is not None
+    cfgA = ALMConfig(max_outer=3, inner_iters=300, violation_tol=1e-5,
+                     pg_tol=1e-5, omega_floor=1e-6)
+    cfgB = dataclasses.replace(cfgA, dd_gradient=True, omega_floor=1e-7,
+                               max_outer=2, inner_iters=100)
+    before = _counts()
+    resA = alm(make_alm(lp), config=cfgA)
+    resB = alm(make_alm(lp, mu=100.0, multipliers=resA.multipliers),
+               x0=resA.x, config=cfgB)
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    err = abs(float(lp.c @ resB.x) - info["objective"]) / abs(info["objective"])
+    print(f"sparse alm m = 2048: f32 violation {float(resA.violation):.3e},"
+          f" dd violation {float(resB.violation):.3e}, objective error {err:.3e}")
+    assert not any(launched.values())
+    assert int(resB.outer_iterations) == 2
+    assert torch.isfinite(resB.x).all()
+    assert float(resB.violation) < float(resA.violation)
+
+
+@pytest.mark.parametrize("kind", ["dense f32", "dense dd", "block-ELL f32", "block-ELL dd"])
+def test_chunk_graph_replays_the_eager_loop(dev, monkeypatch, kind):
+    """On the card the inner loop replays its chunks as a CUDA graph after
+    one eager chunk (solvers.approx._ChunkGraph).  An ALM run with the
+    graphs gives the eager run's iterate, multipliers, violation, pg and
+    counts bit for bit, and the dd kernels' counters the same launches:
+    each replay adds the launches the capture holds."""
+    import importlib
+
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp, to_sparse_lp
+    from cholesky_is_magic_tpu_torch.solvers import ALMConfig, alm, make_alm
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    am = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.approx")
+    if kind.startswith("dense"):
+        lp = to_device_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO)),
+                          pad_multiple=16, device=dev)
+    else:
+        lp = to_sparse_lp(constructed_optimum_lp(m=256, seed=0)[0], device=dev)
+    cfg = ALMConfig(max_outer=3, inner_iters=200, violation_tol=1e-5,
+                    pg_tol=1e-5, omega_floor=1e-7, dd_gradient=kind.endswith("dd"))
+
+    def run():
+        before = _counts()
+        res = alm(make_alm(lp), config=cfg)
+        return res, {k: v - before[k] for k, v in _counts().items()}
+
+    captured = []
+    init = am._ChunkGraph.__init__
+    monkeypatch.setattr(am._ChunkGraph, "__init__",
+                        lambda self, *a: (captured.append(1), init(self, *a))[1])
+    g, gl = run()
+    monkeypatch.setattr(am, "_GRAPHS", False)
+    e, el = run()
+    print(f"{kind}: inner {int(g.inner_iterations)}, run {g.inner_slots},"
+          f" graphs {len(captured)}, launches {gl}")
+    assert captured and gl == el
+    assert g.inner_slots == e.inner_slots
+    for key in ("x", "multipliers", "violation", "pg", "value", "outer_iterations",
+                "inner_iterations"):
+        assert torch.equal(getattr(g, key), getattr(e, key)), key

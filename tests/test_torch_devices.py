@@ -34,6 +34,8 @@ DEVICE_FUNCTIONS = [
     sparse_ops.from_coo, sparse_ops.from_dense, bell.from_coo,
     convert.tensor_from_numpy, convert.device_lp_from_numpy,
     convert.pdas_state_from_numpy, convert.pdas_dd_state_from_numpy,
+    t_device.to_sparse_lp, convert.sparse_lp_from_numpy,
+    convert.approx_problem_from_numpy, convert.alm_state_from_numpy,
 ]
 
 
@@ -55,6 +57,9 @@ def test_solve_without_a_card_raises_unless_asked_for_the_cpu():
         cimt.solve(AFIRO, "pdas_dd", sparse=True, block=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cimt.solve(AFIRO, "affine", presolve=True)
+    for solver in ("alm", "aalm", "selfdual"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cimt.solve(AFIRO, solver)
     rep = cimt.solve(AFIRO, "pdas_dd", device="cpu", dtype=torch.float64,
                      pad_multiple=16)
     assert rep.status == "optimal"
@@ -76,9 +81,11 @@ def _coo(m=2, n=3):
     lambda: sparse_ops.from_dense(np.eye(3)),
     lambda: bell.from_coo(*_coo(8, 128)),
     lambda: convert.tensor_from_numpy(np.ones(3)),
+    lambda: t_device.to_sparse_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO))),
 ], ids=["to_device_lp", "make_pdas_sparse", "make_affine_state_sparse",
         "engine_for_sparse",
-        "ell_from_coo", "ell_from_dense", "bell_from_coo", "tensor_from_numpy"])
+        "ell_from_coo", "ell_from_dense", "bell_from_coo", "tensor_from_numpy",
+        "to_sparse_lp"])
 def test_device_unset_without_a_card_raises(call):
     _needs_no_card()
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
