@@ -112,7 +112,32 @@ script then exits non-zero and never prints its last line):
    eager chunk and over ten chunks, nine of them CUDA-graph replays;
    (c) the m = 16384 LP through to_sparse_lp, its block-ELL renderings
    required, the same two phases (ALM_AT_SCALE) and measurements, and
-   the operands' bytes on the card.
+   the operands' bytes on the card;
+15. batch — (a) the batched dd A·x and Aᵀ·x kernels at (1024, 64, 64),
+   batched pdas's N, (256, 64, 128) and (256, 64, 192), the finisher's AD
+   of the same-shape and the mixed batch, and (8, 1536, 5120), each lane
+   bit for bit against the single kernel (A at a 4-byte storage offset
+   too), within 64·eps32² of Σ|a_ij x_j| of the plain batched form, dd A·x
+   against the f64 truth, and CUDA-event medians of the batched launch,
+   of a Python loop of B single launches and of the plain batched form;
+   (b) 1024 LPs of random_lp(s, 24, 8, 48, density 0.3) in one (64, 128)
+   box, f32, batched_pdas (60 iterations, Mehrotra, "inverse"), counters
+   reset before and read after: batched dd A·x must have launched; every
+   optimal lane's objective within 1e-3 of HiGHS; solves/s over three
+   timed calls, one more with the dbound retry off beside them (what the
+   per-lane retry factorization costs) and the device-busy share of the
+   first iteration (profiler); (c) the 256-LP mixed batch with 32 stragglers of the JAX
+   package's bench through solve_batch, then embed_batch and two solves
+   of the handle (objectives and counts bit-identical to the direct call),
+   then a warm re-solve (fewer iterations in all than cold), solves/s of
+   the direct and the embedded calls; (d) 256 of (b)'s lanes through
+   batched_pdas_dd in f32 (JAX's two-phase protocol: gap_tol 1e-9, two
+   refinement steps), counters reset before and read after: both batched
+   kernels must have launched; each lane's final gap, with the lanes that
+   stop above 1e-8 named (the f32 finisher's floor, the JAX package's
+   too); (e) 16 of them in f64 through solve_batch: each lane's status
+   and count equal to its single solve(..., "pdas") on the card, no
+   kernel launched.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -120,13 +145,14 @@ tensor cores; H100 SXM data sheet), from this run's shapes.
 
 The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
-pilot, affine at scale, the presolved pdas_dd, the crossover cases and the
-dense dd ALM phase, each also apart); the last line is {"ok": true,
-"device": {...}}.
+pilot, affine at scale, the presolved pdas_dd, the crossover cases, the
+dense dd ALM phase and the batched pdas and pdas_dd, each also apart);
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import importlib
 import json
@@ -158,6 +184,12 @@ KERNELS = {
         name="assemble_pairs_f32",
         replaces="benchmarks/explore_prefetch_assembly.py:174",
         source=CSRC + "assemble_pairs.cu"),
+    "mv_batched": dict(name="dd_mv_f32_batched",
+                       replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:79",
+                       source=CSRC + "dd_matvec.cu"),
+    "rmv_batched": dict(name="dd_rmv_f32_batched",
+                        replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:96",
+                        source=CSRC + "dd_matvec.cu"),
 }
 AT_SCALE_M = 16384
 # The at-scale recipe of the JAX package's api.solve docstring (:439-440).
@@ -1412,6 +1444,264 @@ def phase_alm(cimt, counters, card, sf_scale, info_scale):
     return got
 
 
+# Phase 15's batches: the JAX package's bench sizes (bench.py:681-711,
+# BASELINE.json config 5).
+BATCH_SAME = 1024
+BATCH_SAME_LP = dict(n_ub=24, n_eq=8, n=48, density=0.3)
+BATCH_MIXED = 256
+BATCH_KERNEL_SHAPES = ((1024, 64, 64), (256, 64, 128), (256, 64, 192),
+                       (8, 1536, 5120))
+
+
+def _mixed_batch_lp(s):
+    """The bench's heterogeneous mix: every eighth LP a straggler."""
+    from cholesky_is_magic_tpu_torch.utils.testing import random_lp
+
+    if s % 8 == 7:
+        return random_lp(1000 + s, n_ub=48, n_eq=16, n=96, density=0.3)
+    return random_lp(s, n_ub=16 + (s % 3) * 8, n_eq=4 + s % 5,
+                     n=32 + (s % 4) * 16, density=0.3)
+
+
+def _sf_of(cimt, ineq):
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    from cholesky_is_magic_tpu_torch.utils.testing import write_mps
+
+    return cimt.to_standard_form(read_mps_string(write_mps(ineq)))
+
+
+def _batch_kernels(ddm, dd_cuda, stats):
+    """(a): both batched kernels at phase 15's shapes against the single
+    kernel (bit for bit per lane), the plain batched form and the f64
+    truth, with times; the headline entries at batched pdas's N (dd A·x)
+    and the same-shape finisher's AD (dd Aᵀ·x)."""
+    flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for B, m, n in BATCH_KERNEL_SHAPES:
+        buf = torch.randn(B * m * n + 1, generator=g, device="cuda")
+        x = torch.randn(B, n, generator=g, device="cuda")
+        y = torch.randn(B, m, generator=g, device="cuda")
+        for off in (0, 1):
+            A = buf[off:off + B * m * n].view(B, m, n)
+            mv, rmv = dd_cuda.dd_mv_batched(A, x), dd_cuda.dd_rmv_batched(A, y)
+            one = [dd_cuda.dd_mv(A[k], x[k]) for k in range(B)]
+            rone = [dd_cuda.dd_rmv(A[k], y[k]) for k in range(B)]
+            same = (torch.equal(mv[0], torch.stack([o[0] for o in one]))
+                    and torch.equal(mv[1], torch.stack([o[1] for o in one]))
+                    and torch.equal(rmv[0], torch.stack([o[0] for o in rone]))
+                    and torch.equal(rmv[1], torch.stack([o[1] for o in rone])))
+            errs = {}
+            for which, got, plain, scale in (
+                    ("mv", mv, ddm._dd_matvec_plain(A, x),
+                     (A.abs() @ x.abs().unsqueeze(-1))[..., 0]),
+                    ("rmv", rmv, ddm._dd_matvec_plain(A.mT, y),
+                     (A.abs().mT @ y.abs().unsqueeze(-1))[..., 0])):
+                err = (_f64(ddm.DD(*got)) - _f64(plain)).abs()
+                errs[which] = (err.max().item(),
+                               (err / (EPS32**2 * scale.double())).max().item())
+            true = (A.double() @ x.double().unsqueeze(-1))[..., 0]
+            t_ratio = ((_f64(ddm.DD(*mv)) - true).abs()
+                       / (1e-11 + 1e-11 * true.abs())).max().item()
+            say(f"[batch kernels] ({B}, {m}, {n}){' A at a 4-byte offset' if off else ''}:"
+                f" each lane bit-equal to the single kernel {same}; vs plain max err /"
+                f" (eps32^2 sum|ax|) mv {errs['mv'][1]:.3f} rmv {errs['rmv'][1]:.3f}"
+                f" (limit {PLAIN_TOL}); mv vs f64 truth worst err/tol {t_ratio:.3e}")
+            if not (same and errs["mv"][1] <= PLAIN_TOL and errs["rmv"][1] <= PLAIN_TOL
+                    and t_ratio <= 1):
+                raise AssertionError(f"batched kernels at ({B}, {m}, {n}), offset {off}")
+        A = buf[:B * m * n].view(B, m, n)
+        for which, kern, single, plain, nout in (
+                ("mv", lambda: dd_cuda.dd_mv_batched(A, x),
+                 lambda: [dd_cuda.dd_mv(A[k], x[k]) for k in range(B)],
+                 lambda: ddm._dd_matvec_plain(A, x), m),
+                ("rmv", lambda: dd_cuda.dd_rmv_batched(A, y),
+                 lambda: [dd_cuda.dd_rmv(A[k], y[k]) for k in range(B)],
+                 lambda: ddm._dd_matvec_plain(A.mT, y), n)):
+            p1, k1, k2, p2 = (_median_ms(f, reps=10, flush=flush, lead=0.2)
+                              for f in (plain, kern, kern, plain))
+            loop = _median_ms(single, reps=5, flush=flush)
+            nin = n if which == "mv" else m
+            bound = _bound(_nbytes(A) + 4 * B * nin + 8 * B * nout, 14 * B * m * n)
+            say(f"[batch kernels] {which} ({B}, {m}, {n}) median ms: batched {k1:.4f}"
+                f" {k2:.4f}  loop of {B} single launches {loop:.4f}  plain {p1:.4f}"
+                f" {p2:.4f}  bound {bound['bound_ms']:.4f} ({bound['bound_by']})")
+            entry = dict(ms=min(k1, k2), plain_ms=min(p1, p2), loop_ms=loop,
+                         library_ms=None, max_abs_err=errs[which][0], **bound)
+            key = which + "_batched"
+            stats.setdefault(key, {}).setdefault("at_shapes", {})[
+                f"{B}x{m}x{n}"] = entry
+            if (which, (B, m, n)) in (("mv", (1024, 64, 64)), ("rmv", (256, 64, 128))):
+                stats[key].update(entry, shape=[B, m, n])
+        del buf, A, x, y
+        torch.cuda.empty_cache()
+
+
+def _timed(fn, reps=3):
+    """(result of the first call, host-clock seconds of ``reps`` more calls,
+    each ending in a synchronize)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return out, times
+
+
+def phase_batch(cimt, ddm, dd_cuda, counters, card, stats):
+    """Phase 15, the batch mode on the card.  Returns the launches of the
+    batched pdas ((b), counted) and batched pdas_dd ((d)) runs."""
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.solvers.pdas import PDASConfig, make_pdas
+    from cholesky_is_magic_tpu_torch.solvers.pdas_dd import make_pdas_dd
+    from cholesky_is_magic_tpu_torch.solvers.result import Status
+    from cholesky_is_magic_tpu_torch.utils import lanes
+    from cholesky_is_magic_tpu_torch.utils.testing import (
+        random_lp,
+        scipy_reference_solution,
+    )
+
+    t_phase = time.perf_counter()
+    t_lap = [t_phase]
+
+    def lap(part):
+        now = time.perf_counter()
+        say(f"[batch] {part} took {now - t_lap[0]:.3f} s")
+        t_lap[0] = now
+
+    _batch_kernels(ddm, dd_cuda, stats)
+    lap("(a)")
+    # (b) the same-shape batch.
+    t = time.perf_counter()
+    ineqs = [random_lp(s, **BATCH_SAME_LP) for s in range(BATCH_SAME)]
+    sfs = [_sf_of(cimt, q) for q in ineqs]
+    highs = np.array([scipy_reference_solution(q)[1] for q in ineqs])
+    emb = cimt.embed_batch(sfs, pad_multiple=64)
+    torch.cuda.synchronize()
+    say(f"[batch same] {BATCH_SAME} LPs {sfs[0].ncons} x {sfs[0].nvars} in a"
+        f" {tuple(emb.stacked_lp.A.shape[1:])} box, f32; LPs, HiGHS and the embed"
+        f" {time.perf_counter() - t:.3f} s on the host")
+    cfg = PDASConfig(max_iters=60, mehrotra=True, factor_method="inverse")
+    states = lanes.vmap(lambda lp: make_pdas(lp, cfg), emb.stacked_lp)
+    _reset(*counters.values())
+    res = parallel.batched_pdas(states, cfg)
+    torch.cuda.synchronize()
+    pdas_launches = _counted(counters)
+    res, times = _timed(lambda: parallel.batched_pdas(states, cfg))
+    status = res.status.cpu().numpy()
+    opt = status == Status.OPTIMAL
+    obj = res.objective.cpu().numpy()
+    err = np.abs(obj - highs) / np.maximum(1.0, np.abs(highs))
+    its = res.iterations.cpu().numpy()
+    say(f"[batch same] batched_pdas: {int(opt.sum())}/{BATCH_SAME} optimal, iterations"
+        f" {its.min()}-{its.max()} (the loop ran {its.max()}); worst objective error vs"
+        f" HiGHS of an optimal lane {err[opt].max():.3e} (limit 1e-3); launches"
+        f" {pdas_launches}; solves/s "
+        + " ".join(f"{BATCH_SAME / t:.1f}" for t in times)
+        + f" (median {BATCH_SAME / float(np.median(times)):.1f}; seconds "
+        + " ".join(f"{t:.3f}" for t in times) + f") on {card}")
+    if not (pdas_launches["mv_batched"] > 0 and opt.sum() > 0
+            and (err[opt] <= 1e-3).all()
+            and pdas_launches["mv"] == pdas_launches["rmv"] == 0):
+        raise AssertionError(f"batch same: launches {pdas_launches}, errors {err[opt].max()}")
+    # What the per-lane dbound select costs: the same batch with the retry
+    # off, one call (a lane whose first factorization fails then stops
+    # singular, so the lanes that differ are counted).
+    cfg0 = dataclasses.replace(cfg, dbound=0.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res0 = parallel.batched_pdas(states, cfg0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter() - t
+    differ = int(((res0.iterations != res.iterations)
+                  | (res0.status != res.status)).sum())
+    say(f"[batch same] the same batch with dbound 0 (no retry factorization):"
+        f" {t0:.3f} s against {float(np.median(times)):.3f} s; lanes whose status or"
+        f" count differ {differ} (statuses {np.bincount(res0.status.cpu().numpy(), minlength=6).tolist()})")
+    # Device-busy share of the first iteration (the profiler's own
+    # processing takes ~7 s an iteration: ~4000 launches and their ops).
+    cfg1 = dataclasses.replace(cfg, max_iters=1)
+    _device_busy("batch same", "batched_pdas, one iteration",
+                 lambda: parallel.batched_pdas(states, cfg1))
+    lap("(b)")
+    # (d) the two-phase flow on 256 of those lanes.
+    k = BATCH_MIXED
+    sub = lanes.flatten(res)
+    p1 = sub[1]([t[:k] for t in sub[0]])
+    lp_leaves, lp_build = lanes.flatten(emb.stacked_lp)
+    lps = lp_build([t[:k] for t in lp_leaves])
+    dd_states = lanes.vmap(lambda lp, r: make_pdas_dd(lp, warm=r), lps, p1)
+    cfg_dd = PDASConfig(max_iters=60, gap_tol=1e-9, refine_steps=2)
+    _reset(*counters.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res_dd = parallel.batched_pdas_dd(dd_states, cfg_dd)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    dd_launches = _counted(counters)
+    gaps = res_dd.extra["gap"].cpu().numpy()
+    opt1 = p1.status.cpu().numpy() == Status.OPTIMAL
+    st2 = res_dd.status.cpu().numpy()
+    above = [int(i) for i in np.nonzero(opt1 & ~(gaps <= 1e-8))[0]]
+    say(f"[batch pdas_dd] {k} lanes, f32: {int((st2 == Status.OPTIMAL).sum())} optimal,"
+        f" statuses {np.bincount(st2, minlength=6).tolist()}; iterations"
+        f" {res_dd.iterations.max().item()} at most; lanes optimal in phase 1 at gap <="
+        f" 1e-8: {int((opt1 & (gaps <= 1e-8)).sum())}/{int(opt1.sum())}; above it (seeds):"
+        f" {above} at gaps {[float(f'{gaps[i]:.3e}') for i in above]}, statuses"
+        f" {[int(st2[i]) for i in above]}; launches {dd_launches}; {took:.3f} s on {card}")
+    if not (dd_launches["mv_batched"] > 0 and dd_launches["rmv_batched"] > 0
+            and dd_launches["mv"] == dd_launches["rmv"] == 0
+            and all(st2[i] != Status.OPTIMAL for i in above)
+            and np.isfinite(res_dd.x.cpu().numpy()).all()):
+        raise AssertionError(f"batch pdas_dd: launches {dd_launches}, above {above}")
+    lap("(d)")
+    # (c) the front door on the bench's mixed batch.
+    mixed = [_sf_of(cimt, _mixed_batch_lp(s)) for s in range(BATCH_MIXED)]
+    kw = dict(max_iters=60, mehrotra=True)
+    _reset(*counters.values())
+    direct, t_direct = _timed(lambda: cimt.solve_batch(mixed, **kw), reps=1)
+    door = _counted(counters)
+    emb_m = cimt.embed_batch(mixed)
+    solves = []  # both solves of the handle
+    cached, t_cached = _timed(
+        lambda: solves.append(cimt.solve_batch(emb_m, **kw)) or solves[-1], reps=1)
+    same = all(a.objective == b.objective and a.summary["iterations"]
+               == b.summary["iterations"] for c in solves for a, b in zip(direct, c))
+    warm = cimt.solve_batch(emb_m, warm=cached, warm_push=1e-3, **kw)
+    it = {tag: sum(r.summary["iterations"] for r in reps)
+          for tag, reps in (("cold", cached), ("warm", warm))}
+    n_opt = {tag: sum(r.status == "optimal" for r in reps)
+             for tag, reps in (("cold", direct), ("warm", warm))}
+    say(f"[batch front door] {BATCH_MIXED} LPs (32 stragglers) in a"
+        f" {tuple(emb_m.stacked_lp.A.shape[1:])} box: optimal {n_opt['cold']}, warm"
+        f" {n_opt['warm']}; the handle bit-identical to the direct call: {same};"
+        f" iterations cold {it['cold']}, warm {it['warm']}; solves/s direct "
+        + " ".join(f"{BATCH_MIXED / t:.1f}" for t in t_direct) + ", embedded "
+        + " ".join(f"{BATCH_MIXED / t:.1f}" for t in t_cached)
+        + f"; launches {door} on {card}")
+    if not (same and it["warm"] < it["cold"] and door["mv_batched"] > 0
+            and n_opt["cold"] > 0):
+        raise AssertionError(f"batch front door: same {same}, iterations {it}, {door}")
+    lap("(c)")
+    # (e) f64 on the card: the plain forms.
+    before = _counted(counters)
+    kw64 = dict(max_iters=60, mehrotra=True, dtype=torch.float64)
+    batch64 = cimt.solve_batch(sfs[:16], **kw64)
+    launched = _launched(counters, before)
+    single = [cimt.solve(sf, "pdas", pad_multiple=64, **kw64) for sf in sfs[:16]]
+    got = [(r.status, r.summary["iterations"]) for r in batch64]
+    want = [(r.status, r.summary["iterations"]) for r in single]
+    say(f"[batch f64] 16 lanes (status, iterations): {got}; single solves equal:"
+        f" {got == want}; kernel launches {sum(launched.values())}")
+    if not (got == want and not any(launched.values())):
+        raise AssertionError(f"batch f64: {got} vs {want}, launches {launched}")
+    lap("(e)")
+    say(f"[batch] phase 15 took {time.perf_counter() - t_phase:.3f} s")
+    return pdas_launches, dd_launches
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -1448,6 +1738,8 @@ def main() -> int:
      by_path["crossover at scale"]) = phase_crossover(cimt, counters, card, pilot_s,
                                                       sf, info, eng, rep)
     by_path["alm dd pilot"] = phase_alm(cimt, counters, card, sf, info)
+    by_path["batch pdas"], by_path["batch pdas_dd"] = phase_batch(
+        cimt, ddm, dd_cuda, counters, card, stats)
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

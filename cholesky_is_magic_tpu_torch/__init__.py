@@ -18,9 +18,10 @@ against; the module paths mirror it, so each counterpart is easy to find:
 - :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
   finisher, crossover (a certified vertex polish), APPROX and the ALM /
   AALM / ADCD outer loops;
+- :mod:`.parallel` — batched dense pdas / pdas_dd over stacked LPs;
 - :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd" | "alm" |
   "aalm" | "selfdual", sparse=..., presolve=..., crossover=...,
-  device=...)``.
+  device=...)`` and ``solve_batch(problems)`` / ``embed_batch(problems)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.
@@ -41,6 +42,22 @@ def solve(problem, solver="pdas", **kwargs):
     return _solve(problem, solver, **kwargs)
 
 
+def solve_batch(problems, **kwargs):
+    """Solve a batch of LPs in one batched pdas loop (lazy re-export of
+    :func:`.api.solve_batch`)."""
+    from cholesky_is_magic_tpu_torch.api import solve_batch as _solve_batch
+
+    return _solve_batch(problems, **kwargs)
+
+
+def embed_batch(problems, **kwargs):
+    """Embed a batch of LPs once for repeated solves (lazy re-export of
+    :func:`.api.embed_batch`)."""
+    from cholesky_is_magic_tpu_torch.api import embed_batch as _embed_batch
+
+    return _embed_batch(problems, **kwargs)
+
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -51,4 +68,6 @@ __all__ = [
     "to_standard_form",
     "rescale_sf",
     "solve",
+    "solve_batch",
+    "embed_batch",
 ]

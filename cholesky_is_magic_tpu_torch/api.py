@@ -15,6 +15,10 @@ first and restores the solution and duals to the original variable space.
 ``crossover=True`` (pdas / pdas_dd, dense and sparse, with or without
 presolve) polishes the final iterate to a certified vertex
 (solvers.crossover) and reports its certificate in ``summary["crossover"]``.
+
+``solve_batch(problems)`` solves many LPs in one lane-batched pdas loop
+(parallel.batched_pdas) in a common padded box; ``embed_batch`` builds that
+box once for repeated solves (:class:`BatchEmbed`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,206 @@ class SolveReport:
     result: Any  # raw SolveResult
     sf: Any  # the StandardForm that was solved
     solution: dict  # extract_solution(sf, result.x): x, slacks, objective
+
+
+@dataclasses.dataclass
+class BatchEmbed:
+    """A device-resident embedded LP batch: build once, solve many.
+
+    ``embed_batch(problems)`` pays the host embed (to_device_lp x B) and the
+    stacked host-to-device copy once; every ``solve_batch(embed, ...)``
+    skips both and goes straight to the batched solve (the serving loop:
+    re-solve one fleet against new iterates or configs)."""
+
+    sfs: list  # the StandardForms, for postsolve
+    stacked_lp: Any  # stacked DeviceLP (one device tensor per field)
+    pad_multiple: int
+    dtype: Any
+
+
+def _check_device(device, name: str) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{name}: no CUDA device; pass device='cpu' to "
+                           "solve on the CPU")
+
+
+def embed_batch(problems, *, pad_multiple: int = 64, dtype=None,
+                rescale: bool = False, device="cuda") -> BatchEmbed:
+    """Embed (possibly heterogeneous) LPs into one padded batch on
+    ``device`` (the card unless the caller asks for ``"cpu"``): the box is
+    the batch maxima rounded up to ``pad_multiple``; the operands are built
+    on the host and copied up once per field (the build and copy phases of
+    :func:`solve_batch`, factored out so that their cost amortizes over
+    repeated solves)."""
+    from cholesky_is_magic_tpu_torch.ingest.device import round_up, to_device_lp
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    _check_device(device, "embed_batch")
+    if dtype is None:
+        dtype = torch.float32
+    sfs = [_to_standard_form(p, rescale) for p in problems]
+    if not sfs:
+        return BatchEmbed([], None, pad_multiple, dtype)
+    M = round_up(max(sf.ncons for sf in sfs), pad_multiple)
+    N = round_up(max(sf.nvars for sf in sfs), pad_multiple)
+    lps = [
+        dataclasses.replace(
+            to_device_lp(sf, dtype=dtype, shape=(M, N), device="cpu"),
+            m=M, n=N,
+        )
+        for sf in sfs
+    ]
+    leaves, build = lanes.flatten(lanes.stack(lps))
+    stacked_lp = build([t.to(device) for t in leaves])
+    return BatchEmbed(sfs, stacked_lp, pad_multiple, dtype)
+
+
+def solve_batch(
+    problems,
+    *,
+    device="cuda",
+    pad_multiple: int = 64,
+    dtype=None,
+    rescale: bool = False,
+    max_iters: int = 500,
+    refine_steps: int = 1,
+    gap_tol=None,
+    mesh=None,
+    mehrotra: bool = False,
+    slab_iters: int = 0,
+    warm: Optional[list] = None,
+    warm_push: float = 0.0,
+    warm_blend: float = 0.0,
+    factor_method: str = "inverse",
+) -> list:
+    """Solve a batch of (possibly heterogeneous) LPs as ONE lane-batched
+    pdas loop (parallel.batched_pdas) and return one :class:`SolveReport`
+    per problem, its ``result`` the problem's slice of the batched result.
+
+    As the JAX package's ``solve_batch``: every problem is embedded into a
+    common padded (M, N) box (the batch maxima rounded up to
+    ``pad_multiple``), the masks keep the padding inert; ``warm`` (the
+    report list of a previous solve_batch over the same problem list and
+    box) restarts each lane from its prior (x, y, w, z), with ``warm_blend``
+    and ``warm_push`` as in :func:`solve`; a warm list of another length or
+    box raises ``ValueError``.  ``factor_method`` defaults to ``"inverse"``
+    (blocked Cholesky and an explicit triangular inverse per iteration,
+    solves as two products); ``"direct"`` is the single solve's kernel.
+    ``problems`` may be a :class:`BatchEmbed` from :func:`embed_batch`:
+    the host embed and the copy to the device are then skipped, and
+    ``pad_multiple`` / ``dtype`` / ``rescale`` / ``device`` are the
+    handle's (the explicit arguments are ignored, as in the JAX package).
+
+    pdas only.  ``mesh`` (the sharded batch) and ``slab_iters`` > 0 (the
+    slabbed driver) are not ported and raise.  ``device`` defaults to the
+    card; without one the call raises unless it asks for ``"cpu"``.  The
+    batched result comes to the host in one copy per tensor."""
+    from cholesky_is_magic_tpu_torch.parallel import batched_pdas
+    from cholesky_is_magic_tpu_torch.solvers.pdas import PDASConfig, make_pdas
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "solve_batch(mesh=...): the sharded batch is not ported "
+            "(ROADMAP.md §1, multi-device)")
+    if slab_iters > 0:
+        raise NotImplementedError(
+            "solve_batch(slab_iters=...): the slabbed driver is not ported "
+            "(ROADMAP.md §1, batched_pdas_slabbed)")
+    if isinstance(problems, BatchEmbed):
+        # Pre-embedded: pad_multiple / dtype / rescale / device are the
+        # handle's.
+        sfs, stacked_lp, dtype = problems.sfs, problems.stacked_lp, problems.dtype
+    else:
+        emb = embed_batch(problems, pad_multiple=pad_multiple, dtype=dtype,
+                          rescale=rescale, device=device)
+        sfs, stacked_lp = emb.sfs, emb.stacked_lp
+    if not sfs:
+        return []
+    kw = {} if gap_tol is None else {"gap_tol": gap_tol}
+    cfg = PDASConfig(max_iters=max_iters, refine_steps=refine_steps,
+                     mehrotra=mehrotra, factor_method=factor_method, **kw)
+    batched = lanes.vmap(lambda lp: make_pdas(lp, cfg), stacked_lp)
+    if warm is not None:
+        from cholesky_is_magic_tpu_torch.solvers.affine import _into_interior
+        from cholesky_is_magic_tpu_torch.solvers.pdas import push_interior
+
+        if len(warm) != len(sfs):
+            raise ValueError(
+                f"warm has {len(warm)} reports for {len(sfs)} problems"
+            )
+        dev = batched.x.device
+
+        def stack(get):
+            # Stacked on the host, one copy up.
+            return torch.stack([get(r) for r in warm]).to(device=dev,
+                                                          dtype=dtype)
+
+        wx = stack(lambda r: r.result.x)
+        wy = stack(lambda r: r.result.extra["y"])
+        if wx.shape != batched.x.shape or wy.shape != batched.y.shape:
+            raise ValueError(
+                "warm reports come from a different padded box "
+                f"(x {tuple(wx.shape)} vs {tuple(batched.x.shape)}, "
+                f"y {tuple(wy.shape)} vs {tuple(batched.y.shape)}); re-solve "
+                "cold or use the same problem list and pad_multiple"
+            )
+        ww = torch.clamp_min(stack(lambda r: r.result.extra["w"]), 1e-8)
+        wz = torch.clamp_min(stack(lambda r: r.result.extra["z"]), 1e-8)
+        lpb = batched.lp
+        if warm_blend > 0.0:
+            bl = warm_blend
+            wx = (1 - bl) * wx + bl * batched.x
+            wy = (1 - bl) * wy + bl * batched.y
+            ww = torch.clamp_min((1 - bl) * ww + bl * batched.w, 1e-8)
+            wz = torch.clamp_min((1 - bl) * wz + bl * batched.z, 1e-8)
+        if warm_push > 0.0:
+            wx = push_interior(wx, lpb.l, lpb.u, lpb.col_mask, warm_push)
+        wx = _into_interior(wx, lpb.l, lpb.u, lpb.col_mask)
+        batched = dataclasses.replace(batched, x=wx, y=wy, w=ww, z=wz)
+    res = batched_pdas(batched, cfg)
+    # ONE copy per tensor to the host, not a scalar read per report.
+    leaves, build = lanes.flatten(res)
+    return _postsolve_batch_reports(sfs, build([t.cpu() for t in leaves]),
+                                    factor_method)
+
+
+def _postsolve_batch_reports(sfs, res, factor_method: str) -> list:
+    """Slice a host-side batched SolveResult into per-problem SolveReports
+    (summary, solution split, duals): the postsolve phase of
+    :func:`solve_batch`."""
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import extract_solution
+    from cholesky_is_magic_tpu_torch.solvers.result import Status
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    reports = []
+    for i, sf in enumerate(sfs):
+        one = lanes.lane(res, i)
+        status = Status.NAMES.get(int(one.status), "?")
+        summary = dict(
+            status=status, objective=float(one.objective),
+            dual_objective=float(one.extra["dual_objective"]),
+            gap=float(one.extra["gap"]), iterations=int(one.iterations),
+            residual=float(one.residual_norm),
+            # "inverse" trades about one digit of raw solve accuracy at a
+            # high condition number of N for the batched speed (refinement
+            # recovers it): named so that a regression is attributable.
+            factor_method=factor_method,
+            gap_bound=_feasibility_gap_bound(
+                sf, one.x.numpy(), one.extra["y"].numpy(),
+                float(one.extra["gap"]), float(one.objective),
+            ),
+        )
+        solution = extract_solution(sf, one.x.numpy())
+        # Row duals in the original row space (see solve()).
+        solution["y"] = one.extra["y"].numpy()[: sf.ncons] * _row_scale(sf)
+        solution["reduced_costs"] = (
+            one.extra["z"] - one.extra["w"]).numpy()[: sf.nvars]
+        reports.append(SolveReport(
+            solver="pdas", status=status, objective=solution["objective"],
+            summary=summary, result=one, sf=sf, solution=solution,
+        ))
+    return reports
 
 
 def _row_scale(sf) -> np.ndarray:
@@ -176,9 +380,7 @@ def solve(
         raise ValueError("crossover supports solver pdas or pdas_dd")
     if solver not in ("affine", "pdas", "pdas_dd", "alm", "aalm", "selfdual"):
         raise ValueError(f"unknown solver {solver!r}")
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("solve: no CUDA device; pass device='cpu' to solve "
-                           "on the CPU")
+    _check_device(device, "solve")
     if dtype is None:
         dtype = torch.float32
     sf = _to_standard_form(problem, rescale)

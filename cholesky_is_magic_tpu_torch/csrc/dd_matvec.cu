@@ -42,6 +42,16 @@
 //        slabs: a batch's L2 latency and its chain of dd_adds, four times).
 //        The registers decide the rest: all blocks must be resident at once.
 // Both kernels mask the ragged edge themselves: any m, n >= 1.
+//
+// Batches (the batched LP solves, where the JAX package vmaps the Pallas
+// calls and pallas_call's batching rule adds a grid axis): one launch over
+// B lanes of the same (m, n), a lane per blockIdx.y (mv) or blockIdx.z
+// (rmv), each lane at its own strides for A and x (a stride of 0 shares one
+// operand across the lanes).  A lane's arithmetic and order are those of
+// the single launch, so each lane is bit-equal to the single call on it;
+// the single call is the batch of one.  A lane of a batched N at the batched
+// pdas shape (64 x 64) leaves most of a block's threads idle: simple and
+// right first.
 
 #include <cuda_runtime.h>
 
@@ -116,10 +126,14 @@ static_assert(sizeof(rmv_vec) == kRmvCols * sizeof(float), "rmv_vec holds kRmvCo
 
 __global__ void __launch_bounds__(kMvThreads)
 dd_mv_kernel(const float* __restrict__ A, const float* __restrict__ x,
-             float* __restrict__ hi, float* __restrict__ lo, int n,
-             long long lda) {
+             float* __restrict__ hi, float* __restrict__ lo, int m, int n,
+             long long lda, long long lane_a, long long lane_x) {
   const int row = blockIdx.x;
-  const float* a = A + static_cast<long long>(row) * lda;
+  const long long lane = blockIdx.y;
+  x += lane * lane_x;
+  hi += lane * m;
+  lo += lane * m;
+  const float* a = A + lane * lane_a + static_cast<long long>(row) * lda;
   dd acc = {0.0f, 0.0f};
   for (int j = threadIdx.x; j < n; j += kMvThreads) {
     dd_accumulate(acc, a[j], x[j]);
@@ -187,7 +201,16 @@ __global__ void __launch_bounds__(kRmvThreads)
 dd_rmv_kernel(const float* __restrict__ A, const float* __restrict__ x,
               float* __restrict__ hi, float* __restrict__ lo,
               float* part_hi, float* part_lo, int* tickets, int m, int n,
-              long long lda, long long ldp, int rows_per_slab) {
+              long long lda, long long ldp, int rows_per_slab,
+              long long lane_a, long long lane_x) {
+  const long long lane = blockIdx.z;
+  A += lane * lane_a;
+  x += lane * lane_x;
+  hi += lane * n;
+  lo += lane * n;
+  part_hi += lane * gridDim.y * ldp;
+  part_lo += lane * gridDim.y * ldp;
+  tickets += lane * gridDim.x;
   const int col = (blockIdx.x * kRmvThreads + threadIdx.x) * kRmvCols;
   const int left = n - col;  // columns of this thread inside A, if > 0
   const int slab = blockIdx.y;
@@ -314,33 +337,78 @@ dd_rmv_kernel(const float* __restrict__ A, const float* __restrict__ x,
 
 // C interface, loaded with ctypes.  Each entry point launches on the given
 // stream, does not synchronise, and returns cudaGetLastError() (0 = launched).
+// The batched entry points take ``lanes`` lanes of the same (m, n): lane k's
+// A at A + k * lane_a, its x at x + k * lane_x, its outputs at row k of
+// (lanes, m) or (lanes, n) hi / lo; lanes <= 65535 (the wrapper checks).
+
+namespace {
+
+int launch_mv(const float* A, const float* x, float* hi, float* lo, int m,
+              int n, long long lda, int lanes, long long lane_a,
+              long long lane_x, cudaStream_t s) {
+  dd_mv_kernel<<<dim3(m, lanes), kMvThreads, 0, s>>>(A, x, hi, lo, m, n, lda,
+                                                     lane_a, lane_x);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_rmv(const float* A, const float* x, float* hi, float* lo,
+               float* part_hi, float* part_lo, int* tickets, int m, int n,
+               long long lda, long long ldp, int slabs, int rows_per_slab,
+               int lanes, long long lane_a, long long lane_x, cudaStream_t s) {
+  const dim3 grid((n + kRmvCtaCols - 1) / kRmvCtaCols, slabs, lanes);
+  const bool vec = reinterpret_cast<unsigned long long>(A) % (4 * kRmvCols) == 0 &&
+                   lda % kRmvCols == 0 && n % kRmvCols == 0 &&
+                   lane_a % kRmvCols == 0;
+  if (vec) {
+    dd_rmv_kernel<true><<<grid, kRmvThreads, 0, s>>>(
+        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab,
+        lane_a, lane_x);
+  } else {
+    dd_rmv_kernel<false><<<grid, kRmvThreads, 0, s>>>(
+        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab,
+        lane_a, lane_x);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 extern "C" int cim_dd_mv_f32(const float* A, const float* x, float* hi,
                              float* lo, int m, int n, long long lda,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dd_mv_kernel<<<m, kMvThreads, 0, s>>>(A, x, hi, lo, n, lda);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mv(A, x, hi, lo, m, n, lda, 1, 0, 0,
+                   static_cast<cudaStream_t>(stream));
 }
 
-// part_hi / part_lo: (slabs, ldp) scratch, ldp a multiple of 4 >= n, both
-// 16-byte aligned; tickets: one int per block of kRmvCtaCols columns, all
-// zero (the kernel leaves them zero).
+extern "C" int cim_dd_mv_f32_batched(const float* A, const float* x, float* hi,
+                                     float* lo, int m, int n, long long lda,
+                                     int lanes, long long lane_a,
+                                     long long lane_x, void* stream) {
+  return launch_mv(A, x, hi, lo, m, n, lda, lanes, lane_a, lane_x,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// part_hi / part_lo: (slabs, ldp) scratch per lane, lane after lane, ldp a
+// multiple of 4 >= n, both 16-byte aligned; tickets: one int per block of
+// kRmvCtaCols columns per lane, all zero (the kernel leaves them zero).
 extern "C" int cim_dd_rmv_f32(const float* A, const float* x, float* hi,
                               float* lo, float* part_hi, float* part_lo,
                               int* tickets, int m, int n, long long lda,
                               long long ldp, int slabs, int rows_per_slab,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n + kRmvCtaCols - 1) / kRmvCtaCols, slabs);
-  const bool vec = reinterpret_cast<unsigned long long>(A) % (4 * kRmvCols) == 0 &&
-                   lda % kRmvCols == 0 && n % kRmvCols == 0;
-  if (vec) {
-    dd_rmv_kernel<true><<<grid, kRmvThreads, 0, s>>>(
-        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab);
-  } else {
-    dd_rmv_kernel<false><<<grid, kRmvThreads, 0, s>>>(
-        A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp, rows_per_slab);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rmv(A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp,
+                    slabs, rows_per_slab, 1, 0, 0,
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cim_dd_rmv_f32_batched(const float* A, const float* x,
+                                      float* hi, float* lo, float* part_hi,
+                                      float* part_lo, int* tickets, int m,
+                                      int n, long long lda, long long ldp,
+                                      int slabs, int rows_per_slab, int lanes,
+                                      long long lane_a, long long lane_x,
+                                      void* stream) {
+  return launch_rmv(A, x, hi, lo, part_hi, part_lo, tickets, m, n, lda, ldp,
+                    slabs, rows_per_slab, lanes, lane_a, lane_x,
+                    static_cast<cudaStream_t>(stream));
 }

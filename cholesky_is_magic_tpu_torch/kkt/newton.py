@@ -47,15 +47,18 @@ def dense_kkt_operator(
     dbound: float = 0.0,
     krylov_steps: int = 0,
     krylov_gate=None,
+    per_lane: bool = False,
 ) -> KKTOperator:
     """Dense operator over ops.dense (dbound retry, refinement, optional
-    gated PCG)."""
+    gated PCG; ``per_lane``: both branches selected per lane, for a lane
+    under ``torch.func.vmap``)."""
 
     def prepare_scaled_normal(s):
         return dense_ops.prepare_normal(
             A, s, row_boost=row_boost, refine_steps=refine_steps,
             true_residual=true_residual, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
+            per_lane=per_lane,
         )
 
     def solve_scaled_normal(s, g):

@@ -13,7 +13,8 @@ module: a fusing compiler may contract the split and break it.
 
 ``dd_matvec`` / ``dd_rmatvec`` are the hot primitives (every refinement
 residual and the pdas_dd right-hand sides).  For float32 CUDA tensors they
-launch the hand-written kernels of :mod:`.dd_cuda`; for a CPU tensor, and
+launch the hand-written kernels of :mod:`.dd_cuda` (under ``torch.func.vmap``
+their batched launch); for a CPU tensor, and
 for any other dtype on the card, they run ``_dd_matvec_plain``, the torch
 form of the JAX package's ``_dd_matvec_xla`` (which takes that package's
 non-f32 operands too).  The route is chosen from the operands
@@ -217,22 +218,26 @@ def dd_dot(a: torch.Tensor, b: torch.Tensor) -> DD:
 def _dd_matvec_plain(A: torch.Tensor, x: torch.Tensor) -> DD:
     """The plain form of the compensated matvec (the JAX package's
     ``_dd_matvec_xla``): error-free elementwise products + tree dd-sum.
-    The reference the CUDA kernels are held against; the CPU path."""
-    p = two_prod(A, x[None, :])
+    The reference the CUDA kernels are held against; the CPU path.  Leading
+    axes of A and x are lanes: (B, m, n) and (B, n) give each lane's
+    product, bit-equal to the call on that lane alone (the plain form of
+    the batched kernels; ``A.mT`` for Aᵀ·x)."""
+    p = two_prod(A, x.unsqueeze(-2))
     return dd_sum(p, axis=-1)
 
 
 def dd_matvec(A: torch.Tensor, x: torch.Tensor) -> DD:
     """Compensated A @ x: error-free products, eps^2-class total.
 
-    Float32 CUDA tensors go to the hand-written kernel
-    (:func:`.dd_cuda.dd_mv`, which raises on what it cannot take); a CPU
-    tensor, or another dtype on the card, to the plain form.
+    Float32 CUDA tensors go to the hand-written kernel through its operator
+    (:func:`.dd_cuda.dd_mv_op`: :func:`.dd_cuda.dd_mv`, or under
+    ``torch.func.vmap`` the batched launch; it raises on what it cannot
+    take); a CPU tensor, or another dtype on the card, to the plain form.
     """
     if takes_kernel(A.device, A.dtype, x.dtype):
         from cholesky_is_magic_tpu_torch.ops import dd_cuda
 
-        return DD(*dd_cuda.dd_mv(A, x))
+        return DD(*dd_cuda.dd_mv_op(A, x))
     return _dd_matvec_plain(A, x)
 
 
@@ -243,7 +248,7 @@ def dd_rmatvec(A: torch.Tensor, x: torch.Tensor) -> DD:
     if takes_kernel(A.device, A.dtype, x.dtype):
         from cholesky_is_magic_tpu_torch.ops import dd_cuda
 
-        return DD(*dd_cuda.dd_rmv(A, x))
+        return DD(*dd_cuda.dd_rmv_op(A, x))
     return _dd_matvec_plain(A.T, x)
 
 

@@ -25,9 +25,21 @@ not bit for bit: the summation order differs.  :func:`rmv_slab_plain` is
 Aᵀ·x in plain PyTorch in the kernel's own order (rows ascending inside a
 slab, slabs ascending), which the kernel matches bit for bit.
 
+Batches: :func:`dd_mv_batched` / :func:`dd_rmv_batched`
+(``cim_dd_mv_f32_batched`` / ``cim_dd_rmv_f32_batched``) run B lanes of the
+same (m, n) in one launch, a lane per block row of the grid, each lane
+bit-equal to the single call on it.  They replace what the JAX package gets
+from ``pallas_call``'s batching rule when the batched solvers vmap the two
+Pallas kernels.  ``ops.dd`` reaches the kernels through the custom operators
+``cim::dd_mv`` / ``cim::dd_rmv`` (:func:`dd_mv_op`, :func:`dd_rmv_op`),
+whose ``torch.func.vmap`` rule launches the batched kernel once for the
+whole batch: a vmapped solver loop (``parallel.batched``) then takes the
+kernels with the batch axis written out, where a raw pointer of a vmapped
+tensor would not exist.
+
 The library is built at first use by :mod:`.cuda_build`.  Importing this
 module needs no CUDA toolkit.  ``LAUNCHES`` counts the wrapper calls that
-launched a kernel.
+launched a kernel, single and batched apart.
 """
 
 from __future__ import annotations
@@ -41,13 +53,19 @@ import torch
 from cholesky_is_magic_tpu_torch.ops import cuda_build
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 
-LAUNCHES = {"mv": 0, "rmv": 0}
+LAUNCHES = {"mv": 0, "rmv": 0, "mv_batched": 0, "rmv_batched": 0}
 
 _SIGNATURES = {
     "cim_dd_mv_f32": [_P, _P, _P, _P, _I, _I, _LL, _P],
     "cim_dd_rmv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _I,
                        _P],
+    "cim_dd_mv_f32_batched": [_P, _P, _P, _P, _I, _I, _LL, _I, _LL, _LL, _P],
+    "cim_dd_rmv_f32_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL,
+                               _I, _I, _I, _LL, _LL, _P],
 }
+
+# Lanes of one batched launch: the grid's y (mv) or z (rmv) extent.
+MAX_LANES = 65535
 
 # Columns per block of the Aᵀ·x kernel (kRmvCtaCols of csrc/dd_matvec.cu):
 # one ticket each, and the width of a column block in rmv_slabs' count, which
@@ -87,6 +105,15 @@ def rmv_slabs(m: int, n: int, sms: int) -> tuple[int, int]:
     return -(-m // rows), rows
 
 
+def _tickets(device, stream, count: int) -> torch.Tensor:
+    """At least ``count`` zeroed tickets for launches on ``stream``."""
+    tickets = _TICKETS.get((device, stream))
+    if tickets is None or tickets.numel() < count:
+        tickets = torch.zeros(count, dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = tickets
+    return tickets
+
+
 def dd_mv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A·x in double-word on the card: (hi, lo), each (m,) f32."""
     _check(A, x, 1, "dd_mv")
@@ -121,11 +148,7 @@ def dd_rmv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
     part = torch.empty((2, slabs, ldp), dtype=torch.float32, device=A.device)
     lib = cuda_build.load(_SIGNATURES)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    blocks = -(-n // RMV_CTA_COLS)
-    tickets = _TICKETS.get((A.device, stream))
-    if tickets is None or tickets.numel() < blocks:
-        tickets = torch.zeros(blocks, dtype=torch.int32, device=A.device)
-        _TICKETS[(A.device, stream)] = tickets
+    tickets = _tickets(A.device, stream, -(-n // RMV_CTA_COLS))
     LAUNCHES["rmv"] += 1
     cuda_build.raise_on(
         lib.cim_dd_rmv_f32(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
@@ -134,6 +157,126 @@ def dd_rmv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
                            A.stride(0), ldp, slabs, rows, stream),
         "dd_rmv")
     return hi, lo
+
+
+def _check_batched(A: torch.Tensor, x: torch.Tensor, k: int, name: str) -> None:
+    """As :func:`_check` for (B, m, n) A and (B, ·) x: float32 CUDA tensors
+    on one device, unit stride along a row and along x, any lane and row
+    strides (0 shares one operand across the lanes), 1 <= B <= MAX_LANES."""
+    if not (A.is_cuda and x.is_cuda):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if A.device != x.device:
+        raise ValueError(f"{name}: A on {A.device}, x on {x.device}")
+    if A.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 (got {A.dtype}, {x.dtype})")
+    if (A.dim() != 3 or x.dim() != 2 or x.shape[0] != A.shape[0]
+            or x.shape[1] != A.shape[1 + k]):
+        raise ValueError(
+            f"{name}: shapes {tuple(A.shape)} and {tuple(x.shape)} do not match"
+        )
+    if not 1 <= A.shape[0] <= MAX_LANES:
+        raise ValueError(f"{name}: {A.shape[0]} lanes, the kernel takes 1 to "
+                         f"{MAX_LANES}")
+    if A.stride(2) != 1 or x.stride(1) != 1:
+        raise ValueError(f"{name} takes rows and x with unit stride")
+
+
+def dd_mv_batched(A: torch.Tensor, x: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A[k]·x[k] in double-word for every lane k in one launch: (hi, lo),
+    each (B, m) f32; lane k bit-equal to ``dd_mv(A[k], x[k])``."""
+    _check_batched(A, x, 1, "dd_mv_batched")
+    lanes, m, n = A.shape
+    hi = torch.empty(lanes, m, dtype=torch.float32, device=A.device)
+    lo = torch.empty(lanes, m, dtype=torch.float32, device=A.device)
+    if m == 0:
+        return hi, lo
+    lib = cuda_build.load(_SIGNATURES)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    LAUNCHES["mv_batched"] += 1
+    cuda_build.raise_on(
+        lib.cim_dd_mv_f32_batched(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
+                                  lo.data_ptr(), m, n, A.stride(1), lanes,
+                                  A.stride(0), x.stride(0), stream),
+        "dd_mv_batched")
+    return hi, lo
+
+
+def dd_rmv_batched(A: torch.Tensor, x: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A[k]ᵀ·x[k] in double-word for every lane k in one launch: (hi, lo),
+    each (B, n) f32.  The slab partition is the single call's
+    (:func:`rmv_slabs` of one lane), so lane k is bit-equal to
+    ``dd_rmv(A[k], x[k])``; one ticket per (lane, column block)."""
+    _check_batched(A, x, 0, "dd_rmv_batched")
+    lanes, m, n = A.shape
+    if m == 0 or n == 0:
+        zero = torch.zeros(lanes, n, dtype=torch.float32, device=A.device)
+        return zero, zero.clone()
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    slabs, rows = rmv_slabs(m, n, sms)
+    ldp = -(-n // 4) * 4
+    hi = torch.empty(lanes, n, dtype=torch.float32, device=A.device)
+    lo = torch.empty(lanes, n, dtype=torch.float32, device=A.device)
+    part = torch.empty((2, lanes, slabs, ldp), dtype=torch.float32,
+                       device=A.device)
+    lib = cuda_build.load(_SIGNATURES)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    tickets = _tickets(A.device, stream, lanes * -(-n // RMV_CTA_COLS))
+    LAUNCHES["rmv_batched"] += 1
+    cuda_build.raise_on(
+        lib.cim_dd_rmv_f32_batched(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
+                                   lo.data_ptr(), part[0].data_ptr(),
+                                   part[1].data_ptr(), tickets.data_ptr(), m,
+                                   n, A.stride(1), ldp, slabs, rows, lanes,
+                                   A.stride(0), x.stride(0), stream),
+        "dd_rmv_batched")
+    return hi, lo
+
+
+def _lanes(batch: int, args, in_dims):
+    """The vmap rule's operands with the batch axis first: a vmapped one
+    moved there, an unbatched one expanded (lane stride 0); rows with a
+    non-unit stride are made contiguous for the kernel."""
+    out = []
+    for t, d in zip(args, in_dims):
+        t = t.movedim(d, 0) if d is not None else t.expand(batch, *t.shape)
+        out.append(t if t.stride(-1) == 1 else t.contiguous())
+    return out
+
+
+@torch.library.custom_op("cim::dd_mv", mutates_args=())
+def dd_mv_op(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dd_mv` as an operator; under ``torch.func.vmap`` one
+    :func:`dd_mv_batched` launch for the whole batch."""
+    return dd_mv(A, x)
+
+
+@dd_mv_op.register_fake
+def _(A, x):
+    return A.new_empty(A.shape[0]), A.new_empty(A.shape[0])
+
+
+@dd_mv_op.register_vmap
+def _(info, in_dims, A, x):
+    return dd_mv_batched(*_lanes(info.batch_size, (A, x), in_dims)), (0, 0)
+
+
+@torch.library.custom_op("cim::dd_rmv", mutates_args=())
+def dd_rmv_op(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dd_rmv` as an operator; under ``torch.func.vmap`` one
+    :func:`dd_rmv_batched` launch for the whole batch."""
+    return dd_rmv(A, x)
+
+
+@dd_rmv_op.register_fake
+def _(A, x):
+    return A.new_empty(A.shape[1]), A.new_empty(A.shape[1])
+
+
+@dd_rmv_op.register_vmap
+def _(info, in_dims, A, x):
+    return dd_rmv_batched(*_lanes(info.batch_size, (A, x), in_dims)), (0, 0)
 
 
 def rmv_slab_plain(A: torch.Tensor, x: torch.Tensor, slabs: int,

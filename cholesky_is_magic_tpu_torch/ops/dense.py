@@ -14,7 +14,10 @@ The factorization and triangular solves are ``torch.linalg`` (the JAX
 package leaves them to XLA's library Cholesky too); the refinement
 residuals run through the double-word kernels of :mod:`.dd`.  Where the JAX
 package branches with ``lax.cond`` (the dbound retry), the port branches in
-Python on a 0-dim tensor, which costs one host sync per factorization.
+Python on a 0-dim tensor, which costs one host sync per factorization; with
+``per_lane=True`` (a lane of a batched solve under ``torch.func.vmap``) it
+computes both branches and selects per lane, as ``lax.cond`` does under
+``jax.vmap``.
 """
 
 from __future__ import annotations
@@ -138,6 +141,7 @@ def prepare_normal(
     krylov_steps: int = 0,
     krylov_gate=None,
     method: str = "direct",
+    per_lane: bool = False,
 ):
     """Assemble and factor N = (A·diag(d))(A·diag(d))ᵀ ONCE; return
     (solve_fn, ok) where solve_fn(g) runs the refined triangular solves.
@@ -149,22 +153,39 @@ def prepare_normal(
     replaces Richardson refinement by flexible PCG (ops.krylov), per call
     when ``krylov_gate`` (a 0-dim bool tensor) is given.
 
-    Only ``method="direct"`` is ported; ``"inverse"`` (the batched
-    kernel) raises.
+    ``method``: ``"direct"`` factors with ``cholesky_ex`` and solves by two
+    triangular solves per right-hand side; ``"inverse"`` (the batched
+    solves' kernel, as in the JAX package) factors with
+    ``ops.chol.blocked_cholesky`` (its retry too), forms W = L⁻¹ once by a
+    triangular solve against I, and solves by two products, Wᵀ(W·g).
+
+    ``per_lane`` (for a lane under ``torch.func.vmap``): the retry is
+    computed always and selected where the first factorization failed, and
+    the Krylov gate selects between both paths, with no host read.  The
+    results are the host branches' results.
     """
-    if method != "direct":
-        raise NotImplementedError(
-            f"prepare_normal(method={method!r}): only 'direct' is ported"
-        )
+    if method not in ("direct", "inverse"):
+        raise ValueError(f"prepare_normal: unknown method {method!r}")
     AD, N = _scaled_normal(A, d, row_boost)
-    f = factorize(N)
-    if dbound > 0.0 and not bool(f.ok):
+    blocked = method == "inverse"
+    f = factorize(N, blocked=blocked)
+    if dbound > 0.0 and (per_lane or not bool(f.ok)):
         jitter = dbound * torch.max(torch.diagonal(N))
         eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-        f = factorize(N + jitter * eye)
+        retry = factorize(N + jitter * eye, blocked=blocked)
+        f = retry if not per_lane else CholFactors(
+            L=torch.where(f.ok, f.L, retry.L),
+            ok=torch.where(f.ok, f.ok, retry.ok))
 
-    def solve1(g):
-        return chol_solve(f.L, g)
+    if blocked:
+        eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
+        W = torch.linalg.solve_triangular(f.L, eye, upper=False)
+
+        def solve1(g):
+            return W.T @ (W @ g)
+    else:
+        def solve1(g):
+            return chol_solve(f.L, g)
 
     def richardson_fn(g):
         y = solve1(g)
@@ -190,7 +211,8 @@ def prepare_normal(
             y = x.to_working()
             return torch.where(f.ok, y, torch.zeros_like(y))
 
-        return krylov.gated(pcg_fn, richardson_fn, krylov_gate), f.ok
+        return (krylov.gated(pcg_fn, richardson_fn, krylov_gate,
+                             per_lane=per_lane), f.ok)
 
     return richardson_fn, f.ok
 

@@ -9,7 +9,8 @@ double-word.  It converges where plain Richardson refinement stops
 curvature freezes the step, and the best-residual iterate is returned.
 
 The JAX ``lax.fori_loop`` is a Python loop here and ``lax.cond`` in
-:func:`gated` a Python branch on a 0-dim tensor (one host sync per solve).
+:func:`gated` a Python branch on a 0-dim tensor (one host sync per solve),
+or, for a lane of a batched solve, both paths selected per lane.
 """
 
 from __future__ import annotations
@@ -22,14 +23,18 @@ from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 
 
-def gated(pcg_fn, cheap_fn, gate):
+def gated(pcg_fn, cheap_fn, gate, per_lane: bool = False):
     """Per-call choice between the PCG path and the cheap Richardson path
     on a 0-dim bool tensor ``gate`` (True -> PCG), sharing one
-    factorization.  ``gate=None`` returns the PCG path unconditionally."""
+    factorization.  ``gate=None`` returns the PCG path unconditionally.
+    ``per_lane`` (a lane under ``torch.func.vmap``) runs both paths and
+    selects, as ``lax.cond`` does under ``jax.vmap``."""
     if gate is None:
         return pcg_fn
 
     def solve_fn(g):
+        if per_lane:
+            return torch.where(gate, pcg_fn(g), cheap_fn(g))
         return pcg_fn(g) if bool(gate) else cheap_fn(g)
 
     return solve_fn

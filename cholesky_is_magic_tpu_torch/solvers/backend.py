@@ -54,12 +54,16 @@ def row_boost(lp):
 
 def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
                            mesh=None, dbound=0.0, krylov_steps=0,
-                           krylov_gate=None, method="direct"):
+                           krylov_gate=None, method="direct", per_lane=False):
     """Factor (A·diag(d))(A·diag(d))ᵀ ONCE on the backend the operand set
-    selects; returns (solve_fn, ok).  ``method`` is read by the dense
-    backend only."""
+    selects; returns (solve_fn, ok).  ``method`` and ``per_lane`` (a lane
+    of a batched solve: the host branches become per-lane selects) are read
+    by the dense backend only; the sparse one refuses ``per_lane``."""
     check_backend(lp, engine, mesh)
     if isinstance(lp, SparseKKTLP):
+        if per_lane:
+            raise NotImplementedError(
+                "batched solves on the sparse engine are not ported")
         return engine.prepare_normal_ell(
             lp.E, lp.ET, d, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
@@ -69,7 +73,7 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
     return dense_ops.prepare_normal(
         lp.A, d, row_boost=row_boost, refine_steps=refine_steps,
         dbound=dbound, krylov_steps=krylov_steps,
-        krylov_gate=krylov_gate, method=method,
+        krylov_gate=krylov_gate, method=method, per_lane=per_lane,
     )
 
 

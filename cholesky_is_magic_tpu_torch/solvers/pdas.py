@@ -22,7 +22,7 @@ ported: ``gondzio_correctors > 0`` raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,6 +46,7 @@ from cholesky_is_magic_tpu_torch.solvers.backend import (
     row_boost as _row_boost,
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
+from cholesky_is_magic_tpu_torch.utils import lanes
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
 
@@ -340,11 +341,14 @@ def pdas(
     return _pdas_loop(state, cfg, engine)
 
 
-def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine):
+def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine,
+                   per_lane: bool = False):
     """one-pdas-iteration (:319-383). Returns (new_st, gap, pviol, step, ok).
 
     Repair, recenter and Newton all reduce to ONE scaled normal solve
-    (A·diag(s))(A·diag(s))ᵀ y = rhs with a branch-selected (s, rhs)."""
+    (A·diag(s))(A·diag(s))ᵀ y = rhs with a branch-selected (s, rhs).
+    ``per_lane``: a lane under ``torch.func.vmap`` (the dbound retry and
+    the Krylov gate become per-lane selects)."""
     lp = st.lp
     sl, su, wu, zl, primal, dual = _violation(st)
     pobj, dobj = _objectives(st, cfg.clamp)
@@ -376,7 +380,7 @@ def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine):
     solve_fn, ok = _prepare_normal_backend(
         lp, engine, s_sel, boost, cfg.refine_steps, None,
         cfg.dbound, cfg.krylov_steps, krylov_gate=gate,
-        method=cfg.factor_method,
+        method=cfg.factor_method, per_lane=per_lane,
     )
     y = solve_fn(rhs_sel)
     ty = rmv(y)
@@ -484,36 +488,128 @@ def _new_trace(cfg: PDASConfig, n: int, dtype, device, n_iterates: int):
     return trace
 
 
+class _Carry(NamedTuple):
+    """The loop's carry besides the iterate and its count (the JAX
+    ``while_loop`` carry): 0-dim tensors, or (B,) in a batch."""
+
+    repair_flag: torch.Tensor
+    gap: torch.Tensor
+    pviol: torch.Tensor
+    best_gap: torch.Tensor
+    bad_count: torch.Tensor
+    since_best: torch.Tensor
+    status: torch.Tensor
+    best_st: tuple  # (x, y, w, z) of the best pre-step iterate
+
+
+def _start(st: PDASState) -> _Carry:
+    dt, dev = st.x.dtype, st.x.device
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return _Carry(
+        repair_flag=torch.zeros((), dtype=torch.bool, device=dev),
+        gap=inf, pviol=inf, best_gap=inf, bad_count=zero, since_best=zero,
+        status=torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev),
+        best_st=(st.x, st.y, st.w, st.z),
+    )
+
+
+def _keep_going(cfg: PDASConfig, c: _Carry):
+    """The loop condition but the iteration budget, as a 0-dim bool tensor.
+    The duality-gap stop only counts at a primal-feasible iterate."""
+    converged = (c.gap < cfg.gap_tol) & (c.pviol < cfg.primal_feasible_tol)
+    return (~converged & (c.status == Status.RUNNING)
+            & (c.since_best < cfg.stall_exit_iters)
+            & ~_bounced(cfg, c.gap, c.best_gap))
+
+
+def _advance(cfg: PDASConfig, c: _Carry, st: PDASState, gap_i, pviol, step,
+             ok) -> _Carry:
+    """The carry after one iteration from ``st`` that measured gap_i, pviol,
+    step and ok."""
+    # Feasibility-gated best-iterate tracking of the PRE-step state.
+    improved = (gap_i < c.best_gap) & (pviol < cfg.primal_feasible_tol)
+    best_st = tuple(
+        torch.where(improved, new, b)
+        for b, new in zip(c.best_st, (st.x, st.y, st.w, st.z))
+    )
+    best_gap = torch.where(improved, gap_i, c.best_gap)
+    since_best = torch.where(improved, 0, c.since_best + 1).to(torch.int32)
+    stalled = torch.isfinite(step) & (step < cfg.stall_step)  # :393
+    # Divergence detector: 4 consecutive gap increases arm the recenter.
+    grew = torch.isfinite(step) & (gap_i > c.gap)
+    bad_count = torch.where(grew, c.bad_count + 1, 0).to(torch.int32)
+    repair_flag = stalled | (bad_count >= 4)
+    bad_count = torch.where(repair_flag, 0, bad_count).to(torch.int32)
+    return _Carry(
+        repair_flag=repair_flag, gap=gap_i, pviol=pviol, best_gap=best_gap,
+        bad_count=bad_count, since_best=since_best,
+        status=torch.where(ok, Status.RUNNING, Status.SINGULAR).to(torch.int32),
+        best_st=best_st,
+    )
+
+
+def _finish(cfg: PDASConfig, st: PDASState, c: _Carry) -> dict:
+    """The result's tensors from the last iterate and the carry."""
+    lp = st.lp
+    # Return the best-seen iterate (<=: on convergence `gap` belongs to the
+    # pre-step iterate recorded as best, the carry to the post-step one).
+    use_best = c.best_gap <= c.gap
+    bx, by, bw, bz = (
+        torch.where(use_best, b, cur)
+        for b, cur in zip(c.best_st, (st.x, st.y, st.w, st.z))
+    )
+    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
+    exit_bounced = _bounced(cfg, c.gap, c.best_gap)  # on the PRE-min exit gap
+    gap = torch.minimum(c.best_gap, c.gap)
+    pobj, dobj = _objectives(st, cfg.clamp)
+    mv_f, _ = _mv_rmv(lp)
+    primal_final = mv_f(st.x) - lp.b
+    resid = torch.linalg.norm(primal_final)
+    feasible = torch.max(torch.abs(primal_final)) < cfg.primal_feasible_tol
+    final_status = torch.where(
+        c.status != Status.RUNNING,
+        c.status,
+        torch.where(
+            (gap < cfg.gap_tol) & feasible,
+            Status.OPTIMAL,
+            torch.where(
+                (c.since_best >= cfg.stall_exit_iters) | exit_bounced,
+                Status.PRECISION_FLOOR,
+                Status.MAX_ITERS,
+            ),
+        ),
+    ).to(torch.int32)
+    return dict(x=st.x, objective=pobj, status=final_status,
+                residual_norm=resid, gap=gap, dual_objective=dobj, y=st.y,
+                w=st.w, z=st.z)
+
+
+def _result(out: dict, iterations, trace, cfg: PDASConfig) -> SolveResult:
+    return SolveResult(
+        x=out["x"],
+        objective=out["objective"],
+        status=out["status"],
+        iterations=iterations,
+        residual_norm=out["residual_norm"],
+        extra={
+            "gap": out["gap"], "dual_objective": out["dual_objective"],
+            "y": out["y"], "w": out["w"], "z": out["z"],
+            "trace": {
+                "gap": trace[0], "objective": trace[1], "step": trace[2],
+                **({"x": trace[3]} if cfg.record_iterates else {}),
+            },
+        },
+    )
+
+
 @highest_precision
 def _pdas_loop(state: PDASState, cfg: PDASConfig, engine) -> SolveResult:
     lp = state.lp
-    dt, dev = state.x.dtype, state.x.device
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    running = torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev)
-    singular = torch.tensor(Status.SINGULAR, dtype=torch.int32, device=dev)
-    trace = _new_trace(cfg, state.x.shape[0], dt, dev, 1)
-
-    st = state
-    i = 0
-    repair_flag = torch.zeros((), dtype=torch.bool, device=dev)
-    gap, pviol, best_gap = inf, inf, inf
-    bad_count = torch.zeros((), dtype=torch.int32, device=dev)
-    since_best = torch.zeros((), dtype=torch.int32, device=dev)
-    status = running
-    best_st = (st.x, st.y, st.w, st.z)
-
-    def keep_going():
-        # The duality-gap stop only counts at a primal-feasible iterate.
-        converged = (gap < cfg.gap_tol) & (pviol < cfg.primal_feasible_tol)
-        return bool(
-            ~converged
-            & (status == Status.RUNNING)
-            & (since_best < cfg.stall_exit_iters)
-            & ~_bounced(cfg, gap, best_gap)
-        )
-
-    while i < cfg.max_iters and keep_going():
-        new_st, gap_i, pviol, step, ok = _one_iteration(st, repair_flag, cfg,
+    trace = _new_trace(cfg, state.x.shape[0], state.x.dtype, state.x.device, 1)
+    st, c, i = state, _start(state), 0
+    while i < cfg.max_iters and bool(_keep_going(cfg, c)):
+        new_st, gap_i, pviol, step, ok = _one_iteration(st, c.repair_flag, cfg,
                                                         engine)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap_i, torch.dot(st.x, lp.c), step]
@@ -521,62 +617,85 @@ def _pdas_loop(state: PDASState, cfg: PDASConfig, engine) -> SolveResult:
                 vals.append(st.x)
             for buf, v in zip(trace, vals):
                 buf[i] = v
-        # Feasibility-gated best-iterate tracking of the PRE-step state.
-        improved = (gap_i < best_gap) & (pviol < cfg.primal_feasible_tol)
-        best_st = tuple(
-            torch.where(improved, c, b)
-            for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
-        )
-        best_gap = torch.where(improved, gap_i, best_gap)
-        since_best = torch.where(improved, 0, since_best + 1).to(torch.int32)
-        stalled = torch.isfinite(step) & (step < cfg.stall_step)  # :393
-        # Divergence detector: 4 consecutive gap increases arm the recenter.
-        grew = torch.isfinite(step) & (gap_i > gap)
-        bad_count = torch.where(grew, bad_count + 1, 0).to(torch.int32)
-        repair_flag = stalled | (bad_count >= 4)
-        bad_count = torch.where(repair_flag, 0, bad_count).to(torch.int32)
-        status = torch.where(ok, running, singular)
-        st, gap, i = new_st, gap_i, i + 1
+        c = _advance(cfg, c, st, gap_i, pviol, step, ok)
+        st, i = new_st, i + 1
+    return _result(_finish(cfg, st, c), torch.tensor(i, dtype=torch.int32),
+                   trace, cfg)
 
-    # Return the best-seen iterate (<=: on convergence `gap` belongs to the
-    # pre-step iterate recorded as best, the carry to the post-step one).
-    use_best = best_gap <= gap
-    bx, by, bw, bz = (
-        torch.where(use_best, b, c)
-        for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
-    )
-    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
-    exit_bounced = _bounced(cfg, gap, best_gap)  # on the PRE-min exit gap
-    gap = torch.minimum(best_gap, gap)
-    pobj, dobj = _objectives(st, cfg.clamp)
-    mv_f, _ = _mv_rmv(lp)
-    primal_final = mv_f(st.x) - lp.b
-    resid = torch.linalg.norm(primal_final)
-    feasible = torch.max(torch.abs(primal_final)) < cfg.primal_feasible_tol
-    final_status = torch.where(
-        status != Status.RUNNING,
-        status,
-        torch.where(
-            (gap < cfg.gap_tol) & feasible,
-            Status.OPTIMAL,
-            torch.where(
-                (since_best >= cfg.stall_exit_iters) | exit_bounced,
-                Status.PRECISION_FLOOR,
-                Status.MAX_ITERS,
-            ),
-        ),
-    ).to(torch.int32)
-    return SolveResult(
-        x=st.x,
-        objective=pobj,
-        status=final_status,
-        iterations=torch.tensor(i, dtype=torch.int32),
-        residual_norm=resid,
-        extra={
-            "gap": gap, "dual_objective": dobj, "y": st.y, "w": st.w, "z": st.z,
-            "trace": {
-                "gap": trace[0], "objective": trace[1], "step": trace[2],
-                **({"x": trace[3]} if cfg.record_iterates else {}),
-            },
-        },
-    )
+
+def _write_trace(trace, i, active, vals) -> list:
+    """Each active lane's values into its own row ``i`` of the (B, rows,
+    ...) trace buffers (a frozen lane writes nothing)."""
+    if not trace or trace[0].shape[1] == 0:
+        return trace
+    rows = torch.arange(trace[0].shape[1], device=i.device)
+    hit = active[:, None] & (rows[None, :] == i[:, None])
+    out = []
+    for buf, v in zip(trace, vals):
+        h = hit.view(*hit.shape, *([1] * (buf.dim() - 2)))
+        out.append(torch.where(h, v.to(buf.dtype).unsqueeze(1), buf))
+    return out
+
+
+def _lane_loop(cfg: PDASConfig, st, c, step, finish, trace, iterates):
+    """The batched ``while_loop`` over stacked states ``st`` with the
+    per-lane carry ``c`` (of :func:`_start` or its pdas_dd twin): each
+    iteration is ``lanes.vmap(step, st, c)`` -> ((x, y, w, z), new carry,
+    the trace's (gap, objective, step)); a lane whose own condition
+    (:func:`_keep_going` and the budget) fails keeps its iterate, carry,
+    count and trace rows from then on, as a lane of the JAX package's
+    vmapped ``while_loop`` does.  One host read per iteration: whether any
+    lane is still running.  ``iterates(st)`` gives the trace's iterate
+    columns.  Returns (``lanes.vmap(finish, st, c)``, the per-lane counts,
+    the trace)."""
+    i = torch.zeros(c.gap.shape[0], dtype=torch.int32, device=c.gap.device)
+
+    def active_lanes():
+        return (i < cfg.max_iters) & lanes.vmap(
+            lambda k: _keep_going(cfg, k), c)
+
+    active = active_lanes()
+    while bool(active.any()):
+        new_xyzw, new_c, vals = lanes.vmap(step, st, c)
+        if cfg.record_trace or cfg.record_iterates:
+            vals = list(vals) + (iterates(st) if cfg.record_iterates else [])
+            trace = _write_trace(trace, i, active, vals)
+        x, y, w, z = lanes.select(active, new_xyzw, (st.x, st.y, st.w, st.z))
+        st = dataclasses.replace(st, x=x, y=y, w=w, z=z)
+        c = lanes.select(active, new_c, c)
+        i = i + active.to(torch.int32)
+        active = active_lanes()
+    return lanes.vmap(finish, st, c), i, trace
+
+
+def _lane_trace(cfg: PDASConfig, B: int, n: int, dtype, device,
+                n_iterates: int) -> list:
+    """:func:`_new_trace`'s buffers with a leading lane axis."""
+    return [t.expand(B, *t.shape).clone()
+            for t in _new_trace(cfg, n, dtype, device, n_iterates)]
+
+
+@highest_precision
+def _pdas_lanes(states: PDASState, cfg: PDASConfig) -> SolveResult:
+    """:func:`_pdas_loop` over stacked dense states (every tensor with a
+    leading lane axis B) by :func:`_lane_loop`: each iteration vmaps
+    :func:`_one_iteration` with ``per_lane`` (no host read inside it).
+    Returns one SolveResult whose tensors have the lane axis first."""
+    if not isinstance(states.lp, DeviceLP):
+        raise NotImplementedError("batched solves on the sparse engine are "
+                                  "not ported")
+    _check_config(cfg)
+    B, n = states.x.shape
+    trace = _lane_trace(cfg, B, n, states.x.dtype, states.x.device, 1)
+
+    def step(st, c):
+        new_st, gap_i, pviol, stp, ok = _one_iteration(
+            st, c.repair_flag, cfg, None, per_lane=True)
+        return ((new_st.x, new_st.y, new_st.w, new_st.z),
+                _advance(cfg, c, st, gap_i, pviol, stp, ok),
+                (gap_i, torch.dot(st.x, st.lp.c), stp))
+
+    out, i, trace = _lane_loop(
+        cfg, states, lanes.vmap(_start, states), step,
+        lambda s, k: _finish(cfg, s, k), trace, lambda s: [s.x])
+    return _result(out, i, trace, cfg)

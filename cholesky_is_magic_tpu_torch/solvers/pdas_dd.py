@@ -17,7 +17,7 @@ a Python branch.  Gondzio correctors raise (see :mod:`.pdas`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -37,11 +37,15 @@ from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASState,
     _bounced,
     _check_config,
+    _keep_going,
+    _lane_loop,
+    _lane_trace,
     _new_trace,
     make_pdas,
     make_pdas_sparse,
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
+from cholesky_is_magic_tpu_torch.utils import lanes
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
 
@@ -157,12 +161,16 @@ def _boost(lp):
     return (~lp.row_mask).to(torch.float32)
 
 
-def _make_op(lp, cfg: PDASConfig, engine, gate):
+def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
     """KKT operator on the operand set: the fully sparse tile engine, or the
     dense one with true-residual refinement (refined against the
     UNASSEMBLED operator in double-word, which corrects the f32 rounding
-    of assembling N; otherwise a ~1e-7 direction floor)."""
+    of assembling N; otherwise a ~1e-7 direction floor).  ``per_lane``: a
+    lane under ``torch.func.vmap`` (dense only)."""
     if isinstance(lp, SparseKKTLP):
+        if per_lane:
+            raise NotImplementedError(
+                "batched solves on the sparse engine are not ported")
         return ell_kkt_operator(
             lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
             dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
@@ -170,15 +178,19 @@ def _make_op(lp, cfg: PDASConfig, engine, gate):
     return dense_kkt_operator(
         lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
         true_residual=True, dbound=cfg.dbound,
-        krylov_steps=cfg.krylov_steps, krylov_gate=gate,
+        krylov_steps=cfg.krylov_steps, krylov_gate=gate, per_lane=per_lane,
     )
 
 
-def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None):
+def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
+                  per_lane: bool = False):
     """Min-norm LS correction of the entry iterate toward Ax = b in the
     Dikin metric (PDASConfig.entry_repair_tol), all in double-word with
     cfg.entry_repair_refines refinement passes; kept only where it reduced
     the relative inf-norm infeasibility on a non-singular factor.
+    ``per_lane`` (a lane under ``torch.func.vmap``): the repair is computed
+    always and kept only where the entry violation exceeds the tolerance,
+    as the JAX ``lax.cond`` pre-step under ``jax.vmap``.
 
     Returns (state, pviol_before, pviol_after)."""
     lp = state.lp
@@ -188,11 +200,12 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None):
     r0 = ddm.dd_neg(primal_dd)  # b - Ax
     bscale = 1.0 + torch.max(torch.abs(lp.b))
     pv0 = torch.max(torch.abs(r0.to_working())) / bscale
-    if not bool(pv0 > cfg.entry_repair_tol):
+    go = pv0 > cfg.entry_repair_tol
+    if not per_lane and not bool(go):
         return state, pv0, pv0
 
     x = state.x
-    op = _make_op(lp, cfg, engine, None)
+    op = _make_op(lp, cfg, engine, None, per_lane)
     boost = _boost(lp)
     s = _slack(lp.l, x.hi, lp.u, cfg.repair_slack_cap, mask)
     s = torch.where(mask, s, 0.0)  # padding inert in N and in dx
@@ -222,7 +235,11 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None):
     pv1 = torch.max(torch.abs(r1.to_working())) / bscale
     use = ok & (pv1 < pv0)
     x_out = DD(torch.where(use, x1.hi, x.hi), torch.where(use, x1.lo, x.lo))
-    return dataclasses.replace(state, x=x_out), pv0, torch.where(use, pv1, pv0)
+    pv_out = torch.where(use, pv1, pv0)
+    if per_lane:
+        x_out = ddm.dd_where(go, x_out, x)
+        pv_out = torch.where(go, pv_out, pv0)
+    return dataclasses.replace(state, x=x_out), pv0, pv_out
 
 
 def _dd_violation(st: PDASDDState):
@@ -438,7 +455,10 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
     return dw_dd, dx_dd, dy_dd, dz_dd, ok
 
 
-def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine):
+def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine,
+                   per_lane: bool = False):
+    """One double-word iteration.  Returns (new_st, gap, pviol, step, ok);
+    ``per_lane``: a lane under ``torch.func.vmap``."""
     lp = st.lp
     sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd = _dd_violation(st)
     pviol = torch.max(torch.abs(primal_dd.to_working()))
@@ -454,7 +474,7 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine):
     gate = None
     if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
         gate = gap < cfg.krylov_gate_gap
-    op = _make_op(lp, cfg, engine, gate)
+    op = _make_op(lp, cfg, engine, gate, per_lane)
     dw_dd, dx_dd, dy_dd, dz_dd, ok = _kkt_dd(
         st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg
     )
@@ -481,6 +501,100 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine):
     return new, gap, pviol, step_dd.to_working(), ok
 
 
+class _Carry(NamedTuple):
+    """The loop's carry besides the iterate and its count: 0-dim tensors,
+    or (B,) in a batch."""
+
+    gap: torch.Tensor
+    pviol: torch.Tensor
+    best_gap: torch.Tensor
+    since_best: torch.Tensor
+    status: torch.Tensor
+    best_st: tuple  # (x, y, w, z) of the best pre-step iterate, as DD
+
+
+def _start(st: PDASDDState) -> _Carry:
+    dt, dev = st.x.hi.dtype, st.x.hi.device
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    return _Carry(
+        gap=inf, pviol=inf, best_gap=inf,
+        since_best=torch.zeros((), dtype=torch.int32, device=dev),
+        status=torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev),
+        best_st=(st.x, st.y, st.w, st.z),
+    )
+
+
+def _advance(c: _Carry, st: PDASDDState, gap, pviol, ok) -> _Carry:
+    # Feasibility-gated best tracking of the PRE-step state.
+    improved = (gap < c.best_gap) & (pviol < 1e-2)
+    return _Carry(
+        gap=gap, pviol=pviol,
+        best_gap=torch.where(improved, gap, c.best_gap),
+        since_best=torch.where(improved, 0, c.since_best + 1).to(torch.int32),
+        status=torch.where(ok, Status.RUNNING, Status.SINGULAR).to(torch.int32),
+        best_st=tuple(ddm.dd_where(improved, new, b)
+                      for b, new in zip(c.best_st, (st.x, st.y, st.w, st.z))),
+    )
+
+
+def _finish(cfg: PDASConfig, st: PDASDDState, c: _Carry) -> dict:
+    """The result's tensors from the last iterate and the carry."""
+    use_best = c.best_gap <= c.gap
+    bx, by, bw, bz = (
+        ddm.dd_where(use_best, b, cur)
+        for b, cur in zip(c.best_st, (st.x, st.y, st.w, st.z))
+    )
+    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
+    exit_bounced = _bounced(cfg, c.gap, c.best_gap)  # on the PRE-min exit gap
+    gap = torch.minimum(c.best_gap, c.gap)
+    pobj_dd, dobj_dd = _dd_objectives(st, cfg.clamp)
+    primal = _dd_violation(st)[6].to_working()
+    final_status = torch.where(
+        c.status != Status.RUNNING,
+        c.status,
+        torch.where(
+            gap < cfg.gap_tol,
+            Status.OPTIMAL,
+            torch.where(
+                (c.since_best >= cfg.stall_exit_iters) | exit_bounced,
+                Status.PRECISION_FLOOR,
+                Status.MAX_ITERS,
+            ),
+        ),
+    ).to(torch.int32)
+    return dict(
+        x=st.x.to_working(), objective=pobj_dd.to_working(),
+        status=final_status, residual_norm=torch.linalg.norm(primal),
+        gap=gap, dual_objective=dobj_dd.to_working(), x_lo=st.x.lo,
+        y=st.y.to_working(), w=st.w.to_working(), z=st.z.to_working(),
+    )
+
+
+def _result(out: dict, iterations, trace, cfg: PDASConfig,
+            repair_info: dict) -> SolveResult:
+    return SolveResult(
+        x=out["x"],
+        objective=out["objective"],
+        status=out["status"],
+        iterations=iterations,
+        residual_norm=out["residual_norm"],
+        extra={
+            "gap": out["gap"],
+            **repair_info,
+            "dual_objective": out["dual_objective"],
+            "x_lo": out["x_lo"],
+            "y": out["y"],
+            "w": out["w"],
+            "z": out["z"],
+            "trace": {
+                "gap": trace[0], "objective": trace[1], "step": trace[2],
+                **({"x": trace[3], "x_lo": trace[4]}
+                   if cfg.record_iterates else {}),
+            },
+        },
+    )
+
+
 @highest_precision
 def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
     lp = state.lp
@@ -489,32 +603,11 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
         state, pv0, pv1 = _entry_repair(state, cfg, engine)
         repair_info = {"entry_repair": {"pviol_before": pv0,
                                         "pviol_after": pv1}}
-
-    dt, dev = state.x.hi.dtype, state.x.hi.device
-    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
-    running = torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev)
-    singular = torch.tensor(Status.SINGULAR, dtype=torch.int32, device=dev)
     # The trace is f32 even in an f64 run, as in the JAX package.
-    trace = _new_trace(cfg, state.x.hi.shape[0], torch.float32, dev, 2)
-
-    st = state
-    i = 0
-    gap, pviol, best_gap = inf, inf, inf
-    since_best = torch.zeros((), dtype=torch.int32, device=dev)
-    status = running
-    best_st = (st.x, st.y, st.w, st.z)
-
-    def keep_going():
-        # Gap stop only at a primal-feasible iterate.
-        converged = (gap < cfg.gap_tol) & (pviol < cfg.primal_feasible_tol)
-        return bool(
-            ~converged
-            & (status == Status.RUNNING)
-            & (since_best < cfg.stall_exit_iters)
-            & ~_bounced(cfg, gap, best_gap)
-        )
-
-    while i < cfg.max_iters and keep_going():
+    trace = _new_trace(cfg, state.x.hi.shape[0], torch.float32,
+                       state.x.hi.device, 2)
+    st, c, i = state, _start(state), 0
+    while i < cfg.max_iters and bool(_keep_going(cfg, c)):
         new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
@@ -523,58 +616,41 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
                 vals += [st.x.hi, st.x.lo]
             for buf, v in zip(trace, vals):
                 buf[i] = v
-        # Feasibility-gated best tracking of the PRE-step state.
-        improved = (gap < best_gap) & (pviol < 1e-2)
-        best_st = tuple(
-            ddm.dd_where(improved, c, b)
-            for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
-        )
-        best_gap = torch.where(improved, gap, best_gap)
-        since_best = torch.where(improved, 0, since_best + 1).to(torch.int32)
-        status = torch.where(ok, running, singular)
+        c = _advance(c, st, gap, pviol, ok)
         st, i = new_st, i + 1
+    return _result(_finish(cfg, st, c), torch.tensor(i, dtype=torch.int32),
+                   trace, cfg, repair_info)
 
-    use_best = best_gap <= gap
-    bx, by, bw, bz = (
-        ddm.dd_where(use_best, b, c)
-        for b, c in zip(best_st, (st.x, st.y, st.w, st.z))
-    )
-    st = dataclasses.replace(st, x=bx, y=by, w=bw, z=bz)
-    exit_bounced = _bounced(cfg, gap, best_gap)  # on the PRE-min exit gap
-    gap = torch.minimum(best_gap, gap)
-    pobj_dd, dobj_dd = _dd_objectives(st, cfg.clamp)
-    primal = _dd_violation(st)[6].to_working()
-    final_status = torch.where(
-        status != Status.RUNNING,
-        status,
-        torch.where(
-            gap < cfg.gap_tol,
-            Status.OPTIMAL,
-            torch.where(
-                (since_best >= cfg.stall_exit_iters) | exit_bounced,
-                Status.PRECISION_FLOOR,
-                Status.MAX_ITERS,
-            ),
-        ),
-    ).to(torch.int32)
-    return SolveResult(
-        x=st.x.to_working(),
-        objective=pobj_dd.to_working(),
-        status=final_status,
-        iterations=torch.tensor(i, dtype=torch.int32),
-        residual_norm=torch.linalg.norm(primal),
-        extra={
-            "gap": gap,
-            **repair_info,
-            "dual_objective": dobj_dd.to_working(),
-            "x_lo": st.x.lo,
-            "y": st.y.to_working(),
-            "w": st.w.to_working(),
-            "z": st.z.to_working(),
-            "trace": {
-                "gap": trace[0], "objective": trace[1], "step": trace[2],
-                **({"x": trace[3], "x_lo": trace[4]}
-                   if cfg.record_iterates else {}),
-            },
-        },
-    )
+
+@highest_precision
+def _pdas_dd_lanes(states: PDASDDState, cfg: PDASConfig) -> SolveResult:
+    """:func:`_pdas_dd_loop` over stacked dense states by
+    :func:`.pdas._lane_loop`: the entry repair and every iteration vmapped
+    with ``per_lane`` (no host read inside).  On the card in f32 each
+    iteration's double-word products run on the stacked operands through
+    the batched kernels."""
+    if not isinstance(states.lp, DeviceLP):
+        raise NotImplementedError("batched solves on the sparse engine are "
+                                  "not ported")
+    _check_config(cfg)
+    repair_info = {}
+    if cfg.entry_repair_tol > 0.0:
+        states, pv0, pv1 = lanes.vmap(
+            lambda s: _entry_repair(s, cfg, None, per_lane=True), states)
+        repair_info = {"entry_repair": {"pviol_before": pv0,
+                                        "pviol_after": pv1}}
+    B, n = states.x.hi.shape
+    trace = _lane_trace(cfg, B, n, torch.float32, states.x.hi.device, 2)
+
+    def step(st, c):
+        new_st, gap, pviol, stp, ok = _one_iteration(st, cfg, None,
+                                                     per_lane=True)
+        obj = torch.dot(st.x.hi, st.lp.c) + torch.dot(st.x.lo, st.lp.c)
+        return ((new_st.x, new_st.y, new_st.w, new_st.z),
+                _advance(c, st, gap, pviol, ok), (gap, obj, stp))
+
+    out, i, trace = _lane_loop(
+        cfg, states, lanes.vmap(_start, states), step,
+        lambda s, k: _finish(cfg, s, k), trace,
+        lambda s: [s.x.hi, s.x.lo])
+    return _result(out, i, trace, cfg, repair_info)

@@ -1,13 +1,120 @@
-"""Constructed-optimum LP fixtures (NumPy only).
+"""LP fixtures (NumPy only): random LPs, an MPS writer, the Netlib-scale
+synthetic LPs, the constructed-optimum LPs and the HiGHS oracle.
 
-Copies of ``NETLIB_SCALES`` and ``constructed_optimum_lp`` from the JAX
-package's ``utils/testing.py``, so that a machine without jax can build the
-same instances from the same seed.
+Copies of ``InequalityLP``, ``random_lp``, ``write_mps``, ``NETLIB_SCALES``,
+``netlib_like_lp``, ``constructed_optimum_lp`` and
+``scipy_reference_solution`` from the JAX package's ``utils/testing.py``, so
+that a machine without jax builds the same instances from the same seed
+(the same arrays and the same MPS text).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
+
+
+@dataclasses.dataclass
+class InequalityLP:
+    """min c'x  s.t.  A_ub x <= b_ub,  A_eq x = b_eq,  l <= x <= u."""
+
+    c: np.ndarray
+    A_ub: np.ndarray
+    b_ub: np.ndarray
+    A_eq: np.ndarray
+    b_eq: np.ndarray
+    l: np.ndarray
+    u: np.ndarray
+
+
+def random_lp(
+    seed: int,
+    n_ub: int = 6,
+    n_eq: int = 2,
+    n: int = 8,
+    density: float = 0.6,
+    bounded: bool = True,
+) -> InequalityLP:
+    """A random LP guaranteed feasible (a strictly interior point exists).
+
+    Feasibility is arranged by choosing x0 inside the bounds and setting
+    b_ub = A_ub x0 + margin, b_eq = A_eq x0.
+    """
+    rng = np.random.default_rng(seed)
+
+    def sparse(m):
+        M = rng.normal(size=(m, n)) * (rng.random(size=(m, n)) < density)
+        # Guarantee no all-zero rows.
+        for i in range(m):
+            if not M[i].any():
+                M[i, rng.integers(n)] = rng.normal() + 1.0
+        return M
+
+    l = np.where(rng.random(n) < 0.8, -rng.random(n) * 2, -math.inf)
+    u = np.where(rng.random(n) < 0.8, rng.random(n) * 2 + 0.5, math.inf)
+    if bounded:
+        l = np.nan_to_num(l, neginf=-5.0)
+        u = np.nan_to_num(u, posinf=5.0)
+    lo = np.where(np.isfinite(l), l, -1.0)
+    hi = np.where(np.isfinite(u), u, 1.0)
+    x0 = lo + (hi - lo) * (0.25 + 0.5 * rng.random(n))
+
+    A_ub = sparse(n_ub)
+    b_ub = A_ub @ x0 + 0.1 + rng.random(n_ub)
+    A_eq = sparse(n_eq)
+    b_eq = A_eq @ x0
+    c = rng.normal(size=n)
+    return InequalityLP(c=c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq, l=l, u=u)
+
+
+def write_mps(lp: InequalityLP, name: str = "RANDOM") -> str:
+    """Serialize an InequalityLP to MPS text (an independent path from the
+    reader, for round-trip testing)."""
+    out = [f"NAME          {name}", "ROWS", " N  OBJ"]
+    n_ub, n = lp.A_ub.shape
+    n_eq = lp.A_eq.shape[0]
+    for i in range(n_ub):
+        out.append(f" L  UB{i}")
+    for i in range(n_eq):
+        out.append(f" E  EQ{i}")
+    out.append("COLUMNS")
+    for j in range(n):
+        if lp.c[j] != 0.0:
+            out.append(f"    X{j}  OBJ  {float(lp.c[j])!r}")
+        for i in range(n_ub):
+            if lp.A_ub[i, j] != 0.0:
+                out.append(f"    X{j}  UB{i}  {float(lp.A_ub[i, j])!r}")
+        for i in range(n_eq):
+            if lp.A_eq[i, j] != 0.0:
+                out.append(f"    X{j}  EQ{i}  {float(lp.A_eq[i, j])!r}")
+    out.append("RHS")
+    for i in range(n_ub):
+        if lp.b_ub[i] != 0.0:
+            out.append(f"    RHS  UB{i}  {float(lp.b_ub[i])!r}")
+    for i in range(n_eq):
+        if lp.b_eq[i] != 0.0:
+            out.append(f"    RHS  EQ{i}  {float(lp.b_eq[i])!r}")
+    out.append("BOUNDS")
+    for j in range(n):
+        lo, hi = lp.l[j], lp.u[j]
+        if lo == -math.inf and hi == math.inf:
+            out.append(f" FR BD  X{j}")
+            continue
+        if lo == -math.inf:
+            # Reference MI quirk sets ub to 0; emit an explicit pair instead.
+            out.append(f" MI BD  X{j}")
+            if hi != 0.0 and hi != math.inf:
+                out.append(f" UP BD  X{j}  {float(hi)!r}")
+            continue
+        if lo != 0.0:
+            out.append(f" LO BD  X{j}  {float(lo)!r}")
+        if hi != math.inf:
+            out.append(f" UP BD  X{j}  {float(hi)!r}")
+    out.append("ENDATA")
+    return "\n".join(out) + "\n"
+
 
 NETLIB_SCALES = {
     # name: (rows, cols) of the Netlib instance the synthetic LP mimics
@@ -18,6 +125,46 @@ NETLIB_SCALES = {
     "25fv47": (821, 1571),
     "pilot": (1441, 3652),
 }
+
+
+def netlib_like_lp(name: str, seed: int = 0) -> InequalityLP:
+    """A synthetic LP at the named Netlib instance's scale.
+
+    Staircase-structured constraint matrix (~6 nonzeros per row, stage
+    coupling like multi-period production models), mixed equality/
+    inequality rows, finite and one-sided bounds — the structural features
+    the ingest and solvers must handle, at the real instance's (m, n).
+    Guaranteed feasible by construction.
+    """
+    m, n = NETLIB_SCALES[name]
+    rng = np.random.default_rng(seed)
+    n_eq = m // 3
+    n_ub = m - n_eq
+
+    def staircase(rows):
+        A = np.zeros((rows, n))
+        width = max(6, n // max(rows, 1) + 4)
+        for i in range(rows):
+            start = int(i * max(n - width, 1) / max(rows, 1))
+            k = rng.integers(3, width)
+            cols = start + rng.choice(width, size=min(k, width), replace=False)
+            cols = np.clip(cols, 0, n - 1)
+            A[i, cols] = rng.normal(size=len(cols))
+            if not A[i].any():
+                A[i, start % n] = 1.0
+        return A
+
+    # All variables boxed: guarantees the LP is bounded regardless of c.
+    l = np.where(rng.random(n) < 0.7, 0.0, -1.0 - rng.random(n))
+    u = l + 1.0 + 4.0 * rng.random(n)
+    x0 = l + (u - l) * (0.2 + 0.6 * rng.random(n))
+
+    A_ub = staircase(n_ub)
+    b_ub = A_ub @ x0 + 0.05 + rng.random(n_ub)
+    A_eq = staircase(n_eq)
+    b_eq = A_eq @ x0
+    c = rng.normal(size=n)
+    return InequalityLP(c=c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq, l=l, u=u)
 
 
 def constructed_optimum_lp(
@@ -149,3 +296,19 @@ def constructed_optimum_lp(
         "objective": float(c @ x), "basic": basic,
     }
     return sf, info
+
+
+def scipy_reference_solution(lp: InequalityLP):
+    """Solve with scipy's HiGHS as the trusted oracle. Returns (status, fun, x)."""
+    from scipy.optimize import linprog
+
+    res = linprog(
+        lp.c,
+        A_ub=lp.A_ub if lp.A_ub.size else None,
+        b_ub=lp.b_ub if lp.b_ub.size else None,
+        A_eq=lp.A_eq if lp.A_eq.size else None,
+        b_eq=lp.b_eq if lp.b_eq.size else None,
+        bounds=list(zip(lp.l, lp.u)),
+        method="highs",
+    )
+    return res.status, res.fun, res.x

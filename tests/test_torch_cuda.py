@@ -7,8 +7,11 @@ and sparse solves (afiro; block 256), crossover on both paths (its dd
 products and its B·Bᵀ factorizations launch the kernels; a singular first
 basis takes the dbound retry), the matrix-free family (ALM in f32 and f64;
 the dense dd ALM's exact launch counts; the sparse two-phase protocol; the
-inner loop's CUDA graph against its eager chunks), and float64 on the card,
-which takes the plain forms and launches no kernel.
+inner loop's CUDA graph against its eager chunks), the batched dd kernels
+(each lane bit-equal to the single launch, under vmap too, the lane limit)
+and the batch solves (f64 lane counts equal to the CPU's; the f32 two-phase
+batch through the batched kernels), and float64 on the card, which takes
+the plain forms and launches no kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -791,3 +794,125 @@ def test_chunk_graph_replays_the_eager_loop(dev, monkeypatch, kind):
     for key in ("x", "multipliers", "violation", "pg", "value", "outer_iterations",
                 "inner_iterations"):
         assert torch.equal(getattr(g, key), getattr(e, key)), key
+
+
+def _lane_inputs(rng, B, m, n, offset, dev):
+    """(B, m, n) A whose storage starts ``offset`` floats in (so with an odd
+    n no lane or row starts on a 16-byte boundary), (B, n) x, (B, m) y."""
+    buf = rng.normal(size=B * m * n + offset).astype(np.float32)
+    A = torch.from_numpy(buf).to(dev)[offset:].view(B, m, n)
+    x = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(B, m)).astype(np.float32)).to(dev)
+    return A, x, y
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("B,m,n", [(1, 64, 64), (5, 37, 91), (64, 64, 128),
+                                   (3, 1441, 5093)])
+def test_batched_kernels_equal_the_single_kernels_per_lane(dev, B, m, n, offset):
+    """Each lane of one batched launch is the single launch on that lane, bit
+    for bit, and within 64·eps32² of Σ|a_ij x_j| of the plain batched form;
+    one count per batched launch, none on the single counters."""
+    A, x, y = _lane_inputs(np.random.default_rng(B + m + n), B, m, n, offset, dev)
+    before = dict(dd_cuda.LAUNCHES)
+    mv, rmv = dd_cuda.dd_mv_batched(A, x), dd_cuda.dd_rmv_batched(A, y)
+    assert dd_cuda.LAUNCHES["mv_batched"] == before["mv_batched"] + 1
+    assert dd_cuda.LAUNCHES["rmv_batched"] == before["rmv_batched"] + 1
+    assert dd_cuda.LAUNCHES["mv"] == before["mv"]
+    for k in range(B):
+        one, rone = dd_cuda.dd_mv(A[k], x[k]), dd_cuda.dd_rmv(A[k], y[k])
+        assert torch.equal(mv[0][k], one[0]) and torch.equal(mv[1][k], one[1])
+        assert torch.equal(rmv[0][k], rone[0]) and torch.equal(rmv[1][k], rone[1])
+    for got, plain, scale in (
+        (mv, ddm._dd_matvec_plain(A, x), (A.abs() @ x.abs().unsqueeze(-1))[..., 0]),
+        (rmv, ddm._dd_matvec_plain(A.mT, y),
+         (A.abs().mT @ y.abs().unsqueeze(-1))[..., 0]),
+    ):
+        err = np.abs(_f64(ddm.DD(*got)) - _f64(plain))
+        assert np.all(err <= 64 * EPS32**2 * scale.double().cpu().numpy())
+
+
+def test_batched_kernels_under_vmap_and_at_the_lane_limit(dev):
+    """torch.func.vmap of the dispatchers takes one batched launch each
+    (an unbatched A shared by every lane too); more than 65535 lanes
+    raise."""
+    A, x, y = _lane_inputs(np.random.default_rng(2), 4, 33, 70, 1, dev)
+    before = dict(dd_cuda.LAUNCHES)
+    vm = torch.func.vmap(ddm.dd_matvec)(A, x)
+    vr = torch.func.vmap(ddm.dd_rmatvec, in_dims=(None, 0))(A[0], y)
+    assert dd_cuda.LAUNCHES["mv_batched"] == before["mv_batched"] + 1
+    assert dd_cuda.LAUNCHES["rmv_batched"] == before["rmv_batched"] + 1
+    for k in range(4):
+        assert torch.equal(vm.hi[k], ddm.dd_matvec(A[k], x[k]).hi)
+        assert torch.equal(vr.lo[k], ddm.dd_rmatvec(A[0], y[k]).lo)
+    big = torch.zeros(65536, 1, 1, device=dev)
+    with pytest.raises(ValueError, match="65535"):
+        dd_cuda.dd_mv_batched(big, big[:, 0])
+    with pytest.raises(ValueError, match="65535"):
+        dd_cuda.dd_rmv_batched(big, big[:, 0])
+    edge = torch.zeros(65535, 1, 1, device=dev)
+    hi, _ = dd_cuda.dd_rmv_batched(edge, edge[:, 0])
+    torch.cuda.synchronize()
+    assert hi.shape == (65535, 1)
+
+
+def _batch_problems():
+    from cholesky_is_magic_tpu_torch.utils.testing import random_lp, write_mps
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    import cholesky_is_magic_tpu_torch as cimt
+
+    return [cimt.to_standard_form(read_mps_string(write_mps(
+        random_lp(60 + s, n_ub=8 + 2 * s, n_eq=2, n=12 + s)))) for s in range(6)]
+
+
+def test_solve_batch_in_float64_on_the_card_equals_the_cpu(dev):
+    """f64 solve_batch on the card takes the plain forms (no launch) and
+    each lane's status and count of the CPU's, the objective within 1e-9."""
+    import cholesky_is_magic_tpu_torch as cimt
+
+    sfs = _batch_problems()
+    kw = dict(pad_multiple=16, max_iters=200, dtype=torch.float64)
+    before = _counts()
+    card = cimt.solve_batch(sfs, **kw)
+    assert _counts() == before
+    cpu = cimt.solve_batch(sfs, device="cpu", **kw)
+    for a, b in zip(card, cpu):
+        assert a.status == b.status == "optimal"
+        assert a.summary["iterations"] == b.summary["iterations"]
+        assert a.objective == pytest.approx(b.objective, rel=1e-9)
+
+
+def test_batched_two_phase_in_float32_launches_the_batched_kernels(dev):
+    """f32 on the card: solve_batch and batched_pdas launch batched dd A·x
+    (their refinement residuals), batched_pdas_dd both batched kernels, and
+    none of them a single launch; every lane optimal in phase 1 reaches gap
+    <= 1e-8."""
+    import importlib
+
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    pdas_dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+    emb = cimt.embed_batch(_batch_problems(), pad_multiple=16)
+    before = dict(dd_cuda.LAUNCHES)
+    reps = cimt.solve_batch(emb, max_iters=200)
+    assert dd_cuda.LAUNCHES["mv_batched"] > before["mv_batched"]
+    assert all(r.status == "optimal" for r in reps)
+    lps = [lanes.lane(emb.stacked_lp, k) for k in range(len(reps))]
+    p1 = parallel.batched_pdas(
+        parallel.stack_states([pdas.make_pdas(lp) for lp in lps]),
+        pdas.PDASConfig(max_iters=200, factor_method="inverse"))
+    assert (p1.status == 1).all()
+    states = parallel.stack_states([
+        pdas_dd.make_pdas_dd(lp, warm=lanes.lane(p1, k))
+        for k, lp in enumerate(lps)])
+    mid = dict(dd_cuda.LAUNCHES)
+    res = parallel.batched_pdas_dd(states, pdas.PDASConfig(
+        max_iters=200, gap_tol=1e-9, refine_steps=2))
+    got = {k: dd_cuda.LAUNCHES[k] - mid[k] for k in mid}
+    assert got["mv_batched"] > 0 and got["rmv_batched"] > 0
+    assert got["mv"] == got["rmv"] == 0
+    assert float(res.extra["gap"].max()) <= 1e-8
+    assert dd_cuda.LAUNCHES["mv"] == before["mv"]

@@ -132,10 +132,13 @@ def test_krylov_refinement_matches(gate):
 
 
 def test_inverse_method_is_not_ported():
+    """The name predates the port of ``method="inverse"`` (held against the
+    JAX package in tests/test_torch_batched.py); a method that neither
+    package has raises."""
     A, d, _g, _b = _normal_problem(4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tdense.prepare_normal(torch.from_numpy(A), torch.from_numpy(d),
-                              method="inverse")
+                              method="cholmod")
 
 
 def _kkt_inputs(seed, m=20, n=36):

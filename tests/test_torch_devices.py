@@ -1,8 +1,8 @@
 """Where the port runs, and how its kernels are launched, on the CPU.
 
 Every public function of the port that takes ``device`` defaults to the
-card; without one, a call that leaves ``device`` unset raises instead of
-solving on the CPU.  The panel kernel's launch helper (16-byte
+card (``solve_batch`` and ``embed_batch`` too); without one, a call that
+leaves ``device`` unset raises instead of solving on the CPU.  The panel kernel's launch helper (16-byte
 alignment) gives the expected answers.
 """
 
@@ -36,6 +36,7 @@ DEVICE_FUNCTIONS = [
     convert.pdas_state_from_numpy, convert.pdas_dd_state_from_numpy,
     t_device.to_sparse_lp, convert.sparse_lp_from_numpy,
     convert.approx_problem_from_numpy, convert.alm_state_from_numpy,
+    api.solve_batch, api.embed_batch,
 ]
 
 
@@ -82,10 +83,12 @@ def _coo(m=2, n=3):
     lambda: bell.from_coo(*_coo(8, 128)),
     lambda: convert.tensor_from_numpy(np.ones(3)),
     lambda: t_device.to_sparse_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO))),
+    lambda: cimt.solve_batch([AFIRO]),
+    lambda: cimt.embed_batch([AFIRO]),
 ], ids=["to_device_lp", "make_pdas_sparse", "make_affine_state_sparse",
         "engine_for_sparse",
         "ell_from_coo", "ell_from_dense", "bell_from_coo", "tensor_from_numpy",
-        "to_sparse_lp"])
+        "to_sparse_lp", "solve_batch", "embed_batch"])
 def test_device_unset_without_a_card_raises(call):
     _needs_no_card()
     with pytest.raises((RuntimeError, AssertionError), match="CUDA"):

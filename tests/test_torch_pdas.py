@@ -119,5 +119,7 @@ def test_unported_options_raise():
         tpdas.pdas(st, engine=object())
     with pytest.raises(NotImplementedError):
         tpdas.pdas(st, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tpdas.pdas(st, tpdas.PDASConfig(factor_method="inverse", max_iters=1))
+    # "inverse" is ported (tests/test_torch_batched.py); an unknown kernel
+    # name raises.
+    with pytest.raises(ValueError):
+        tpdas.pdas(st, tpdas.PDASConfig(factor_method="cholmod", max_iters=1))
