@@ -137,7 +137,31 @@ script then exits non-zero and never prints its last line):
    stop above 1e-8 named (the f32 finisher's floor, the JAX package's
    too); (e) 16 of them in f64 through solve_batch: each lane's status
    and count equal to its single solve(..., "pdas") on the card, no
-   kernel launched.
+   kernel launched;
+16. batch: sparse, slabbed, affine — (a) the batched assembly kernel on
+   the m = 16384 schedule for 8 lanes and the batched tile kernel on
+   (8, 128, 128) SPD tiles, each lane bit for bit against the single
+   launch and against the plain batched forms, with CUDA-event medians
+   beside a Python loop of single launches and the bound; (b)
+   batched_normal_solves on phase 8's engine, 8 lanes of D ~ U(0.5, 1.5),
+   G ~ N(0, 1), f32, counters reset before and read after: every lane ok
+   and within 1e-5 (2-norm, relative) of its single solve_normal_ell, the
+   batched kernels launched and no single one, seconds beside 8 single
+   calls; (c) a re-solve fleet of 32 LPs of one A at 25fv47 scale, each
+   with its own (b, c), block 128, f32: batched sparse pdas (Mehrotra) then
+   mu-recentred duals and batched sparse pdas_dd (gap_tol 1e-9), counters
+   reset before each and read after (batched tile and assembly kernels,
+   no single one): every lane optimal within 1e-3 of HiGHS after phase 1,
+   and after the finisher gap < 1e-7 within 1e-4 of HiGHS, or, where the
+   f32 finisher floors (the JAX package's too), the precision-floor status
+   with the objective bar met; lanes 0-3 within 1e-5 of their single
+   solves; solves/s and the device-busy share of one iteration
+   (profiler); (d) phase 15's mixed batch through solve_batch(slab_iters=16)
+   beside plain solve_batch: the same statuses, objectives within 1e-3 of
+   HiGHS, lane-iterations and solves/s of three calls each in turns; (e)
+   batched_affine on (b)'s 1024 LPs in f32 (batched dd A·x launched, no
+   single one) and on 16 of them in f64 (each lane's status and count of
+   its single affine_scaling, no kernel launched).
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -190,6 +214,11 @@ KERNELS = {
     "rmv_batched": dict(name="dd_rmv_f32_batched",
                         replaces="cholesky_is_magic_tpu/ops/dd_pallas.py:96",
                         source=CSRC + "dd_matvec.cu"),
+    "potrf_tile_batched": dict(name="potrf_tile_f32_batched", **POTRF),
+    "assemble_pairs_batched": dict(
+        name="assemble_pairs_f32_batched",
+        replaces="benchmarks/explore_prefetch_assembly.py:174",
+        source=CSRC + "assemble_pairs.cu"),
 }
 AT_SCALE_M = 16384
 # The at-scale recipe of the JAX package's api.solve docstring (:439-440).
@@ -735,8 +764,8 @@ def _check_use_pallas(chol, chol_cuda, dense, N):
     say(f"[chol] n={n} with a negative diagonal entry: ok {bad_ok}")
     if not (bool(f.ok) and not bad_ok and errs["kernel"] <= 32 * EPS32
             and max(vs.values()) <= 64 * EPS32
-            and launches == {"potrf_tile": steps + 1, "potrf_panel": steps,
-                             "potrf_schur": 2 * steps - 1}):
+            and launches == {"potrf_tile": steps + 1, "potrf_tile_batched": 0,
+                             "potrf_panel": steps, "potrf_schur": 2 * steps - 1}):
         raise AssertionError(f"factorize(use_pallas=True) on the card at n={n}")
     kt = [_median_ms(lambda: chol.cholesky(N), 10) for _ in range(2)]
     xt = [_median_ms(lambda: torch.linalg.cholesky_ex(N), 10) for _ in range(2)]
@@ -787,7 +816,7 @@ def phase_assembly(eng, stats):
     vals = eng.asm_w * (d * d)[eng.asm_k]
     flat = torch.zeros_like(t1).reshape(-1)
     k = [_median_ms(kern, lead=0.2) for _ in range(2)]
-    p = [_median_ms(plain, lead=1.0) for _ in range(2)]  # ~10 launches to queue
+    p = [_median_ms(plain, lead=2.0) for _ in range(2)]  # ~50 launches to queue
     kh, ph = ([_median_ms(f) for _ in range(2)] for f in (kern, plain))
     lib = _median_ms(lambda: flat.index_add_(0, eng.asm_dst_flat, vals), lead=0.2)
     zeros, runs = (_median_ms(f, lead=0.2) for f in pass_launchers(eng, d, boost))
@@ -1699,7 +1728,325 @@ def phase_batch(cimt, ddm, dd_cuda, counters, card, stats):
         raise AssertionError(f"batch f64: {got} vs {want}, launches {launched}")
     lap("(e)")
     say(f"[batch] phase 15 took {time.perf_counter() - t_phase:.3f} s")
-    return pdas_launches, dd_launches
+    return pdas_launches, dd_launches, sfs, highs
+
+
+SPARSE_LANES = 8  # (a) and (b): lanes on the m = 16384 schedule
+FLEET = 32  # (c): lanes of one A at 25fv47 scale
+FLEET_P1 = dict(max_iters=200, refine_steps=2, mehrotra=True)
+FLEET_P2 = dict(max_iters=200, gap_tol=1e-9, refine_steps=2)
+
+
+def _sparse_batch_kernels(eng, chol, chol_cuda, tiled_cuda, stats):
+    """(a): the batched assembly on the m = 16384 schedule and the batched
+    tile kernel on (8, 128, 128) SPD tiles, each lane bit for bit against the
+    single launch, against the plain batched forms, with times beside a
+    Python loop of single launches and the bound."""
+    B = SPARSE_LANES
+    g = torch.Generator(device="cuda").manual_seed(16)
+    n = int(eng.asm_k.max().item()) + 1
+    D = 10.0 ** (3 * torch.rand(B, n, generator=g, device="cuda") - 1.5)
+    boost = torch.zeros(AT_SCALE_M, device="cuda")
+    tb = tiled_cuda.assemble_pairs_batched(eng, D, boost)
+    same = all(torch.equal(tb[k], tiled_cuda.assemble_pairs(eng, D[k], boost))
+               for k in range(B))
+    plain = eng._assemble_pairs_plain(D, boost)
+    err = (tb - plain).abs().max().item()
+    kern = lambda: tiled_cuda.assemble_pairs_batched(eng, D, boost)  # noqa: E731
+    loop = lambda: [tiled_cuda.assemble_pairs(eng, D[k], boost) for k in range(B)]  # noqa: E731
+    plain_f = lambda: eng._assemble_pairs_plain(D, boost)  # noqa: E731
+    p1, k1, k2, p2 = (_median_ms(f, lead=lead) for f, lead in (
+        (plain_f, 3.0), (kern, 0.2), (kern, 0.2), (plain_f, 3.0)))
+    lp = _median_ms(loop, lead=0.5)
+    # The schedule (shared) read once, each lane's d and boost read and its
+    # tiles written; 3 flops per pair per lane.
+    sched = eng._kernel_schedule
+    bound = _bound(_nbytes(eng.asm_w, *sched[:5]) + B * _nbytes(D[0], boost, tb[0]),
+                   3 * B * eng.n_pairs)
+    say(f"[batch sparse kernels] assembly, {B} lanes of the m = {AT_SCALE_M} schedule"
+        f" ({eng.n_pairs} pairs): each lane bit-equal to the single launch {same};"
+        f" max abs err vs the plain batched form {err:.3e} (it sums in the kernel's"
+        f" order); median ms batched {k1:.4f} {k2:.4f}  loop of {B} single launches"
+        f" {lp:.4f}  plain {p1:.4f} {p2:.4f}  bound {bound['bound_ms']:.4f}"
+        f" ({bound['bound_by']})")
+    if not (same and err == 0.0):
+        raise AssertionError("batched assembly disagrees with the single launches")
+    stats["assemble_pairs_batched"] = dict(
+        max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2), loop_ms=lp,
+        library_ms=None, shape=[B, eng.NT + 1, eng.b, eng.b], **bound)
+    b = chol_cuda.BLOCK
+    N = torch.stack([_spd(b, 100 + k) for k in range(B)])
+    L, inv = chol_cuda.potrf_tile_batched(N)
+    same = all(torch.equal(L[k], Lk) and torch.equal(inv[k], Ik)
+               for k, (Lk, Ik) in enumerate(chol_cuda.potrf_tile(N[k]) for k in range(B)))
+    Lp, Ip = chol._factor_tile_plain(N)
+    err = max((L - Lp).abs().max().item(), (inv - Ip).abs().max().item())
+    truth = max(_recon_err(L[k], N[k]) for k in range(B))
+    kern = lambda: chol_cuda.potrf_tile_batched(N)  # noqa: E731
+    loop = lambda: [chol_cuda.potrf_tile(N[k]) for k in range(B)]  # noqa: E731
+    plain_f = lambda: chol._factor_tile_plain(N)  # noqa: E731
+    p1, k1, k2, p2 = (_median_ms(f, lead=0.2) for f in (plain_f, kern, kern, plain_f))
+    lp = _median_ms(loop, lead=0.5)
+    bound = _bound(4 * B * (b * (b + 1) // 2 + 2 * b * b), B * 2 * b**3 / 3)
+    say(f"[batch sparse kernels] tile kernel, ({B}, {b}, {b}) SPD tiles: each lane"
+        f" bit-equal to the single launch {same}; ||LLt-N||/||N|| {truth / EPS32:.2f}"
+        f" eps32 (limit 32); max abs err vs plain {err:.3e}; median ms batched"
+        f" {k1:.4f} {k2:.4f}  loop of {B} single launches {lp:.4f}  plain (batched"
+        f" cholesky_ex + solve_triangular) {p1:.4f} {p2:.4f}  bound"
+        f" {bound['bound_ms']:.6f} ({bound['bound_by']})")
+    if not (same and truth <= 32 * EPS32):
+        raise AssertionError("batched tile kernel disagrees with the single launches")
+    stats["potrf_tile_batched"] = dict(
+        max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2), loop_ms=lp,
+        library_ms=None, shape=[B, b, b], **bound)
+
+
+def _seconds(fn):
+    """(fn(), host-clock seconds of the call, synchronized on both ends)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _fleet(cimt, k):
+    """k LPs of one A at 25fv47 scale (all variables boxed), each with its
+    own (b, c) drifted as tests/test_parallel.py:321-329 does, and their
+    HiGHS optima."""
+    from cholesky_is_magic_tpu_torch.utils.testing import (
+        netlib_like_lp,
+        scipy_reference_solution,
+    )
+
+    base = netlib_like_lp("25fv47")
+    n = base.c.shape[0]
+    sfs, highs = [], []
+    for i in range(k):
+        rng = np.random.default_rng(1000 + i)
+        x0 = base.l + (base.u - base.l) * (0.2 + 0.6 * rng.random(n))
+        lane = dataclasses.replace(
+            base, b_ub=base.A_ub @ x0 + 0.05 + rng.random(base.A_ub.shape[0]),
+            b_eq=base.A_eq @ x0, c=rng.normal(size=n))
+        highs.append(scipy_reference_solution(lane)[1])
+        sfs.append(_sf_of(cimt, lane))
+    return sfs, np.array(highs)
+
+
+def _rel(a, b):
+    return np.abs(np.asarray(a) - b) / np.maximum(1.0, np.abs(b))
+
+
+def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_highs):
+    """Phase 16, the rest of the batch mode on the card: (a) the batched
+    tile and assembly kernels; (b) batched_normal_solves on the m = 16384
+    engine; (c) the re-solve fleet, batched sparse pdas then pdas_dd on one
+    engine; (d) the slabbed loop on phase 15's mixed batch; (e)
+    batched_affine.  Returns the launches of each path."""
+    import importlib
+
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
+    from cholesky_is_magic_tpu_torch.ops import chol, chol_cuda, sparse_ops
+    from cholesky_is_magic_tpu_torch.ops import dd as ddm
+    from cholesky_is_magic_tpu_torch.solvers.result import Status
+    from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+    from cholesky_is_magic_tpu_torch.utils import lanes
+    from cholesky_is_magic_tpu_torch.utils.testing import scipy_reference_solution
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    pdas_dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+    affine = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.affine")
+    t_phase = time.perf_counter()
+    t_lap = [t_phase]
+    paths = {}
+
+    def lap(part):
+        now = time.perf_counter()
+        say(f"[batch sparse] {part} took {now - t_lap[0]:.3f} s")
+        t_lap[0] = now
+
+    def single_k1_k4(launches):
+        return launches["potrf_tile"] + launches["assemble_pairs"]
+
+    _sparse_batch_kernels(eng, chol, chol_cuda, tiled_cuda, stats)
+    lap("(a)")
+    # (b) batched normal solves on the m = 16384 engine.
+    m, n = sf.ncons, sf.nvars
+    vals, _ = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
+    E = sparse_ops.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), device="cuda")
+    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    D = 0.5 + torch.rand(SPARSE_LANES, n, generator=g, device="cuda")
+    G = torch.randn(SPARSE_LANES, m, generator=g, device="cuda")
+    batched = lambda: parallel.batched_normal_solves(  # noqa: E731
+        eng, E, ET, D, G, refine_steps=1)
+    _reset(*counters.values())
+    Y, ok = batched()
+    torch.cuda.synchronize()
+    paths["batch normal solves"] = launched = _counted(counters)
+    t_b = [_seconds(batched)[1] for _ in range(2)]
+    singles, t_s = _seconds(lambda: [eng.solve_normal_ell(E, ET, D[k], G[k],
+                                                          refine_steps=1)
+                                     for k in range(SPARSE_LANES)])
+    rel = max((torch.linalg.norm(Y[k] - y) / torch.linalg.norm(y)).item()
+              for k, (y, _) in enumerate(singles))
+    say(f"[batch normal solves] {SPARSE_LANES} lanes on the m = {m} engine, f32:"
+        f" all ok {bool(ok.all())}; worst lane vs its single solve_normal_ell"
+        f" {rel:.3e} (limit 1e-5); seconds batched {' '.join(f'{t:.3f}' for t in t_b)}"
+        f" vs {SPARSE_LANES} single calls {t_s:.3f}; launches of one batched call"
+        f" {launched} on {card}")
+    if not (bool(ok.all()) and rel <= 1e-5 and launched["potrf_tile_batched"] > 0
+            and launched["assemble_pairs_batched"] > 0 and single_k1_k4(launched) == 0):
+        raise AssertionError(f"batched normal solves: rel {rel}, launches {launched}")
+    del E, ET, Y, singles
+    torch.cuda.empty_cache()
+    lap("(b)")
+    # (c) the re-solve fleet: one A, FLEET lanes of (b, c).
+    t = time.perf_counter()
+    sfs, highs = _fleet(cimt, FLEET)
+    s0, feng = pdas.make_pdas_sparse(sfs[0], block=128, device="cuda")
+    states = [s0] + [pdas.make_pdas_sparse(s, block=128, engine=feng, device="cuda")[0]
+                     for s in sfs[1:]]
+    stacked = parallel.stack_sparse_states(states)
+    torch.cuda.synchronize()
+    say(f"[batch fleet] {FLEET} lanes of one A, {sfs[0].ncons} x {sfs[0].nvars} at"
+        f" 25fv47 scale, block 128 ({feng.B} panels, {feng.NT} tiles, {feng.n_pairs}"
+        f" pairs): LPs, HiGHS, states and the engine {time.perf_counter() - t:.3f} s")
+    cfg1, cfg2 = pdas.PDASConfig(**FLEET_P1), pdas.PDASConfig(**FLEET_P2)
+
+    def finisher_states(p1):
+        out = []
+        for k, st in enumerate(states):
+            w, z = pdas_dd.mu_recentered_duals(
+                p1.x[k], st.lp.l, st.lp.u, p1.extra["w"][k], p1.extra["z"][k],
+                st.lp.col_mask)
+            out.append(pdas_dd.PDASDDState(
+                x=ddm.dd_from(p1.x[k]), y=ddm.dd_from(p1.extra["y"][k]),
+                w=ddm.dd_from(w), z=ddm.dd_from(z), lp=st.lp))
+        return out
+
+    _reset(*counters.values())
+    p1, t1 = _seconds(lambda: parallel.batched_pdas(stacked, cfg1, engine=feng))
+    paths["batch sparse pdas"] = l1 = _counted(counters)
+    dd_states = finisher_states(p1)
+    _reset(*counters.values())
+    p2, t2 = _seconds(lambda: parallel.batched_pdas_dd(
+        parallel.stack_sparse_states(dd_states), cfg2, engine=feng))
+    paths["batch sparse pdas_dd"] = l2 = _counted(counters)
+    st1, st2 = p1.status.cpu().numpy(), p2.status.cpu().numpy()
+    err1, err2 = _rel(p1.objective.cpu().numpy(), highs), _rel(p2.objective.cpu().numpy(), highs)
+    gaps = p2.extra["gap"].cpu().numpy()
+    miss1 = [int(k) for k in np.nonzero((st1 != Status.OPTIMAL) | (err1 > 1e-3))[0]]
+    miss2 = [int(k) for k in np.nonzero(~(gaps < 1e-7) | (err2 > 1e-4))[0]]
+    # The f32 finisher's floor: lanes that stop above the gap bar stop at
+    # the precision floor, in the JAX package too (ROADMAP.md §3; its CPU
+    # run: python tests/test_torch_batched_sparse.py 3,13,19,31,0).
+    floor = [k for k in miss2 if st2[k] == Status.PRECISION_FLOOR and err2[k] <= 1e-4]
+    its1, its2 = p1.iterations.cpu().numpy(), p2.iterations.cpu().numpy()
+    say(f"[batch fleet] phase 1 (pdas, Mehrotra): statuses"
+        f" {np.bincount(st1, minlength=6).tolist()}, iterations {its1.min()}-{its1.max()},"
+        f" worst objective error vs HiGHS {err1.max():.3e} (bar 1e-3), lanes missing"
+        f" the bar {miss1}; launches {l1}")
+    say(f"[batch fleet] phase 2 (pdas_dd, gap_tol 1e-9): statuses"
+        f" {np.bincount(st2, minlength=6).tolist()}, iterations {its2.min()}-{its2.max()},"
+        f" worst gap {gaps.max():.3e} (bar 1e-7), worst objective error {err2.max():.3e}"
+        f" (bar 1e-4), lanes missing a bar {miss2} at gaps"
+        f" {[float(f'{gaps[k]:.3e}') for k in miss2]}, of them at the precision floor"
+        f" with the objective bar met {floor}; launches {l2}")
+    say(f"[batch fleet] {FLEET} two-phase solves: seconds {t1:.3f} + {t2:.3f}, solves/s"
+        f" {FLEET / (t1 + t2):.1f} (phase 1 alone {FLEET / t1:.1f}) on {card}")
+    worst = 0.0
+    for k in range(4):
+        one1 = pdas.pdas(states[k], cfg1, engine=feng)
+        one2 = pdas_dd.pdas_dd(dd_states[k], cfg2, engine=feng)
+        r1 = _rel(float(one1.objective), float(p1.objective[k]))
+        r2 = _rel(float(one2.objective), float(p2.objective[k]))
+        worst = max(worst, r1, r2)
+        say(f"[batch fleet] lane {k}: batched {int(its1[k])} + {int(its2[k])} iterations,"
+            f" single {int(one1.iterations)} + {int(one2.iterations)}; objectives apart"
+            f" {r1:.3e} / {r2:.3e} (limit 1e-5)")
+    _device_busy("batch fleet", "batched sparse pdas, one iteration",
+                 lambda: parallel.batched_pdas(
+                     stacked, dataclasses.replace(cfg1, max_iters=1), engine=feng))
+    for tag, got in (("pdas", l1), ("pdas_dd", l2)):
+        if not (got["potrf_tile_batched"] > 0 and got["assemble_pairs_batched"] > 0
+                and single_k1_k4(got) == 0):
+            raise AssertionError(f"batch fleet {tag}: launches {got}")
+    if not (worst <= 1e-5 and np.isfinite(p2.x.cpu().numpy()).all() and not miss1
+            and floor == miss2):
+        raise AssertionError(f"batch fleet: lanes 0-3 apart from their single solves"
+                             f" {worst}; missing phase 1's bar {miss1}, the finisher's"
+                             f" {miss2} (at the floor {floor})")
+    del states, stacked, p1, p2
+    torch.cuda.empty_cache()
+    lap("(c)")
+    # (d) the slabbed loop on phase 15's mixed batch.
+    mixed_q = [_mixed_batch_lp(s) for s in range(BATCH_MIXED)]
+    mixed = [_sf_of(cimt, q) for q in mixed_q]
+    mixed_highs = np.array([scipy_reference_solution(q)[1] for q in mixed_q])
+    kw = dict(max_iters=60, mehrotra=True)
+    plain_f = lambda: cimt.solve_batch(mixed, **kw)  # noqa: E731
+    slab_f = lambda: cimt.solve_batch(mixed, slab_iters=16, **kw)  # noqa: E731
+    _reset(*counters.values())
+    slab = slab_f()
+    paths["batch slabbed"] = _counted(counters)
+    plain, t_plain, t_slab = plain_f(), [], []
+    for _ in range(3):  # in turns
+        t_plain.append(_seconds(plain_f)[1])
+        t_slab.append(_seconds(slab_f)[1])
+    same = [a.status for a in plain] == [b.status for b in slab]
+    opt = [i for i, r in enumerate(slab) if r.status == "optimal"]
+    err = _rel([slab[i].objective for i in opt], mixed_highs[opt])
+    it = {tag: sum(r.summary["iterations"] for r in reps)
+          for tag, reps in (("plain", plain), ("slabbed", slab))}
+    say(f"[batch slabbed] {BATCH_MIXED} mixed LPs, slab_iters 16: statuses equal to the"
+        f" plain batch's {same}; optimal {len(opt)}; worst objective error vs HiGHS"
+        f" {err.max():.3e} (limit 1e-3); lane-iterations plain {it['plain']}, slabbed"
+        f" {it['slabbed']}; solves/s plain {' '.join(f'{BATCH_MIXED / t:.1f}' for t in t_plain)}"
+        f" (median {BATCH_MIXED / float(np.median(t_plain)):.1f}), slabbed"
+        f" {' '.join(f'{BATCH_MIXED / t:.1f}' for t in t_slab)} (median"
+        f" {BATCH_MIXED / float(np.median(t_slab)):.1f}); launches {paths['batch slabbed']}"
+        f" on {card}")
+    if not (same and opt and (err <= 1e-3).all()
+            and paths["batch slabbed"]["mv_batched"] > 0):
+        raise AssertionError(f"batch slabbed: statuses equal {same}, errors {err.max()}")
+    lap("(d)")
+    # (e) batched affine: phase 15 (b)'s 1024 LPs in f32, 16 of them in f64.
+    emb = cimt.embed_batch(same_sfs, pad_multiple=64)
+    ast = lanes.vmap(affine.make_affine_state, emb.stacked_lp)
+    _reset(*counters.values())
+    res, t_first = _seconds(lambda: parallel.batched_affine(ast))
+    paths["batch affine"] = launched = _counted(counters)
+    t_aff = [t_first, _seconds(lambda: parallel.batched_affine(ast))[1]]
+    status = res.status.cpu().numpy()
+    opt = status == Status.OPTIMAL
+    err = _rel(res.objective.cpu().numpy(), same_highs)
+    its = res.iterations.cpu().numpy()
+    say(f"[batch affine] {len(same_sfs)} LPs, f32: statuses"
+        f" {np.bincount(status, minlength=6).tolist()}, iterations {its.min()}-{its.max()},"
+        f" worst objective error of an optimal lane vs HiGHS {err[opt].max():.3e};"
+        f" seconds {t_aff[0]:.3f} (first) {t_aff[1]:.3f}"
+        f" ({len(same_sfs) / t_aff[1]:.1f} solves/s); launches of the first call"
+        f" {launched} on {card}")
+    if not (launched["mv_batched"] > 0 and launched["mv"] == 0 and opt.any()
+            and np.isfinite(res.x.cpu().numpy()).all()):
+        raise AssertionError(f"batch affine f32: launches {launched}")
+    emb64 = cimt.embed_batch(same_sfs[:16], pad_multiple=64, dtype=torch.float64)
+    ast64 = lanes.vmap(affine.make_affine_state, emb64.stacked_lp)
+    before = _counted(counters)
+    res64 = parallel.batched_affine(ast64)
+    got = list(zip(res64.status.tolist(), res64.iterations.tolist()))
+    want = [(int(o.status), int(o.iterations)) for o in (
+        affine.affine_scaling(lanes.lane(ast64, k)) for k in range(16))]
+    launched64 = _launched(counters, before)
+    say(f"[batch affine f64] 16 lanes (status, iterations): {got}; single"
+        f" affine_scaling equal: {got == want}; kernel launches {sum(launched64.values())}")
+    if not (got == want and not any(launched64.values())):
+        raise AssertionError(f"batch affine f64: {got} vs {want}, launches {launched64}")
+    lap("(e)")
+    say(f"[batch sparse] phase 16 took {time.perf_counter() - t_phase:.3f} s")
+    return paths
 
 
 def main() -> int:
@@ -1738,8 +2085,10 @@ def main() -> int:
      by_path["crossover at scale"]) = phase_crossover(cimt, counters, card, pilot_s,
                                                       sf, info, eng, rep)
     by_path["alm dd pilot"] = phase_alm(cimt, counters, card, sf, info)
-    by_path["batch pdas"], by_path["batch pdas_dd"] = phase_batch(
-        cimt, ddm, dd_cuda, counters, card, stats)
+    (by_path["batch pdas"], by_path["batch pdas_dd"], same_sfs,
+     same_highs) = phase_batch(cimt, ddm, dd_cuda, counters, card, stats)
+    by_path.update(phase_batch_sparse(cimt, counters, card, stats, sf, eng,
+                                      same_sfs, same_highs))
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

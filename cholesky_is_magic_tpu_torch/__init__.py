@@ -1,6 +1,7 @@
 """cholesky-is-magic on PyTorch and CUDA: primal affine scaling and the
 pdas -> pdas_dd solve, dense and fully sparse, with the host presolve and
-crossover, and the matrix-free family (APPROX and the ALM outer loops).
+crossover, the matrix-free family (APPROX and the ALM outer loops), and the
+batch mode (many LPs in one lane-batched loop).
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
@@ -18,10 +19,13 @@ against; the module paths mirror it, so each counterpart is easy to find:
 - :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
   finisher, crossover (a certified vertex polish), APPROX and the ALM /
   AALM / ADCD outer loops;
-- :mod:`.parallel` — batched dense pdas / pdas_dd over stacked LPs;
+- :mod:`.parallel` — batched pdas / pdas_dd over stacked dense LPs or
+  same-A sparse states on one tile engine, the slabbed loop, batched
+  affine scaling and batched sparse normal solves;
 - :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd" | "alm" |
   "aalm" | "selfdual", sparse=..., presolve=..., crossover=...,
-  device=...)`` and ``solve_batch(problems)`` / ``embed_batch(problems)``.
+  device=...)`` and ``solve_batch(problems, slab_iters=...)`` /
+  ``embed_batch(problems)``.
 
 The package imports ``torch`` and never ``jax``.  Importing it needs no
 CUDA toolkit: the kernels are built at their first CUDA call.

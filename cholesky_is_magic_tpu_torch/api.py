@@ -131,11 +131,16 @@ def solve_batch(
     ``pad_multiple`` / ``dtype`` / ``rescale`` / ``device`` are the
     handle's (the explicit arguments are ignored, as in the JAX package).
 
-    pdas only.  ``mesh`` (the sharded batch) and ``slab_iters`` > 0 (the
-    slabbed driver) are not ported and raise.  ``device`` defaults to the
-    card; without one the call raises unless it asks for ``"cpu"``.  The
-    batched result comes to the host in one copy per tensor."""
-    from cholesky_is_magic_tpu_torch.parallel import batched_pdas
+    pdas only.  ``slab_iters`` > 0 runs the slabbed loop
+    (parallel.batched_pdas_slabbed: lanes that stop are compacted out every
+    ``slab_iters`` iterations).  ``mesh`` (the sharded batch) is not ported
+    and raises.  ``device`` defaults to the card; without one the call
+    raises unless it asks for ``"cpu"``.  The batched result comes to the
+    host in one copy per tensor."""
+    from cholesky_is_magic_tpu_torch.parallel import (
+        batched_pdas,
+        batched_pdas_slabbed,
+    )
     from cholesky_is_magic_tpu_torch.solvers.pdas import PDASConfig, make_pdas
     from cholesky_is_magic_tpu_torch.utils import lanes
 
@@ -143,10 +148,6 @@ def solve_batch(
         raise NotImplementedError(
             "solve_batch(mesh=...): the sharded batch is not ported "
             "(ROADMAP.md §1, multi-device)")
-    if slab_iters > 0:
-        raise NotImplementedError(
-            "solve_batch(slab_iters=...): the slabbed driver is not ported "
-            "(ROADMAP.md §1, batched_pdas_slabbed)")
     if isinstance(problems, BatchEmbed):
         # Pre-embedded: pad_multiple / dtype / rescale / device are the
         # handle's.
@@ -198,7 +199,10 @@ def solve_batch(
             wx = push_interior(wx, lpb.l, lpb.u, lpb.col_mask, warm_push)
         wx = _into_interior(wx, lpb.l, lpb.u, lpb.col_mask)
         batched = dataclasses.replace(batched, x=wx, y=wy, w=ww, z=wz)
-    res = batched_pdas(batched, cfg)
+    if slab_iters > 0:
+        res = batched_pdas_slabbed(batched, cfg, slab_iters=slab_iters)
+    else:
+        res = batched_pdas(batched, cfg)
     # ONE copy per tensor to the host, not a scalar read per report.
     leaves, build = lanes.flatten(res)
     return _postsolve_batch_reports(sfs, build([t.cpu() for t in leaves]),

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseLP
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseKKTLP, SparseLP
 from cholesky_is_magic_tpu_torch.ops.bell import BellMatrix
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 from cholesky_is_magic_tpu_torch.ops.sparse_ops import ELLMatrix
@@ -95,6 +95,49 @@ def sparse_lp_from_numpy(lp, *, device="cuda", dtype=None) -> SparseLP:
         c=put(lp.c), b=put(lp.b), l=put(lp.l), u=put(lp.u),
         row_type=tensor_from_numpy(lp.row_type, device=device),
         m=int(lp.m), n=int(lp.n),
+    )
+
+
+def sparse_kkt_lp_from_numpy(lp, *, device="cuda", dtype=None) -> SparseKKTLP:
+    """A SparseKKTLP from an object with the fields E and ET (indices,
+    values, n_cols), EB and ETB (blocks, bcols, n_rows, n_cols; or None),
+    c, b, l, u, row_mask, col_mask, m, n; ``dtype`` applies to the float
+    fields, indices become int64.  The arrays may carry a leading lane axis
+    (a stacked batch of one A)."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)  # noqa: E731
+    mask = lambda v: tensor_from_numpy(np.asarray(v, bool), device=device)  # noqa: E731
+    return SparseKKTLP(
+        E=_ell_from_numpy(lp.E, device=device, dtype=dtype),
+        ET=_ell_from_numpy(lp.ET, device=device, dtype=dtype),
+        c=put(lp.c), b=put(lp.b), l=put(lp.l), u=put(lp.u),
+        row_mask=mask(lp.row_mask), col_mask=mask(lp.col_mask),
+        m=int(lp.m), n=int(lp.n),
+        EB=_bell_from_numpy(lp.EB, device=device, dtype=dtype),
+        ETB=_bell_from_numpy(lp.ETB, device=device, dtype=dtype),
+    )
+
+
+def pdas_sparse_state_from_numpy(st, *, device="cuda", dtype=None) -> PDASState:
+    """A PDASState over a SparseKKTLP from an object with the fields x, y,
+    w, z and lp (see :func:`sparse_kkt_lp_from_numpy`), with or without a
+    leading lane axis."""
+    put = lambda v: tensor_from_numpy(v, device=device, dtype=dtype)  # noqa: E731
+    return PDASState(
+        x=put(st.x), y=put(st.y), w=put(st.w), z=put(st.z),
+        lp=sparse_kkt_lp_from_numpy(st.lp, device=device, dtype=dtype),
+    )
+
+
+def pdas_dd_sparse_state_from_numpy(st, *, device="cuda",
+                                    dtype=None) -> PDASDDState:
+    """A PDASDDState over a SparseKKTLP from an object with the fields x, y,
+    w, z (each with ``hi`` and ``lo``) and lp, with or without a leading
+    lane axis."""
+    put = lambda d: DD(tensor_from_numpy(d.hi, device=device, dtype=dtype),  # noqa: E731
+                       tensor_from_numpy(d.lo, device=device, dtype=dtype))
+    return PDASDDState(
+        x=put(st.x), y=put(st.y), w=put(st.w), z=put(st.z),
+        lp=sparse_kkt_lp_from_numpy(st.lp, device=device, dtype=dtype),
     )
 
 

@@ -38,6 +38,15 @@
 // Every operation is an explicit round-to-nearest intrinsic: d², w·d² and
 // the running sum round exactly as the plain version's multiply, multiply
 // and sequential index_add_, and the boost is added last, as there.
+//
+// Lanes: the batched solvers (parallel/batched.py) assemble one normal
+// matrix per lane from the same schedule (the lanes share A) and their own
+// d and boost.  The grid's y is the lane; each lane has its own tile array
+// (a lane stride of the tiles, a multiple of 4), d and boost (lane strides,
+// 0 to share one).  A lane's blocks run the single launch's code on the
+// lane's operands, so every lane is bit-equal to the single launch on it;
+// the single launch is the batch of one.  The pair arrays are read once per
+// lane: B lanes move B times the single launch's bytes.
 
 #include <cuda_runtime.h>
 
@@ -56,7 +65,13 @@ assemble_chunks_kernel(float* __restrict__ tiles, int total, int chunk,
                        const int* __restrict__ run_dst,
                        const int* __restrict__ run_row,
                        const int* __restrict__ chunk_run,
-                       const float* __restrict__ row_boost, int m) {
+                       const float* __restrict__ row_boost, int m,
+                       long long lane_tiles, long long lane_d,
+                       long long lane_boost) {
+  const long long lane = blockIdx.y;
+  tiles += lane * lane_tiles;
+  d += lane * lane_d;
+  row_boost += lane * lane_boost;
   const int c = blockIdx.x;
   const int e0 = c * chunk;  // a multiple of 4: tiles + e0 is 16-byte aligned
   const int e1 = min(total, e0 + chunk);
@@ -85,10 +100,30 @@ assemble_chunks_kernel(float* __restrict__ tiles, int total, int chunk,
 
 }  // namespace
 
-// C interface, loaded with ctypes.  Launches on the given stream, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).  ``tiles`` is
-// 16-byte aligned, ``chunk`` a multiple of 4 with total + chunk < 2^31, and
-// chunk_run has ceil(total / chunk) + 1 entries.
+// C interface, loaded with ctypes.  Each entry point launches on the given
+// stream, does not synchronise, and returns cudaGetLastError() (0 =
+// launched).  ``tiles`` is 16-byte aligned, ``chunk`` a multiple of 4 with
+// total + chunk < 2^31, and chunk_run has ceil(total / chunk) + 1 entries.
+// The batched entry point takes 1 to 65535 lanes, the tiles' lane stride a
+// multiple of 4 and at least ``total``.
+extern "C" int cim_assemble_pairs_f32_batched(
+    float* tiles, int total, int chunk, const float* w, const int* kcol,
+    const float* d, const int* run_start, const int* run_dst,
+    const int* run_row, const int* chunk_run, const float* row_boost, int m,
+    int lanes, long long lane_tiles, long long lane_d, long long lane_boost,
+    void* stream) {
+  if (total < 1 || chunk < 4 || chunk % 4 != 0 || lanes < 1 || lanes > 65535 ||
+      (lanes > 1 && (lane_tiles < total || lane_tiles % 4 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (total + chunk - 1) / chunk;
+  assemble_chunks_kernel<<<dim3(chunks, lanes), kThreads, 0, s>>>(
+      tiles, total, chunk, w, kcol, d, run_start, run_dst, run_row, chunk_run,
+      row_boost, m, lane_tiles, lane_d, lane_boost);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int cim_assemble_pairs_f32(float* tiles, int total, int chunk,
                                       const float* w, const int* kcol,
                                       const float* d, const int* run_start,
@@ -96,13 +131,7 @@ extern "C" int cim_assemble_pairs_f32(float* tiles, int total, int chunk,
                                       const int* chunk_run,
                                       const float* row_boost, int m,
                                       void* stream) {
-  if (total < 1 || chunk < 4 || chunk % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (total + chunk - 1) / chunk;
-  assemble_chunks_kernel<<<chunks, kThreads, 0, s>>>(
-      tiles, total, chunk, w, kcol, d, run_start, run_dst, run_row, chunk_run,
-      row_boost, m);
-  return static_cast<int>(cudaGetLastError());
+  return cim_assemble_pairs_f32_batched(tiles, total, chunk, w, kcol, d,
+                                        run_start, run_dst, run_row, chunk_run,
+                                        row_boost, m, 1, 0, 0, 0, stream);
 }

@@ -11,7 +11,10 @@
 //                         memory and writes both the lower factor L and its
 //                         lower-triangular inverse.  The tile engine
 //                         (sparse/tiled.py) calls it once per panel on its
-//                         diagonal tile (ops/chol.py splits wider tiles).
+//                         diagonal tile (ops/chol.py splits wider tiles);
+//                         the batched solvers once per panel on every
+//                         lane's diagonal tile, a CTA per lane, in one
+//                         launch (cim_potrf_tile_f32_batched).
 //   potrf_panel_kernel <- P = A_panel . Minv^T, written in place, and the
 //                         zeroing of the panel's upper strip.
 //   potrf_schur_kernel <- the trailing update S -= P . P^T, lower triangle.
@@ -236,9 +239,17 @@ __device__ __forceinline__ void factor_diag_block(float* Ls, float* Xs, float* B
   if (i == 0 && fail) *bad = 1;
 }
 
+// Lane blockIdx.x factors the tile at A + lane * lane_a (its lower triangle
+// read) into L + lane * lane_l and inv + lane * lane_i.  A and L may be the
+// same tile (in place): every read of A is done before the first write.
 __global__ void __launch_bounds__(kTileThreads, 1)
-potrf_tile_kernel(float* __restrict__ A, long long lda, float* __restrict__ inv,
-                  long long ldi, int b) {
+potrf_tile_kernel(const float* A, long long lda, float* L, long long ldl,
+                  float* __restrict__ inv, long long ldi, int b, long long lane_a,
+                  long long lane_l, long long lane_i) {
+  const long long tile = blockIdx.x;
+  A += tile * lane_a;
+  L += tile * lane_l;
+  inv += tile * lane_i;
   extern __shared__ float4 smem4[];
   const int ld = tile_ld(b);
   const int b4 = (b + 3) & ~3;
@@ -373,7 +384,7 @@ potrf_tile_kernel(float* __restrict__ A, long long lda, float* __restrict__ inv,
         lv = nan;
         xv = nan;
       }
-      A[r * lda + c] = lv;
+      L[r * ldl + c] = lv;
       inv[r * ldi + c] = xv;
     }
   }
@@ -676,9 +687,16 @@ int launch_schur(float* S, long long lds, const float* P, long long ldp, int t, 
 // stream, does not synchronise, and returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for a shape it does not take.
 
-extern "C" int cim_potrf_tile_f32(float* A, long long lda, float* inv,
-                                  long long ldi, int b, void* stream) {
-  if (b < 1 || b > kTileMax) return static_cast<int>(cudaErrorInvalidValue);
+// The tile kernel on `lanes` tiles in one launch, one CTA each: lane k reads
+// A + k * lane_a and writes L + k * lane_l and inv + k * lane_i, bit-equal
+// to the single launch on that tile (the same code on the lane's operands).
+extern "C" int cim_potrf_tile_f32_batched(const float* A, long long lda,
+                                          long long lane_a, float* L,
+                                          long long ldl, long long lane_l,
+                                          float* inv, long long ldi,
+                                          long long lane_i, int b, int lanes,
+                                          void* stream) {
+  if (b < 1 || b > kTileMax || lanes < 1) return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -688,8 +706,16 @@ extern "C" int cim_potrf_tile_f32(float* A, long long lda, float* inv,
     configured = true;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  potrf_tile_kernel<<<1, kTileThreads, tile_smem(b), s>>>(A, lda, inv, ldi, b);
+  potrf_tile_kernel<<<lanes, kTileThreads, tile_smem(b), s>>>(
+      A, lda, L, ldl, inv, ldi, b, lane_a, lane_l, lane_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One tile in place (the panel loop's and the tile engine's single launch).
+extern "C" int cim_potrf_tile_f32(float* A, long long lda, float* inv,
+                                  long long ldi, int b, void* stream) {
+  return cim_potrf_tile_f32_batched(A, lda, 0, A, lda, 0, inv, ldi, 0, b, 1,
+                                    stream);
 }
 
 extern "C" int cim_potrf_panel_f32(float* A, long long lda, const float* inv,

@@ -81,11 +81,14 @@ def ell_kkt_operator(
     dbound: float = 0.0,
     krylov_steps: int = 0,
     krylov_gate=None,
+    per_lane: bool = False,
 ) -> KKTOperator:
     """Fully sparse operator: ELL / block-ELL products and the tile
     engine's pair-schedule assembly and factorization
     (sparse.tiled.engine_for_sparse).  No dense A operand anywhere — ``lp``
-    is an ingest.device.SparseKKTLP."""
+    is an ingest.device.SparseKKTLP.  ``per_lane``: a lane under
+    ``torch.func.vmap`` (the dbound retry and the Krylov gate selected per
+    lane)."""
     from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
 
     def prepare_scaled_normal(s):
@@ -93,7 +96,7 @@ def ell_kkt_operator(
             lp.E, lp.ET, s, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            EB=lp.EB, ETB=lp.ETB,
+            EB=lp.EB, ETB=lp.ETB, per_lane=per_lane,
         )
 
     def solve_scaled_normal(s, g):

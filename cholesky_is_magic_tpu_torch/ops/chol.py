@@ -14,12 +14,17 @@ panels with the matrix resident in VMEM.  Here:
   exactly what the JAX ``cholesky()`` runs off the TPU or on a non-f32
   operand (``ops/pallas_chol.py:255-260``);
 - :func:`factor_tile_` factors one (b, b) diagonal tile of the sparse tile
-  engine and inverts its factor (the tile engine's panel step,
+  engine in place and inverts its factor (the tile engine's panel step,
   ``sparse/tiled.py:357-358`` of the JAX package): on a float32 CUDA tensor
   the hand-written tile kernel (:func:`.chol_cuda.potrf_tile_`, b <= 128),
   with wider tiles split 2 x 2 around it (:func:`_factor_tile_split_`); on
   a CPU tensor, or another dtype on the card, :func:`_factor_tile_plain` at
-  any b.
+  any b.  Inside a lane of a batched solver (``per_lane``:
+  ``parallel.batched`` vmaps the tile engine) it goes through the operator
+  ``cim::factor_tile`` (:func:`factor_tile_op`), whose ``torch.func.vmap``
+  rule factors a whole batch of tiles at once: one launch of
+  :func:`.chol_cuda.potrf_tile_batched` per panel for all the lanes on the
+  card, the plain form on the stack elsewhere (the CPU runs the same rule).
 
 The route is chosen from the operands (``cuda_build.takes_kernel``) before
 any launch; it is not a fallback.
@@ -103,13 +108,47 @@ def cholesky(N: torch.Tensor) -> torch.Tensor:
 
 
 def _factor_tile_plain(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(L, L⁻¹) of one tile: ``cholesky_ex`` on its lower triangle plus a
-    triangular solve against I, both all-NaN on a non-PD tile (as
-    ``jnp.linalg.cholesky`` and the JAX tile engine give)."""
+    """(L, L⁻¹) of one tile, or of each tile of a stack (leading axes are
+    lanes): ``cholesky_ex`` on its lower triangle plus a triangular solve
+    against I, both all-NaN on a non-PD tile (as ``jnp.linalg.cholesky``
+    and the JAX tile engine give)."""
     L, info = torch.linalg.cholesky_ex(T)
-    L = torch.where(info == 0, L, float("nan"))
+    L = torch.where((info == 0)[..., None, None], L, float("nan"))
     eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def _factor_tile(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, L⁻¹) of the (b, b) tile T as new tensors: the tile kernel on a
+    float32 CUDA tensor (b <= 128), :func:`_factor_tile_plain` otherwise."""
+    if takes_kernel(T.device, T.dtype):
+        return chol_cuda.potrf_tile(T)
+    return _factor_tile_plain(T)
+
+
+# :func:`_factor_tile` as the operator ``cim::factor_tile``: under
+# ``torch.func.vmap`` one launch of the batched tile kernel for the whole
+# batch (the plain form on the stack off the card).  Only a lane needs it:
+# the operator's dispatch costs tens of microseconds a call, so the single
+# path launches the kernel itself (:func:`factor_tile_`).
+factor_tile_op = torch.library.custom_op("cim::factor_tile", mutates_args=())(
+    _factor_tile)
+
+
+@factor_tile_op.register_fake
+def _(T):
+    return T.new_empty(T.shape), T.new_empty(T.shape)
+
+
+@factor_tile_op.register_vmap
+def _(info, in_dims, T):
+    T = T.movedim(in_dims[0], 0) if in_dims[0] is not None else T.expand(
+        info.batch_size, *T.shape)
+    if takes_kernel(T.device, T.dtype):
+        if T.stride(-1) != 1:
+            T = T.contiguous()
+        return chol_cuda.potrf_tile_batched(T), (0, 0)
+    return _factor_tile_plain(T), (0, 0)
 
 
 def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
@@ -121,7 +160,8 @@ def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
     ``_tri_inv`` formula (``sparse/tiled.py:46-67``).  Only the lower
     triangle of T is read, the upper triangles come back exactly zero, and
     the whole L and L⁻¹ are NaN when either leaf meets a non-positive pivot
-    (a device-side fill, no host sync)."""
+    (a device-side fill, no host sync).  Under ``torch.func.vmap`` each lane
+    is split on its own (its products and its fill per lane)."""
     b, h = T.shape[-1], chol_cuda.BLOCK
     if b <= h:
         leaf_(T, inv)
@@ -131,7 +171,8 @@ def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
     leaf_(T[:h, :h], X11)
     L21 = T21 @ X11.T
     T21.copy_(L21)
-    T22.addmm_(L21, L21.T, alpha=-1)  # only its lower triangle is read next
+    # Only its lower triangle is read next.  (addmm_ has no vmap rule.)
+    T22.copy_(torch.addmm(T22, L21, L21.T, alpha=-1))
     _factor_tile_split_(T22, X22, leaf_)
     inv[h:, :h].copy_(X22 @ (L21 @ X11)).neg_()
     T[:h, h:].zero_()
@@ -141,16 +182,27 @@ def _factor_tile_split_(T: torch.Tensor, inv: torch.Tensor, leaf_) -> None:
     inv.masked_fill_(bad, float("nan"))
 
 
-def factor_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
+def _lane_leaf_(T: torch.Tensor, inv: torch.Tensor) -> None:
+    """:func:`_factor_tile_split_`'s leaf inside a lane: the operator, its
+    results copied into place (a vmapped tensor has no address to write
+    to)."""
+    L, X = factor_tile_op(T)
+    T.copy_(L)
+    inv.copy_(X)
+
+
+def factor_tile_(T: torch.Tensor, inv: torch.Tensor, per_lane: bool = False) -> None:
     """In place: T <- the lower factor of the (b, b) tile T (its lower
     triangle is read), inv <- that factor's inverse; upper triangles exactly
     zero, everything NaN on a non-PD tile.  On float32 CUDA tensors the tile
     kernel factors tiles of at most ``chol_cuda.BLOCK`` and
     :func:`_factor_tile_split_` splits wider ones around it; on the CPU, or
-    in another dtype on the card, :func:`_factor_tile_plain`."""
+    in another dtype on the card, :func:`_factor_tile_plain`.  ``per_lane``
+    (T a lane under ``torch.func.vmap``): through :func:`factor_tile_op`,
+    one batched launch for all the lanes."""
     if takes_kernel(T.device, T.dtype, inv.dtype):
-        _factor_tile_split_(T, inv, chol_cuda.potrf_tile_)
+        _factor_tile_split_(T, inv, _lane_leaf_ if per_lane else chol_cuda.potrf_tile_)
         return
-    L, Li = _factor_tile_plain(T)
+    L, Li = (factor_tile_op if per_lane else _factor_tile_plain)(T)
     T.copy_(L)
     inv.copy_(Li)

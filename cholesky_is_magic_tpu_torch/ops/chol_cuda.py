@@ -6,8 +6,12 @@ TPU kernel ``cholesky_is_magic_tpu/ops/pallas_chol.py`` ``_potrf_kernel``
 
 - :func:`potrf_tile_` (``cim_potrf_tile_f32``): one CTA factors one (b, b)
   tile, b <= 128, in shared memory and writes L and L⁻¹ — the kernel's
-  ``_chol_fori`` + ``_tri_inv_fori``, and the sparse tile engine's panel
-  factor;
+  ``_chol_fori`` + ``_tri_inv_fori``; :func:`potrf_tile` the same into new
+  tensors (the sparse tile engine's panel factor), and
+  :func:`potrf_tile_batched` (``cim_potrf_tile_f32_batched``) a (B, b, b)
+  stack of tiles in one launch, a CTA per lane, each lane bit-equal to the
+  single launch on it: the panel factor of the batched sparse solvers, where
+  ``jax.vmap`` of the JAX engine batches its tile Cholesky;
 - :func:`potrf` drives the kernel's panel loop from the host over the
   matrix in global memory: per 128-column panel :func:`potrf_tile_` on the
   diagonal block, :func:`potrf_panel_` (``cim_potrf_panel_f32``:
@@ -50,10 +54,13 @@ import torch
 
 from cholesky_is_magic_tpu_torch.ops import cuda_build
 
-LAUNCHES = {"potrf_tile": 0, "potrf_panel": 0, "potrf_schur": 0}
+LAUNCHES = {"potrf_tile": 0, "potrf_tile_batched": 0, "potrf_panel": 0,
+            "potrf_schur": 0}
 
 _SIGNATURES = {
     "cim_potrf_tile_f32": [_P, _LL, _P, _LL, _I, _P],
+    "cim_potrf_tile_f32_batched": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                                   _I, _I, _P],
     "cim_potrf_panel_f32": [_P, _LL, _P, _LL, _P, _I, _I, _I, _I, _I, _P],
     "cim_potrf_schur_f32": [_P, _LL, _P, _LL, _I, _I, _I, _I, _P],
 }
@@ -106,6 +113,39 @@ def potrf_tile_(T: torch.Tensor, inv: torch.Tensor) -> None:
         raise ValueError("potrf_tile_: inv must match the tile")
     _launch("potrf_tile", T.data_ptr(), T.stride(0), inv.data_ptr(), inv.stride(0),
             T.shape[0], _stream(T))
+
+
+def potrf_tile(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, L⁻¹) of the (b, b) f32 CUDA tile T, b <= 128, as new tensors (T's
+    lower triangle read, T untouched): :func:`potrf_tile_`'s kernel writing
+    elsewhere, with the same bits."""
+    L, inv = _tile_launch(T[None], "potrf_tile")
+    return L[0], inv[0]
+
+
+def potrf_tile_batched(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L, L⁻¹) of every tile of the (B, b, b) f32 CUDA stack T, b <= 128, in
+    one launch, a CTA per lane: (B, b, b) each, lane k bit-equal to
+    :func:`potrf_tile` of T[k].  T may have any lane stride (0 repeats one
+    tile) and row stride, with contiguous rows."""
+    return _tile_launch(T, "potrf_tile_batched")
+
+
+def _tile_launch(T: torch.Tensor, counter: str) -> tuple[torch.Tensor, torch.Tensor]:
+    if T.dim() != 3:
+        raise ValueError(f"{counter}: a (B, b, b) stack, got {tuple(T.shape)}")
+    _check_square(T[0], counter, BLOCK)
+    lanes, b = T.shape[0], T.shape[-1]
+    if lanes < 1:
+        raise ValueError(f"{counter}: no tiles")
+    L = torch.empty((lanes, b, b), dtype=T.dtype, device=T.device)
+    inv = torch.empty_like(L)
+    lib = cuda_build.load(_SIGNATURES)
+    LAUNCHES[counter] += 1
+    cuda_build.raise_on(lib.cim_potrf_tile_f32_batched(
+        T.data_ptr(), T.stride(1), T.stride(0), L.data_ptr(), b, b * b,
+        inv.data_ptr(), b, b * b, b, lanes, _stream(T)), counter)
+    return L, inv
 
 
 def _check_rows(A: torch.Tensor, name: str) -> None:

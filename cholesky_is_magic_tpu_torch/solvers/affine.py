@@ -25,13 +25,20 @@ only the factorizations of the branch it takes.  The loop reads its
 condition and the repair test in one transfer per iteration; an optimize
 step adds the factorization's ok (the slack-cap retry) and, off the
 centering schedule, the stop and stall tests in one more transfer.
+
+A batch (``parallel.batched_affine``, the JAX ``jax.vmap`` of this loop)
+runs :func:`_affine_lanes`: each iteration vmaps the one-lane iteration with
+``per_lane``, in which every ``lax.cond`` computes both branches and selects
+per lane, as under ``jax.vmap``: the repair and the optimize step, the
+slack-cap retry and the stall retry (five normal solves an iteration), with
+one host read an iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -206,7 +213,7 @@ def _max_step(l, x, u, g, mask):
     return torch.min(step)
 
 
-def _project(lp, scale, c_dir, refine_steps, engine=None):
+def _project(lp, scale, c_dir, refine_steps, engine=None, per_lane=False):
     """min ||x + [scale]c||  s.t. A[scale]x = 0  (project, :98-116).
 
     Returns (dg, ok): dg = sc - (AD)ᵀ N⁻¹ (AD) sc with sc = -scale·c and
@@ -216,7 +223,8 @@ def _project(lp, scale, c_dir, refine_steps, engine=None):
     sc = -(scale * c_dir)
     v = mv(scale * sc)
     boost = _row_boost(lp)
-    y, ok = _solve_normal_backend(lp, engine, scale, v, boost, refine_steps)
+    y, ok = _solve_normal_backend(lp, engine, scale, v, boost, refine_steps,
+                                  per_lane)
     dg = sc - scale * rmv(y)
     return torch.where(lp.col_mask, dg, 0.0), ok
 
@@ -226,23 +234,36 @@ def _residual(lp, x):
     return lp.b - mv(x)
 
 
-def _scaling_step(state: AffineState, centering: bool, cfg: AffineConfig,
-                  engine=None):
+def _scaling_step(state: AffineState, centering, cfg: AffineConfig,
+                  engine=None, per_lane: bool = False):
     """one-affine-scaling-iteration (:165-207) minus the recursion; returns
     (new_x, ok, unbounded, step, norm_g, norm_dg, descent).  ``centering``
     is a host bool; a failed factorization is retried once (a host branch)
     at the repair-sized slack cap sqrt(max_slack), since the 1e8 cap on
     free variables scales their share of N by 1e16 and can make the
     Cholesky numerically rank-deficient, where the reference prints
-    " singular " and stops."""
+    " singular " and stops.  ``per_lane`` (a lane under ``torch.func.vmap``):
+    ``centering`` may be a 0-dim bool tensor, and the retry is computed
+    always and selected where the first factorization failed."""
     lp, x = state.lp, state.x
-    c_dir = (_centering_direction(lp.l, x, lp.u, lp.col_mask) if centering
-             else lp.c)
+    if isinstance(centering, torch.Tensor):
+        c_dir = torch.where(centering,
+                            _centering_direction(lp.l, x, lp.u, lp.col_mask),
+                            lp.c)
+    else:
+        c_dir = (_centering_direction(lp.l, x, lp.u, lp.col_mask) if centering
+                 else lp.c)
     slack = _slack(lp.l, x, lp.u, cfg.max_slack, lp.col_mask)
-    dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine)
-    if not bool(ok):
-        slack = _slack(lp.l, x, lp.u, math.sqrt(cfg.max_slack), lp.col_mask)
-        dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine)
+    dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine, per_lane)
+    if per_lane or not bool(ok):
+        slack2 = _slack(lp.l, x, lp.u, math.sqrt(cfg.max_slack), lp.col_mask)
+        dg2, ok2 = _project(lp, slack2, c_dir, cfg.refine_steps, engine,
+                            per_lane)
+        if per_lane:
+            slack, dg = torch.where(ok, slack, slack2), torch.where(ok, dg, dg2)
+            ok = ok | ok2
+        else:
+            slack, dg, ok = slack2, dg2, ok2
     g = dg * slack
     step = cfg.gamma * _max_step(lp.l, x, lp.u, g, lp.col_mask)
     norm_g = torch.linalg.norm(g)
@@ -254,29 +275,40 @@ def _scaling_step(state: AffineState, centering: bool, cfg: AffineConfig,
     return new_x, ok, unbounded, step, norm_g, norm_dg, descent
 
 
-def _optimize_iteration(state: AffineState, centering: bool,
-                        cfg: AffineConfig, engine=None):
+def _optimize_iteration(state: AffineState, centering, cfg: AffineConfig,
+                        engine=None, per_lane: bool = False):
     """The optimize/recenter path with the stall retry: a non-centering
     step that stalls (step·||g|| < tol) is redone once as a centering step
-    (:200-204).  Returns (x, cont, status) as 0-dim tensors."""
+    (:200-204).  Returns (x, cont, status) as 0-dim tensors.  ``per_lane``
+    (a lane under ``torch.func.vmap``, ``centering`` a 0-dim bool tensor):
+    the stop and stall tests select between the step, the stop and the
+    centering retry, all computed."""
     lp, x0 = state.lp, state.x
     new_x, ok, unbounded, step, norm_g, norm_dg, descent = _scaling_step(
-        state, centering, cfg, engine)
-    rx, rok, runb, cont = new_x, ok, unbounded, True
-    if not centering:
-        # The true variable count, not the padded length
-        # (affine-scaling.lisp:193-194 uses (length x)).
-        n_rows = torch.tensor(lp.n, dtype=x0.dtype, device=x0.device)
-        converged_dir = norm_dg < torch.clamp_max(1e-8 * n_rows,
-                                                  cfg.direction_tol)
-        # Early exits apply to optimize steps only (:192-199).
-        stop, stalled = torch.stack([
-            converged_dir | (descent > 0), (step * norm_g) < cfg.step_tol,
-        ]).tolist()
-        if stop:
-            rx, cont = x0, False
-        elif stalled:
-            rx, rok, runb, *_ = _scaling_step(state, True, cfg, engine)
+        state, centering, cfg, engine, per_lane)
+    # The true variable count, not the padded length
+    # (affine-scaling.lisp:193-194 uses (length x)).
+    n_rows = torch.tensor(lp.n, dtype=x0.dtype, device=x0.device)
+    converged_dir = norm_dg < torch.clamp_max(1e-8 * n_rows, cfg.direction_tol)
+    # Early exits apply to optimize steps only (:192-199).
+    stop = converged_dir | (descent > 0)
+    stalled = (step * norm_g) < cfg.step_tol
+    if per_lane:
+        cx, cok, cunb, *_ = _scaling_step(state, True, cfg, engine, per_lane)
+        plain = centering | (~stop & ~stalled)
+        retry = ~centering & ~stop & stalled
+        rx = torch.where(plain, new_x, torch.where(retry, cx, x0))
+        rok = torch.where(retry, cok, ok)
+        runb = torch.where(retry, cunb, unbounded)
+        cont = centering | ~stop
+    else:
+        rx, rok, runb, cont = new_x, ok, unbounded, True
+        if not centering:
+            stop, stalled = torch.stack([stop, stalled]).tolist()
+            if stop:
+                rx, cont = x0, False
+            elif stalled:
+                rx, rok, runb, *_ = _scaling_step(state, True, cfg, engine)
     # A singular projection aborts (:178-181).
     cont = cont & rok
     status = torch.where(
@@ -287,7 +319,7 @@ def _optimize_iteration(state: AffineState, centering: bool,
 
 
 def _repair_iteration(state: AffineState, residual, cfg: AffineConfig,
-                      engine=None):
+                      engine=None, per_lane: bool = False):
     """Least-squares step back toward Ax = b (one-repair-iteration,
     :226-243): dg = (AD)ᵀ N⁻¹ r, step = gamma·min(max-step, 1/gamma).
     Returns (x, cont, status)."""
@@ -296,7 +328,7 @@ def _repair_iteration(state: AffineState, residual, cfg: AffineConfig,
     _, rmv = _mv_rmv(lp)
     boost = _row_boost(lp)
     y, ok = _solve_normal_backend(lp, engine, slack, residual, boost,
-                                  cfg.refine_steps)
+                                  cfg.refine_steps, per_lane)
     dg = torch.where(lp.col_mask, slack * rmv(y), 0.0)
     g = dg * slack
     step = cfg.gamma * torch.clamp_max(
@@ -385,4 +417,91 @@ def _affine_loop(state: AffineState, cfg: AffineConfig, engine) -> SolveResult:
                 "objective": trace[0], "residual": trace[1], "step": trace[2],
             },
         },
+    )
+
+
+class _LaneCarry(NamedTuple):
+    """A lane's carry in :func:`_affine_lanes`: (B,) tensors in a batch."""
+
+    cont: torch.Tensor  # the last iteration said go on
+    status: torch.Tensor
+    count: torch.Tensor  # iterations taken (the centering schedule)
+    residual: torch.Tensor  # b - A x of the current iterate
+    norm: torch.Tensor  # its 2-norm
+
+
+@highest_precision
+def _affine_lanes(states: AffineState, cfg: AffineConfig,
+                  engine=None) -> SolveResult:
+    """:func:`_affine_loop` over stacked states (every tensor with a
+    leading lane axis) by ``solvers.pdas._lane_loop``: each iteration vmaps
+    the one-lane iteration with ``per_lane``: the repair and the optimize
+    step both computed and selected by the lane's own residual test, its
+    centering schedule from its own count; a lane that has stopped keeps its
+    iterate.  One host read per iteration.  Returns one SolveResult whose
+    tensors have the lane axis first."""
+    from cholesky_is_magic_tpu_torch.solvers.pdas import _lane_loop
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    check_backend(states.lp, engine, None)
+    dt, dev = states.x.dtype, states.x.device
+    m = states.lp.m
+    tol = (torch.tensor(cfg.residual_tol, dtype=dt, device=dev)
+           * torch.tensor(m, dtype=dt, device=dev))
+    B = states.x.shape[0]
+    rows = cfg.max_iters if cfg.record_trace else 0
+    trace = [torch.full((B, rows), float("nan"), dtype=dt, device=dev)
+             for _ in range(3)]
+
+    def start(st):
+        residual = _residual(st.lp, st.x)
+        return _LaneCarry(
+            cont=torch.ones((), dtype=torch.bool, device=dev),
+            status=torch.tensor(Status.RUNNING, dtype=torch.int32, device=dev),
+            count=torch.zeros((), dtype=torch.int32, device=dev),
+            residual=residual, norm=torch.linalg.norm(residual))
+
+    def keep_going(c):
+        # The loop's stop (:284-291), as in _affine_loop.
+        return (c.cont | (c.norm > tol)) & (c.status == Status.RUNNING)
+
+    def step(st, c):
+        centering = (c.count + 1) % cfg.recenter_every == 0  # :283
+        repair = _repair_iteration(st, c.residual, cfg, engine, per_lane=True)
+        optimize = _optimize_iteration(st, centering, cfg, engine,
+                                       per_lane=True)
+        needs = c.norm > tol
+        new_x, cont, status = (torch.where(needs, r, o)
+                               for r, o in zip(repair, optimize))
+        residual = _residual(st.lp, new_x)
+        vals = (torch.dot(st.x, st.lp.c), c.norm,
+                torch.linalg.norm(new_x - st.x))
+        return (dict(x=new_x),
+                _LaneCarry(cont=cont, status=status, count=c.count + 1,
+                           residual=residual,
+                           norm=torch.linalg.norm(residual)),
+                vals)
+
+    def finish(st, c):
+        feasible = c.norm <= tol
+        final = torch.where(
+            c.status != Status.RUNNING,
+            c.status,
+            torch.where(
+                feasible & ~c.cont,
+                Status.OPTIMAL,
+                torch.where(c.count >= cfg.max_iters, Status.MAX_ITERS,
+                            Status.OPTIMAL),
+            ),
+        ).to(torch.int32)
+        return dict(x=st.x, objective=torch.dot(st.x, st.lp.c), status=final,
+                    residual_norm=c.norm)
+
+    out, i, trace = _lane_loop(cfg, states, lanes.vmap(start, states), step,
+                               finish, trace, keep_going=keep_going)
+    return SolveResult(
+        x=out["x"], objective=out["objective"], status=out["status"],
+        iterations=i, residual_norm=out["residual_norm"],
+        extra={"trace": {"objective": trace[0], "residual": trace[1],
+                         "step": trace[2]}},
     )

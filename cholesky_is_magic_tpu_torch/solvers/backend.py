@@ -56,19 +56,16 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
                            mesh=None, dbound=0.0, krylov_steps=0,
                            krylov_gate=None, method="direct", per_lane=False):
     """Factor (A·diag(d))(A·diag(d))ᵀ ONCE on the backend the operand set
-    selects; returns (solve_fn, ok).  ``method`` and ``per_lane`` (a lane
-    of a batched solve: the host branches become per-lane selects) are read
-    by the dense backend only; the sparse one refuses ``per_lane``."""
+    selects; returns (solve_fn, ok).  ``per_lane`` (a lane of a batched
+    solve: the host branches become per-lane selects) is read by both
+    backends, ``method`` by the dense one only."""
     check_backend(lp, engine, mesh)
     if isinstance(lp, SparseKKTLP):
-        if per_lane:
-            raise NotImplementedError(
-                "batched solves on the sparse engine are not ported")
         return engine.prepare_normal_ell(
             lp.E, lp.ET, d, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            EB=lp.EB, ETB=lp.ETB,
+            EB=lp.EB, ETB=lp.ETB, per_lane=per_lane,
         )
     return dense_ops.prepare_normal(
         lp.A, d, row_boost=row_boost, refine_steps=refine_steps,
@@ -77,10 +74,11 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
     )
 
 
-def solve_normal_backend(lp, engine, d, g, row_boost, refine_steps):
+def solve_normal_backend(lp, engine, d, g, row_boost, refine_steps,
+                         per_lane=False):
     """(A·diag(d))(A·diag(d))ᵀ y = g on the backend the operand set
     selects: one :func:`prepare_normal_backend` and one solve.  Returns
     (y, ok)."""
     solve_fn, ok = prepare_normal_backend(lp, engine, d, row_boost,
-                                          refine_steps)
+                                          refine_steps, per_lane=per_lane)
     return solve_fn(g), ok

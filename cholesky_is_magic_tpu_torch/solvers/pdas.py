@@ -637,31 +637,36 @@ def _write_trace(trace, i, active, vals) -> list:
     return out
 
 
-def _lane_loop(cfg: PDASConfig, st, c, step, finish, trace, iterates):
+def _lane_loop(cfg, st, c, step, finish, trace, iterates=None,
+               keep_going=None):
     """The batched ``while_loop`` over stacked states ``st`` with the
-    per-lane carry ``c`` (of :func:`_start` or its pdas_dd twin): each
-    iteration is ``lanes.vmap(step, st, c)`` -> ((x, y, w, z), new carry,
-    the trace's (gap, objective, step)); a lane whose own condition
-    (:func:`_keep_going` and the budget) fails keeps its iterate, carry,
+    per-lane carry ``c`` (of :func:`_start`, its pdas_dd twin or the affine
+    loop's): each iteration is ``lanes.vmap(step, st, c)`` -> (the state's
+    new fields by name, the new carry, the trace's values); a lane whose
+    own condition (``keep_going(carry)``, by default :func:`_keep_going`,
+    and the budget ``cfg.max_iters``) fails keeps its iterate, carry,
     count and trace rows from then on, as a lane of the JAX package's
     vmapped ``while_loop`` does.  One host read per iteration: whether any
     lane is still running.  ``iterates(st)`` gives the trace's iterate
-    columns.  Returns (``lanes.vmap(finish, st, c)``, the per-lane counts,
-    the trace)."""
-    i = torch.zeros(c.gap.shape[0], dtype=torch.int32, device=c.gap.device)
+    columns, where they are recorded.  Returns (``lanes.vmap(finish, st,
+    c)``, the per-lane counts, the trace)."""
+    first = lanes.flatten(c)[0][0]
+    i = torch.zeros(first.shape[0], dtype=torch.int32, device=first.device)
+    if keep_going is None:
+        keep_going = lambda k: _keep_going(cfg, k)  # noqa: E731
+    record = bool(trace) and trace[0].shape[1] > 0
 
     def active_lanes():
-        return (i < cfg.max_iters) & lanes.vmap(
-            lambda k: _keep_going(cfg, k), c)
+        return (i < cfg.max_iters) & lanes.vmap(keep_going, c)
 
     active = active_lanes()
     while bool(active.any()):
-        new_xyzw, new_c, vals = lanes.vmap(step, st, c)
-        if cfg.record_trace or cfg.record_iterates:
-            vals = list(vals) + (iterates(st) if cfg.record_iterates else [])
+        new_fields, new_c, vals = lanes.vmap(step, st, c)
+        if record:
+            vals = list(vals) + (iterates(st) if iterates else [])
             trace = _write_trace(trace, i, active, vals)
-        x, y, w, z = lanes.select(active, new_xyzw, (st.x, st.y, st.w, st.z))
-        st = dataclasses.replace(st, x=x, y=y, w=w, z=z)
+        old = {k: getattr(st, k) for k in new_fields}
+        st = dataclasses.replace(st, **lanes.select(active, new_fields, old))
         c = lanes.select(active, new_c, c)
         i = i + active.to(torch.int32)
         active = active_lanes()
@@ -676,26 +681,27 @@ def _lane_trace(cfg: PDASConfig, B: int, n: int, dtype, device,
 
 
 @highest_precision
-def _pdas_lanes(states: PDASState, cfg: PDASConfig) -> SolveResult:
-    """:func:`_pdas_loop` over stacked dense states (every tensor with a
-    leading lane axis B) by :func:`_lane_loop`: each iteration vmaps
+def _pdas_lanes(states: PDASState, cfg: PDASConfig, engine=None) -> SolveResult:
+    """:func:`_pdas_loop` over stacked states (every tensor with a leading
+    lane axis B) by :func:`_lane_loop`: each iteration vmaps
     :func:`_one_iteration` with ``per_lane`` (no host read inside it).
+    Dense states, or sparse states of one A with its ``engine`` (the lanes
+    share the engine's schedule and differ in b, c, l, u and iterates).
     Returns one SolveResult whose tensors have the lane axis first."""
-    if not isinstance(states.lp, DeviceLP):
-        raise NotImplementedError("batched solves on the sparse engine are "
-                                  "not ported")
+    check_backend(states.lp, engine, None)
     _check_config(cfg)
     B, n = states.x.shape
     trace = _lane_trace(cfg, B, n, states.x.dtype, states.x.device, 1)
 
     def step(st, c):
         new_st, gap_i, pviol, stp, ok = _one_iteration(
-            st, c.repair_flag, cfg, None, per_lane=True)
-        return ((new_st.x, new_st.y, new_st.w, new_st.z),
+            st, c.repair_flag, cfg, engine, per_lane=True)
+        return (dict(x=new_st.x, y=new_st.y, w=new_st.w, z=new_st.z),
                 _advance(cfg, c, st, gap_i, pviol, stp, ok),
                 (gap_i, torch.dot(st.x, st.lp.c), stp))
 
     out, i, trace = _lane_loop(
         cfg, states, lanes.vmap(_start, states), step,
-        lambda s, k: _finish(cfg, s, k), trace, lambda s: [s.x])
+        lambda s, k: _finish(cfg, s, k), trace,
+        (lambda s: [s.x]) if cfg.record_iterates else None)
     return _result(out, i, trace, cfg)

@@ -166,14 +166,12 @@ def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
     dense one with true-residual refinement (refined against the
     UNASSEMBLED operator in double-word, which corrects the f32 rounding
     of assembling N; otherwise a ~1e-7 direction floor).  ``per_lane``: a
-    lane under ``torch.func.vmap`` (dense only)."""
+    lane under ``torch.func.vmap``."""
     if isinstance(lp, SparseKKTLP):
-        if per_lane:
-            raise NotImplementedError(
-                "batched solves on the sparse engine are not ported")
         return ell_kkt_operator(
             lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
             dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
+            per_lane=per_lane,
         )
     return dense_kkt_operator(
         lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
@@ -623,34 +621,35 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
 
 
 @highest_precision
-def _pdas_dd_lanes(states: PDASDDState, cfg: PDASConfig) -> SolveResult:
-    """:func:`_pdas_dd_loop` over stacked dense states by
+def _pdas_dd_lanes(states: PDASDDState, cfg: PDASConfig,
+                   engine=None) -> SolveResult:
+    """:func:`_pdas_dd_loop` over stacked states by
     :func:`.pdas._lane_loop`: the entry repair and every iteration vmapped
-    with ``per_lane`` (no host read inside).  On the card in f32 each
-    iteration's double-word products run on the stacked operands through
-    the batched kernels."""
-    if not isinstance(states.lp, DeviceLP):
-        raise NotImplementedError("batched solves on the sparse engine are "
-                                  "not ported")
+    with ``per_lane`` (no host read inside).  Dense states, or sparse ones
+    of one A with its ``engine``.  On the card in f32 each iteration's
+    kernels run once for the whole batch: the double-word products on the
+    stacked dense operands, or the assembly and the tile factor on the
+    engine."""
+    check_backend(states.lp, engine, None)
     _check_config(cfg)
     repair_info = {}
     if cfg.entry_repair_tol > 0.0:
         states, pv0, pv1 = lanes.vmap(
-            lambda s: _entry_repair(s, cfg, None, per_lane=True), states)
+            lambda s: _entry_repair(s, cfg, engine, per_lane=True), states)
         repair_info = {"entry_repair": {"pviol_before": pv0,
                                         "pviol_after": pv1}}
     B, n = states.x.hi.shape
     trace = _lane_trace(cfg, B, n, torch.float32, states.x.hi.device, 2)
 
     def step(st, c):
-        new_st, gap, pviol, stp, ok = _one_iteration(st, cfg, None,
+        new_st, gap, pviol, stp, ok = _one_iteration(st, cfg, engine,
                                                      per_lane=True)
         obj = torch.dot(st.x.hi, st.lp.c) + torch.dot(st.x.lo, st.lp.c)
-        return ((new_st.x, new_st.y, new_st.w, new_st.z),
+        return (dict(x=new_st.x, y=new_st.y, w=new_st.w, z=new_st.z),
                 _advance(c, st, gap, pviol, ok), (gap, obj, stp))
 
     out, i, trace = _lane_loop(
         cfg, states, lanes.vmap(_start, states), step,
         lambda s, k: _finish(cfg, s, k), trace,
-        lambda s: [s.x.hi, s.x.lo])
+        (lambda s: [s.x.hi, s.x.lo]) if cfg.record_iterates else None)
     return _result(out, i, trace, cfg, repair_info)

@@ -29,12 +29,24 @@ plain versions on a CPU tensor or in another dtype on the card.  ``ok`` is
 read on the host once per factorization, and only when the dbound retry is
 armed.
 
+The engine also runs inside a lane of a batched solve (``parallel.batched``
+vmaps the solvers with ``torch.func.vmap``; the lanes share A and so the
+engine, and differ in their scalings).  There (``per_lane``) both kernels
+are reached through operators (``cim::assemble_pairs`` here,
+``cim::factor_tile`` in :mod:`..ops.chol`) whose vmap rules launch one
+batched kernel for all the lanes (the plain forms with a lane axis off the
+card), and the dbound retry and the Krylov gate become per-lane selects
+with no host read, as ``lax.cond`` becomes under ``jax.vmap``.
+
 Not ported: the dense-A entry points (``engine_for``, ``assemble``,
 ``prepare_normal``, ``solve_normal``), which raise ``NotImplementedError``,
 and the mesh methods (the solvers raise on ``mesh=``).
 """
 
 from __future__ import annotations
+
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -239,6 +251,17 @@ class TiledCholesky:
         run_dst = run_dst.astype(np.int64)
         self.asm_run_start = put(run_start)
         self.asm_run_dst = put(run_dst)
+        # The plain version's order: a pair's rank in its run (its
+        # destination's occurrence), the pairs grouped by rank, so that no
+        # scatter sees a destination twice (see _assemble_pairs_plain).
+        rank = np.arange(len(dst)) - np.repeat(run_start[:-1], np.diff(run_start))
+        by_rank = np.argsort(rank, kind="stable")
+        bounds = np.cumsum(np.bincount(rank)) if len(rank) else np.zeros(0, np.int64)
+        self._asm_passes = list(zip([0, *bounds[:-1].tolist()], bounds.tolist()))
+        self.asm_pass_pos = put(by_rank)
+        self.asm_pass_dst = put(dst[by_rank])
+        self.op_key = next(_KEYS)
+        _ENGINES[self.op_key] = self
         # The assembly kernel's 32-bit view of this schedule, where
         # assemble_pairs will launch it.
         self._kernel_schedule = None
@@ -248,53 +271,66 @@ class TiledCholesky:
             self._kernel_schedule = tiled_cuda.kernel_schedule(
                 self, run_start, run_dst)
 
-    def assemble_pairs(self, d, row_boost=None):
+    def assemble_pairs(self, d, row_boost=None, per_lane: bool = False):
         """Resident tiles of P(A·D)(A·D)ᵀPᵀ from the pair schedule, plus the
         boosted unit diagonal of padded and gap slots (and ``row_boost`` on
         the first len(row_boost) rows): the hand-written kernel on float32
         CUDA tensors, :meth:`_assemble_pairs_plain` on a CPU tensor or in
-        another dtype on the card."""
+        another dtype on the card.  ``per_lane`` (a lane under
+        ``torch.func.vmap``): through :func:`assemble_pairs_op`, one batched
+        launch for all the lanes."""
         if row_boost is None:
             row_boost = torch.zeros(0, dtype=self.asm_w.dtype, device=d.device)
-        if takes_kernel(d.device, d.dtype, self.asm_w.dtype):
-            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
-            return tiled_cuda.assemble_pairs(self, d, row_boost)
-        return self._assemble_pairs_plain(d, row_boost)
+        if per_lane:
+            return assemble_pairs_op(d, row_boost, self.op_key)
+        return _assemble_pairs(self, d, row_boost)
 
     def _assemble_pairs_plain(self, d, row_boost):
-        """The plain version: one gather of d², one multiply, one sorted
-        ``index_add_``, then the boost."""
+        """The plain version: one gather of d², one multiply, the sorted sums,
+        then the boost.  Leading axes of ``d`` (and of ``row_boost``, or
+        none) are lanes: (..., n) gives (..., NT+1, b, b), each lane equal to
+        the call on it alone.  The sums are one ``index_add_`` per
+        occurrence rank (a pass adds every destination's r-th pair, so no
+        destination appears twice in a pass): each entry adds its pairs one
+        after the other in schedule order from zero, as the kernel does and
+        as one sequential ``index_add_`` would, and on the card no order
+        rests on atomics, so the result is the same run after run."""
         b = self.b
         dt = self.asm_w.dtype
+        lead = d.shape[:-1]
         d2 = (d * d).to(dt)
-        vals = self.asm_w * d2[self.asm_k]
-        flat = torch.zeros((self.NT + 1) * b * b, dtype=dt, device=d.device)
-        tiles = flat.index_add_(0, self.asm_dst_flat, vals).reshape(
-            self.NT + 1, b, b)
-        tiles[self.NT] = 0.0
-        rb = F.pad(row_boost.to(dt), (0, self.B * b - row_boost.shape[0]),
+        vals = (self.asm_w * d2[..., self.asm_k]).reshape(
+            int(np.prod(lead)), self.n_pairs)
+        flat = vals.new_zeros((vals.shape[0], (self.NT + 1) * b * b))
+        for lo, hi in self._asm_passes:
+            flat.index_add_(1, self.asm_pass_dst[lo:hi],
+                            vals[:, self.asm_pass_pos[lo:hi]])
+        tiles = flat.reshape(*lead, self.NT + 1, b, b)
+        tiles[..., self.NT, :, :] = 0.0
+        rb = F.pad(row_boost.to(dt), (0, self.B * b - row_boost.shape[-1]),
                    value=1.0)
-        boost_p = rb[self.pperm].reshape(self.B, b)
+        boost_p = rb[..., self.pperm].reshape(*rb.shape[:-1], self.B, b)
         eye = torch.eye(b, dtype=dt, device=d.device)
-        tiles[self.diag_ids] += eye[None] * boost_p[:, :, None]
+        tiles[..., self.diag_ids, :, :] += eye * boost_p[..., :, :, None]
         return tiles
 
     # ---- factor and solve -----------------------------------------------
 
-    def factorize(self, tiles):
+    def factorize(self, tiles, per_lane: bool = False):
         """One host loop over the panels; per panel one tile factor +
         inverse, one batched TRSM, one batched SYRK + index_add_.  Leaves
-        ``tiles`` as it is.  Returns (L_tiles, invdiag, ok)."""
+        ``tiles`` as it is.  ``per_lane`` (a lane under ``torch.func.vmap``):
+        the tile factor through its operator, one launch for all the lanes.
+        Returns (L_tiles, invdiag, ok)."""
         b = self.b
         L = tiles.clone()
-        invd = torch.zeros((self.B, b, b), dtype=tiles.dtype, device=tiles.device)
+        invd = tiles.new_zeros((self.B, b, b))
         for k in range(self.B):
-            chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k])
+            chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
             nr = self._n_rows[k]
             if nr:
                 rid = self.rows_ids[k, :nr]
-                L.index_copy_(0, rid, torch.matmul(L[rid], invd[k].T))
+                L[rid] = torch.matmul(L[rid], invd[k].T)
             ns = self._n_syrk[k]
             if ns:
                 sa, sb = self.syrk_a[k, :ns], self.syrk_b[k, :ns]
@@ -309,7 +345,7 @@ class TiledCholesky:
         inverses: one gather + one batched matvec per panel."""
         b, B = self.b, self.B
         r = rhs.reshape(B, b)
-        y = torch.zeros((B + 1, b), dtype=tiles.dtype, device=tiles.device)
+        y = invd.new_zeros((B + 1, b))
         for k in range(B):
             acc = r[k]
             nf = self._n_fwd[k]
@@ -318,7 +354,7 @@ class TiledCholesky:
                 ys = y[self.fwd_j[k, :nf]]
                 acc = acc - torch.matmul(Ls, ys[:, :, None]).sum(0)[:, 0]
             y[k] = invd[k] @ acc
-        z = torch.zeros((B + 1, b), dtype=tiles.dtype, device=tiles.device)
+        z = invd.new_zeros((B + 1, b))
         for k in range(B - 1, -1, -1):
             acc = y[k]
             nr = self._n_rows[k]
@@ -329,23 +365,31 @@ class TiledCholesky:
             z[k] = invd[k].T @ acc
         return z[:B].reshape(B * b)
 
-    def _factorize_dbound(self, tiles, dbound):
+    def _factorize_dbound(self, tiles, dbound, per_lane: bool = False):
         """factorize with the CHOLMOD-dbound singular retry: on failure,
-        refactor once with dbound·max(diag) added to the diagonal tiles."""
-        L, invd, ok = self.factorize(tiles)
-        if dbound <= 0.0 or bool(ok):
+        refactor once with dbound·max(diag) added to the diagonal tiles.
+        ``per_lane`` (a lane under ``torch.func.vmap``): the retry is
+        computed always and selected where the first factorization failed,
+        with no host read, as the JAX ``lax.cond`` under ``jax.vmap``."""
+        L, invd, ok = self.factorize(tiles, per_lane)
+        if dbound <= 0.0 or (not per_lane and bool(ok)):
             return L, invd, ok
         eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
         diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
         tiles2 = tiles.clone()
         tiles2[self.diag_ids] += dbound * torch.max(diags) * eye[None]
-        return self.factorize(tiles2)
+        retry = self.factorize(tiles2, per_lane)
+        if not per_lane:
+            return retry
+        return (torch.where(ok, L, retry[0]), torch.where(ok, invd, retry[1]),
+                ok | retry[2])
 
     # ---- the fully sparse normal equations ------------------------------
 
     def prepare_normal_ell(self, E, ET, d, m, row_boost=None, refine_steps=0,
                            dbound: float = 0.0, krylov_steps: int = 0,
-                           krylov_gate=None, EB=None, ETB=None):
+                           krylov_gate=None, EB=None, ETB=None,
+                           per_lane: bool = False):
         """Factor once, solve many, from sparse operands: pair-schedule
         assembly + planned tile factorization; each solve_fn(g) adds
         double-word refinement against the unassembled operator.  ``E`` /
@@ -353,15 +397,17 @@ class TiledCholesky:
         neither) the block-ELL forms the Richardson residuals then ride.
         ``krylov_steps`` > 0 switches refinement to flexible PCG with the
         tile factor as preconditioner, per call when ``krylov_gate`` (a
-        0-dim bool tensor) is given.  ``m`` is the row count.  Returns
+        0-dim bool tensor) is given.  ``m`` is the row count.
+        ``per_lane``: a lane under ``torch.func.vmap`` (the dbound retry and
+        the Krylov gate computed both ways and selected).  Returns
         (solve_fn, ok)."""
         from cholesky_is_magic_tpu_torch.ops import sparse_ops
 
         n_pad = self.B * self.b
         boost = row_boost if row_boost is not None else torch.zeros(
             m, dtype=d.dtype, device=d.device)
-        tiles = self.assemble_pairs(d, boost)
-        L, invd, ok = self._factorize_dbound(tiles, dbound)
+        tiles = self.assemble_pairs(d, boost, per_lane)
+        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane)
         d2 = ddm.two_prod(d, d) if refine_steps else None
         rows = self.slot_of[:m]
 
@@ -403,19 +449,20 @@ class TiledCholesky:
                 y = x.to_working()
                 return torch.where(ok, y, torch.zeros_like(y))
 
-            return krylov.gated(pcg_fn, richardson_fn, krylov_gate), ok
+            return krylov.gated(pcg_fn, richardson_fn, krylov_gate,
+                                per_lane=per_lane), ok
 
         return richardson_fn, ok
 
     def solve_normal_ell(self, E, ET, d, g, row_boost=None, refine_steps=0,
                          dbound: float = 0.0, krylov_steps: int = 0,
-                         EB=None, ETB=None):
+                         EB=None, ETB=None, per_lane: bool = False):
         """(A·D)(A·D)ᵀ y = g entirely from sparse operands (see
         prepare_normal_ell).  Returns (y, ok)."""
         solve_fn, ok = self.prepare_normal_ell(
             E, ET, d, g.shape[0], row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
-            krylov_steps=krylov_steps, EB=EB, ETB=ETB,
+            krylov_steps=krylov_steps, EB=EB, ETB=ETB, per_lane=per_lane,
         )
         return solve_fn(g), ok
 
@@ -425,3 +472,51 @@ class TiledCholesky:
             "solve_normal) is not ported; use the pair-schedule path")
 
     assemble = prepare_normal = solve_normal = _dense_a
+
+
+# The engines the assembly operator can name: an operator takes tensors and
+# numbers, so it names its engine by ``op_key``, given once per schedule.
+_KEYS = itertools.count()
+_ENGINES: "weakref.WeakValueDictionary[int, TiledCholesky]" = weakref.WeakValueDictionary()
+
+
+def _assemble_pairs(eng, d, row_boost):
+    """The engine's tiles: the kernel on float32 CUDA operands
+    (:func:`.tiled_cuda.assemble_pairs`), the plain version otherwise."""
+    if takes_kernel(d.device, d.dtype, eng.asm_w.dtype):
+        from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+        return tiled_cuda.assemble_pairs(eng, d, row_boost)
+    return eng._assemble_pairs_plain(d, row_boost)
+
+
+@torch.library.custom_op("cim::assemble_pairs", mutates_args=())
+def assemble_pairs_op(d: torch.Tensor, row_boost: torch.Tensor,
+                      engine: int) -> torch.Tensor:
+    """The (NT+1, b, b) tiles of engine ``engine`` (its ``op_key``) for the
+    column scaling ``d`` (:func:`_assemble_pairs`).  Under
+    ``torch.func.vmap`` one launch of
+    :func:`.tiled_cuda.assemble_pairs_batched` for all the lanes (an
+    unbatched ``row_boost`` shared at lane stride 0), or the plain version
+    on the lane axis off the card."""
+    return _assemble_pairs(_ENGINES[engine], d, row_boost)
+
+
+@assemble_pairs_op.register_fake
+def _(d, row_boost, engine):
+    eng = _ENGINES[engine]
+    return d.new_empty((eng.NT + 1, eng.b, eng.b), dtype=eng.asm_w.dtype)
+
+
+@assemble_pairs_op.register_vmap
+def _(info, in_dims, d, row_boost, engine):
+    eng = _ENGINES[engine]
+    dd, bd = in_dims[0], in_dims[1]
+    d = d.movedim(dd, 0) if dd is not None else d.expand(info.batch_size, *d.shape)
+    if bd is not None:
+        row_boost = row_boost.movedim(bd, 0)
+    if takes_kernel(d.device, d.dtype, eng.asm_w.dtype):
+        from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+        return tiled_cuda.assemble_pairs_batched(eng, d, row_boost), 0
+    return eng._assemble_pairs_plain(d, row_boost), 0

@@ -17,14 +17,23 @@ keeps): the runs, an empty run for every diagonal slot no pair reaches, each
 diagonal run's boosted row, and each chunk's first run.  The engine calls it
 once, where it builds its pair schedule for float32 on a card.
 
+:func:`assemble_pairs_batched` (``cim_assemble_pairs_f32_batched``)
+assembles B lanes' tiles from one schedule (the lanes share A) and their own
+d and boost in one launch, a lane per grid row, each lane bit-equal to the
+single launch on it: the batched sparse solvers' assembly, which the
+operator ``cim::assemble_pairs`` (``sparse.tiled``) launches from its
+``torch.func.vmap`` rule, where the JAX package vmaps its segment sum.
+
 The plain version is ``sparse.tiled.TiledCholesky._assemble_pairs_plain``
-(``index_add_`` of w·d²[k], then the boost).  ``LAUNCHES`` counts the
-kernel launches.
+(w·d²[k] summed per destination in schedule order, then the boost; with a
+lane axis for the batch).  ``LAUNCHES`` counts the kernel launches, single
+and batched apart.
 """
 
 from __future__ import annotations
 
 from ctypes import c_int as _I
+from ctypes import c_longlong as _LL
 from ctypes import c_void_p as _P
 from typing import NamedTuple
 
@@ -33,12 +42,17 @@ import torch
 
 from cholesky_is_magic_tpu_torch.ops import cuda_build
 
-LAUNCHES = {"assemble_pairs": 0}
+LAUNCHES = {"assemble_pairs": 0, "assemble_pairs_batched": 0}
 
 _SIGNATURES = {
     "cim_assemble_pairs_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _P],
+    "cim_assemble_pairs_f32_batched": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _LL, _LL, _LL, _P],
 }
+
+# Lanes of one batched launch: the grid's y extent.
+MAX_LANES = 65535
 
 # Tile entries per block: a multiple of 4.  On the m = 16384 schedule, NVIDIA
 # H100 80GB HBM3 at 700.00 W (tools/probe_assembly_kernel.py): 1024 / 2048 /
@@ -122,3 +136,48 @@ def assemble_pairs(eng, d: torch.Tensor, row_boost: torch.Tensor) -> torch.Tenso
             torch.cuda.current_stream(d.device).cuda_stream),
         "assemble_pairs")
     return tiles
+
+
+def assemble_pairs_batched(eng, d: torch.Tensor,
+                           row_boost: torch.Tensor) -> torch.Tensor:
+    """The (B, NT+1, b, b) tiles of every lane of ``d`` (B, n) in one
+    launch: lane k bit-equal to ``assemble_pairs(eng, d[k], row_boost[k])``.
+    ``row_boost`` is (B, m), or (m,) shared by every lane; any lane strides
+    (0 repeats one operand)."""
+    if not (d.is_cuda and eng.asm_w.is_cuda and row_boost.is_cuda):
+        raise ValueError("assemble_pairs_batched takes CUDA tensors")
+    if d.dtype != torch.float32 or eng.asm_w.dtype != torch.float32:
+        raise TypeError(f"assemble_pairs_batched takes float32 (got {d.dtype}, "
+                        f"{eng.asm_w.dtype})")
+    if d.dim() != 2 or row_boost.dim() not in (1, 2):
+        raise ValueError(f"assemble_pairs_batched: d {tuple(d.shape)}, boost "
+                         f"{tuple(row_boost.shape)}")
+    lanes = d.shape[0]
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"assemble_pairs_batched: {lanes} lanes, the kernel "
+                         f"takes 1 to {MAX_LANES}")
+    rb = row_boost.to(torch.float32)
+    if rb.dim() == 1:
+        rb = rb.expand(lanes, *rb.shape)
+    if rb.shape[0] != lanes:
+        raise ValueError(f"assemble_pairs_batched: {lanes} lanes of d, "
+                         f"{rb.shape[0]} of the boost")
+    d = d if d.stride(1) == 1 else d.contiguous()
+    rb = rb if rb.stride(1) == 1 or rb.shape[1] == 0 else rb.contiguous()
+    b, NT = eng.b, eng.NT
+    total = (NT + 1) * b * b
+    ld = -(-total // 4) * 4  # each lane's tiles 16-byte aligned
+    buf = torch.empty((lanes, ld), dtype=torch.float32, device=d.device)
+    sched = eng._kernel_schedule
+    lib = cuda_build.load(_SIGNATURES)
+    LAUNCHES["assemble_pairs_batched"] += 1
+    cuda_build.raise_on(
+        lib.cim_assemble_pairs_f32_batched(
+            buf.data_ptr(), total, sched.chunk,
+            eng.asm_w.data_ptr(), sched.k.data_ptr(), d.data_ptr(),
+            sched.run_start.data_ptr(), sched.run_dst.data_ptr(),
+            sched.run_row.data_ptr(), sched.chunk_run.data_ptr(),
+            rb.data_ptr(), rb.shape[1], lanes, ld, d.stride(0), rb.stride(0),
+            torch.cuda.current_stream(d.device).cuda_stream),
+        "assemble_pairs_batched")
+    return buf[:, :total].view(lanes, NT + 1, b, b)

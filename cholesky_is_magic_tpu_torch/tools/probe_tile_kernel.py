@@ -75,7 +75,7 @@ def instrument(text: str, variant: str) -> str:
         raise RuntimeError("potrf.cu: the diagonal block's divisions changed; "
                            "update the probe's variants")
     text = text.replace(GUARDED, VARIANTS[variant])
-    start = text.index("potrf_tile_kernel(float* __restrict__ A")
+    start = text.index("potrf_tile_kernel(const float* A")
     end = text.index("\n}\n", start)  # the kernel's closing brace
     body = text[start:end]
     body = body.replace("__syncthreads();", "__syncthreads(); " + PROBE)

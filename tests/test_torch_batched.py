@@ -445,16 +445,8 @@ def test_solve_batch_embed_cache(front_door):
 
 @pytest.mark.parametrize("call", [
     lambda: cimt.solve_batch([], mesh=object(), device="cpu"),
-    lambda: cimt.solve_batch([], slab_iters=16, device="cpu"),
-    lambda: parallel.batched_pdas(None, engine=object()),
-    lambda: parallel.batched_pdas_dd(None, engine=object()),
-    lambda: parallel.batched_affine(None),
-    lambda: parallel.batched_pdas_slabbed(None),
     lambda: parallel.shard_batched_pdas(None, None),
-    lambda: parallel.stack_sparse_states([]),
-    lambda: parallel.batched_normal_solves(),
-], ids=["mesh", "slab_iters", "pdas_engine", "pdas_dd_engine", "affine",
-        "slabbed", "shard", "stack_sparse", "normal_solves"])
+], ids=["mesh", "shard"])
 def test_unported_batch_modes_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()

@@ -9,9 +9,12 @@ basis takes the dbound retry), the matrix-free family (ALM in f32 and f64;
 the dense dd ALM's exact launch counts; the sparse two-phase protocol; the
 inner loop's CUDA graph against its eager chunks), the batched dd kernels
 (each lane bit-equal to the single launch, under vmap too, the lane limit)
-and the batch solves (f64 lane counts equal to the CPU's; the f32 two-phase
-batch through the batched kernels), and float64 on the card, which takes
-the plain forms and launches no kernel.
+and the batched tile and assembly kernels (each lane bit-equal to the single
+launch, at the m = 16384 schedule too), the batch solves (f64 lane counts
+equal to the CPU's; the f32 two-phase batch through the batched kernels; a
+sparse batch on one engine through the batched tile and assembly kernels;
+the slabbed front door), and float64 on the card, which takes the plain
+forms and launches no kernel.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -20,6 +23,7 @@ tests/conftest.py imports jax, so run it there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -916,3 +920,128 @@ def test_batched_two_phase_in_float32_launches_the_batched_kernels(dev):
     assert got["mv"] == got["rmv"] == 0
     assert float(res.extra["gap"].max()) <= 1e-8
     assert dd_cuda.LAUNCHES["mv"] == before["mv"]
+
+
+@pytest.mark.parametrize("B,b", [(8, 128), (3, 33), (5, 16)])
+def test_batched_tile_kernel_equals_single_launches(dev, B, b):
+    """Every lane of one batched tile-kernel launch is the single launch on
+    that tile, bit for bit (a tile read at a lane stride inside a larger
+    array too), under vmap of the operator as well; a non-PD lane is all
+    NaN alone; one count per batched launch."""
+    rng = np.random.default_rng(B * b)
+    M = rng.normal(size=(B, b, b))
+    N = torch.tensor(M @ np.swapaxes(M, 1, 2) / b + np.eye(b), dtype=torch.float32,
+                     device=dev)
+    N[B - 1, 2, 2] = -1.0
+    big = torch.zeros(B, b + 3, b + 5, device=dev)
+    big[:, 1:b + 1, 2:b + 2] = N
+    for T in (N, big[:, 1:b + 1, 2:b + 2]):
+        before = dict(chol_cuda.LAUNCHES)
+        L, inv = chol_cuda.potrf_tile_batched(T)
+        assert chol_cuda.LAUNCHES["potrf_tile_batched"] == before["potrf_tile_batched"] + 1
+        assert chol_cuda.LAUNCHES["potrf_tile"] == before["potrf_tile"]
+        for k in range(B):
+            Lk, Ik = chol_cuda.potrf_tile(N[k])
+            for got, want in ((L[k], Lk), (inv[k], Ik)):
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert bool(torch.isnan(L[B - 1]).all()) and bool(torch.isfinite(L[:B - 1]).all())
+    vm = torch.func.vmap(chol.factor_tile_op)(N)
+    torch.testing.assert_close(vm[0], L, rtol=0, atol=0, equal_nan=True)
+    Lp, _ = chol._factor_tile_plain(N[:B - 1])
+    assert float((L[:B - 1] - Lp).abs().max()) <= 64 * EPS32 * float(Lp.abs().max())
+
+
+def _at_scale_engine(dev):
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    sf, _ = constructed_optimum_lp(m=16384, seed=0)
+    vals, _ = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
+    A = sp.csc_matrix((vals, (sf.a_rows, sf.a_cols)), shape=(sf.ncons, sf.nvars))
+    return tiled.engine_for_sparse(A, block=128, device=dev), sf
+
+
+@pytest.mark.parametrize("where", ["small", "m=16384"])
+def test_batched_assembly_equals_single_launches(dev, where):
+    """Every lane of one batched assembly launch is the single launch on
+    that lane's d and boost, bit for bit, with a boost per lane or one
+    shared; the plain version on the lane axis agrees (each entry within
+    8·eps32·Σ|w·d²|, bit for bit where it sums in the kernel's order)."""
+    rng = np.random.default_rng(4)
+    if where == "small":
+        m, n = 150, 260
+        A = (rng.random((m, n)) < 0.04) * rng.normal(size=(m, n))
+        A[np.arange(m), np.arange(m)] += 2.0
+        eng, B = tiled.engine_for_sparse(A, block=33, device=dev), 6
+    else:
+        eng, sf = _at_scale_engine(dev)
+        m, n, B = sf.ncons, sf.nvars, 4
+    D = torch.tensor(10.0 ** (3 * rng.random((B, n)) - 1.5), dtype=torch.float32,
+                     device=dev)
+    bo = torch.tensor((rng.random((B, m)) < 0.1) * 0.5, dtype=torch.float32, device=dev)
+    before = dict(tiled_cuda.LAUNCHES)
+    tb = tiled_cuda.assemble_pairs_batched(eng, D, bo)
+    ts = tiled_cuda.assemble_pairs_batched(eng, D, bo[0])
+    assert tiled_cuda.LAUNCHES["assemble_pairs_batched"] == before["assemble_pairs_batched"] + 2
+    for k in range(B):
+        assert torch.equal(tb[k], tiled_cuda.assemble_pairs(eng, D[k], bo[k]))
+        assert torch.equal(ts[k], tiled_cuda.assemble_pairs(eng, D[k], bo[0]))
+    assert torch.equal(torch.func.vmap(
+        lambda d, r: eng.assemble_pairs(d, r, per_lane=True))(D, bo), tb)
+    assert torch.equal(eng._assemble_pairs_plain(D, bo), tb)
+
+
+def test_batched_sparse_pdas_on_the_card(dev):
+    """Three afiro-sized LPs of one A with their own (b, c)
+    (tests/test_parallel.py's family, block 16, f32): the batched sparse
+    pdas launches the batched tile and assembly kernels and no single one;
+    every lane optimal (the JAX test's f32 bar), within 1e-3 of its single
+    solve on the same engine."""
+    import importlib
+
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    from cholesky_is_magic_tpu_torch.utils.testing import random_lp, write_mps
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    base = random_lp(11, n_ub=24, n_eq=6, n=32, bounded=True)
+    sfs = []
+    for i in range(3):
+        rng = np.random.default_rng(1000 + i)
+        x0 = base.l + (base.u - base.l) * (0.2 + 0.6 * rng.random(32))
+        lane = dataclasses.replace(
+            base, b_ub=base.A_ub @ x0 + 0.05 + rng.random(base.A_ub.shape[0]),
+            b_eq=base.A_eq @ x0, c=rng.normal(size=32))
+        sfs.append(cimt.to_standard_form(read_mps_string(write_mps(lane))))
+    st0, eng = pdas.make_pdas_sparse(sfs[0], block=16, device=dev)
+    states = [st0] + [pdas.make_pdas_sparse(s, block=16, engine=eng, device=dev)[0]
+                      for s in sfs[1:]]
+    cfg = pdas.PDASConfig(max_iters=200, refine_steps=2)
+    before = _counts()
+    res = parallel.batched_pdas(parallel.stack_sparse_states(states), cfg, engine=eng)
+    got = {k: v - before[k] for k, v in _counts().items()}
+    assert got["potrf_tile_batched"] > 0 and got["assemble_pairs_batched"] > 0
+    assert got["potrf_tile"] == got["assemble_pairs"] == 0
+    assert (res.status == 1).all()
+    for k, st in enumerate(states):
+        one = pdas.pdas(st, cfg, engine=eng)
+        assert float(res.objective[k]) == pytest.approx(float(one.objective), rel=1e-3)
+
+
+def test_solve_batch_slabbed_on_the_card(dev):
+    """solve_batch(slab_iters=16) on 16 LPs in f32: every lane's status as
+    the plain batch's, objectives within 1e-3 of it."""
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    from cholesky_is_magic_tpu_torch.utils.testing import random_lp, write_mps
+
+    sfs = [cimt.to_standard_form(read_mps_string(write_mps(
+        random_lp(s, n_ub=12 + s % 5, n_eq=3, n=20 + s % 7)))) for s in range(16)]
+    plain = cimt.solve_batch(sfs, pad_multiple=32, max_iters=200)
+    slab = cimt.solve_batch(sfs, pad_multiple=32, max_iters=200, slab_iters=16)
+    for a, b in zip(plain, slab):
+        assert a.status == b.status
+        assert b.objective == pytest.approx(a.objective, rel=1e-3, abs=1e-3)
