@@ -161,7 +161,26 @@ script then exits non-zero and never prints its last line):
    HiGHS, lane-iterations and solves/s of three calls each in turns; (e)
    batched_affine on (b)'s 1024 LPs in f32 (batched dd A·x launched, no
    single one) and on 16 of them in f64 (each lane's status and count of
-   its single affine_scaling, no kernel launched).
+   its single affine_scaling, no kernel launched);
+17. dense-A engines — (a) the pilot LP (phase 5's, rows equilibrated):
+   sparse.engine_for(A, block=128) (its panels, tiles, assembly mode and
+   costs) and BlockSparseCholesky, one solve_normal with one refinement
+   step by each and by ops.dense.solve_normal on the same d ~ U(0.5, 1.5)
+   and g ~ N(0, 1): each within 1e-4 of the f64 solution, its relative
+   difference from the dense one, host ms (median, min, max of 5 calls),
+   counters reset before and read after: the tile kernel once per panel,
+   dd A·x twice and Aᵀ·x once (the refinement step), no assembly kernel;
+   BlockSparseCholesky's potrf once per diagonal tile; the device-busy
+   share of one tile-engine call; (b) the pilot LP through pdas (Mehrotra)
+   then pdas_dd (gap_tol 1e-9) on the engine: gap <= 1e-7, objective error
+   <= 1e-5, the counts and time beside phase 5's; (c) the 25fv47-scale LP
+   (pad 128) the same way on its own engine: objective within 1e-5 of
+   HiGHS; (d) (b) with gondzio_correctors=2 in both phases, the same bars;
+   (e) f32 affine on the pilot with the engine (optimal, objective error
+   <= 1e-3) and afiro dense (pad 32) through pdas + pdas_dd + crossover on
+   engine_for(block=16): certified, certificate gap < 1e-9, objective
+   within 2e-6.  Counters reset before each path and read after: the tile
+   kernel and the dd kernels launched, the assembly kernel not.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -170,7 +189,8 @@ tensor cores; H100 SXM data sheet), from this run's shapes.
 The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
 pilot, affine at scale, the presolved pdas_dd, the crossover cases, the
-dense dd ALM phase and the batched pdas and pdas_dd, each also apart);
+dense dd ALM phase, the batched pdas and pdas_dd and phase 17's dense-A
+engine paths, each also apart);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -2049,6 +2069,184 @@ def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_high
     return paths
 
 
+def _stats_ms(fn, reps=5):
+    """(result, median, min, max host-clock ms) of ``reps`` calls of fn(),
+    each between two ``torch.cuda.synchronize()``, after a warm-up call."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        out, took = _seconds(fn)
+        times.append(took * 1e3)
+    return out, float(np.median(times)), min(times), max(times)
+
+
+def _two_phase(lp, eng, **kw):
+    """pdas (Mehrotra) then the pdas_dd finisher warm from it, both on the
+    engine, as api.solve's two-phase flow (refine_steps 2, gap_tol 1e-9):
+    (phase-1 result, finisher result, seconds of both)."""
+    from cholesky_is_magic_tpu_torch.solvers import PDASConfig, make_pdas, pdas
+    from cholesky_is_magic_tpu_torch.solvers.pdas_dd import make_pdas_dd, pdas_dd
+
+    cfg1 = PDASConfig(max_iters=500, refine_steps=2, mehrotra=True, **kw)
+    cfg2 = PDASConfig(max_iters=500, gap_tol=1e-9, refine_steps=2, mehrotra=True, **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r1 = pdas(make_pdas(lp), cfg1, engine=eng)
+    r2 = pdas_dd(make_pdas_dd(lp, warm=r1), cfg2, engine=eng)
+    torch.cuda.synchronize()
+    return r1, r2, time.perf_counter() - t
+
+
+def phase_dense_engines(cimt, counters, card, pilot_s):
+    """Phase 17, the dense-A engines on the card: (a) the pilot LP's normal
+    solve by the tile engine (engine_for), the dense path and
+    BlockSparseCholesky; (b) the pilot through pdas then pdas_dd on the
+    engine; (c) the 25fv47-scale LP the same way; (d) (b) with Gondzio's
+    correctors; (e) affine on the pilot and crossover on afiro with an
+    engine.  Returns the launches of each path."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.ops import dense
+    from cholesky_is_magic_tpu_torch.solvers import (
+        AffineConfig,
+        affine_scaling,
+        crossover,
+        make_affine_state,
+        make_pdas,
+    )
+    from cholesky_is_magic_tpu_torch.solvers.pdas_dd import make_pdas_dd
+    from cholesky_is_magic_tpu_torch.sparse import BlockSparseCholesky, analyze, engine_for
+    from cholesky_is_magic_tpu_torch.utils.testing import (
+        constructed_optimum_lp,
+        netlib_like_lp,
+        scipy_reference_solution,
+    )
+
+    t_phase = time.perf_counter()
+    f32 = dict(device="cuda", dtype=torch.float32)
+    paths = {}
+    # (a) one normal solve of the pilot LP three ways.
+    sf, info = constructed_optimum_lp("pilot", seed=0)
+    lp = to_device_lp(sf, pad_multiple=128, **f32)
+    A = make_pdas(lp).lp.A
+    eng, build_s = _seconds(lambda: engine_for(A, block=128))
+    bs, bs_s = _seconds(lambda: BlockSparseCholesky(
+        analyze(sp.csc_matrix(A.cpu().double().numpy()), block=128)))
+    mask = bs.plan.block_mask | np.eye(bs.n_tiles, dtype=bool)
+    say(f"[dense-A] pilot {tuple(A.shape)}: engine_for(block=128) {build_s:.3f} s: "
+        f"{eng.B} panels, {eng.NT} tiles, assemble mode {eng.assemble_mode} "
+        f"(range cost {eng.range_cost}, scan cost {eng.scan_cost}: "
+        f"{'range' if eng.range_cost <= 1.2 * eng.scan_cost else 'scan'}); "
+        f"BlockSparseCholesky {bs_s:.3f} s: {bs.n_tiles} panels, {int(mask.sum())} "
+        f"tiles, {sum(len(u) for u in bs.updates)} Schur pairs")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    d = torch.rand(A.shape[1], generator=g, device="cuda") + 0.5
+    rhs = torch.randn(A.shape[0], generator=g, device="cuda")
+    boost = (~lp.row_mask).to(torch.float32)
+    kw = dict(row_boost=boost, refine_steps=1)
+    Ad = A.double() * d.double()[None, :]
+    truth = torch.linalg.solve(Ad @ Ad.T + torch.diag(boost.double()), rhs.double())
+    calls = {"dense": lambda: dense.solve_normal(A, d, rhs, **kw),
+             "tiled": lambda: eng.solve_normal(A, d, rhs, **kw),
+             "block sparse": lambda: bs.solve_normal(A, d, rhs, **kw)}
+    ys = {}
+    for tag, fn in calls.items():
+        _reset(*counters.values())
+        (y, ok), _ = _seconds(fn)
+        launched = _counted(counters)
+        _, med, lo, hi = _stats_ms(fn)
+        ys[tag] = y
+        err = float(torch.linalg.norm(y.double() - truth) / torch.linalg.norm(truth))
+        say(f"[dense-A solve_normal {tag}] ok {bool(ok)}  error vs f64 {err:.3e}  "
+            f"ms median {med:.3f} min {lo:.3f} max {hi:.3f} (5 calls)  launches "
+            f"{ {k: v for k, v in launched.items() if v} }  on {card}")
+        if not (bool(ok) and err <= 1e-4):
+            raise AssertionError(f"dense-A solve_normal {tag}: ok {bool(ok)}, error {err}")
+        if tag == "tiled":
+            want = dict(potrf_tile=eng.B, mv=2, rmv=1, assemble_pairs=0)
+            paths["dense-A solve_normal pilot"] = launched
+        elif tag == "block sparse":
+            want = dict(potrf_tile=bs.n_tiles, mv=2, rmv=1, assemble_pairs=0)
+            paths["BlockSparseCholesky pilot"] = launched
+        else:
+            want = {}
+        if any(launched[k] != v for k, v in want.items()):
+            raise AssertionError(f"dense-A {tag}: launches {launched}, want {want}")
+    for tag in ("tiled", "block sparse"):
+        rel = float(torch.linalg.norm(ys[tag] - ys["dense"]) / torch.linalg.norm(ys["dense"]))
+        say(f"[dense-A solve_normal {tag}] relative difference from dense {rel:.3e}")
+    _device_busy("dense-A solve_normal tiled", "one call", calls["tiled"])
+    # (b) pdas + pdas_dd on the engine, (d) with Gondzio's correctors.
+    ref = info["objective"]
+    for tag, extra in (("pdas pilot", {}), ("gondzio pilot", dict(gondzio_correctors=2))):
+        _reset(*counters.values())
+        r1, r2, took = _two_phase(lp, eng, **extra)
+        launched = _counted(counters)
+        gap = float(r2.extra["gap"])
+        err = abs(float(r2.objective) - ref) / abs(ref)
+        say(f"[dense-A {tag}] {r1.status_name} {int(r1.iterations)} + {r2.status_name} "
+            f"{int(r2.iterations)} iterations, gap {gap:.3e}, objective error {err:.3e}, "
+            f"{took:.3f} s (phase 5, dense, no Mehrotra: 27 + 16 in {pilot_s:.3f} s) on "
+            f"{card}; launches { {k: v for k, v in launched.items() if v} }")
+        if not (gap <= 1e-7 and err <= 1e-5 and launched["potrf_tile"] > 0
+                and launched["mv"] > 0 and launched["rmv"] > 0
+                and launched["assemble_pairs"] == 0):
+            raise AssertionError(f"dense-A {tag}: gap {gap}, error {err}, {launched}")
+        paths[f"dense-A {tag}"] = launched
+    # (c) the 25fv47-scale LP (bench.py:100-107), pad 128, block 128.
+    ineq = netlib_like_lp("25fv47")
+    highs = scipy_reference_solution(ineq)[1]
+    lp25 = to_device_lp(_sf_of(cimt, ineq), pad_multiple=128, **f32)
+    eng25, build_s = _seconds(lambda: engine_for(make_pdas(lp25).lp.A, block=128))
+    _reset(*counters.values())
+    r1, r2, took = _two_phase(lp25, eng25)
+    launched = _counted(counters)
+    err = abs(float(r2.objective) - highs) / max(1.0, abs(highs))
+    say(f"[dense-A 25fv47] {tuple(lp25.A.shape)}, engine {build_s:.3f} s ({eng25.B} panels, "
+        f"{eng25.NT} tiles, {eng25.assemble_mode} -> "
+        f"{'range' if eng25.range_cost <= 1.2 * eng25.scan_cost else 'scan'}): "
+        f"{r1.status_name} {int(r1.iterations)} + {r2.status_name} {int(r2.iterations)} "
+        f"iterations, gap {float(r2.extra['gap']):.3e}, objective error vs HiGHS "
+        f"{err:.3e}, {took:.3f} s on {card}; launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    if not (err <= 1e-5 and launched["potrf_tile"] > 0 and launched["mv"] > 0):
+        raise AssertionError(f"dense-A 25fv47: error {err}, {launched}")
+    paths["dense-A pdas 25fv47"] = launched
+    # (e) affine on the pilot with the engine; crossover on afiro dense.
+    _reset(*counters.values())
+    # api.solve(..., "affine")'s configuration (phase 10).
+    res, took = _seconds(lambda: affine_scaling(
+        make_affine_state(lp), AffineConfig(max_iters=500, refine_steps=1), engine=eng))
+    launched = _counted(counters)
+    err = abs(float(res.objective) - ref) / abs(ref)
+    say(f"[dense-A affine pilot] {res.status_name} {int(res.iterations)} iterations "
+        f"(phase 10, dense: 21), objective error {err:.3e}, {took:.3f} s on {card}; "
+        f"launches { {k: v for k, v in launched.items() if v} }")
+    if not (res.status_name == "optimal" and err <= 1e-3 and launched["potrf_tile"] > 0
+            and launched["mv"] > 0):
+        raise AssertionError(f"dense-A affine pilot: {res.status_name}, {err}, {launched}")
+    paths["dense-A affine pilot"] = launched
+    alp = to_device_lp(cimt.to_standard_form(cimt.read_mps_file(AFIRO)),
+                       pad_multiple=32, **f32)
+    eng16 = engine_for(make_pdas(alp).lp.A, block=16)
+    _reset(*counters.values())
+    r1, r2, _ = _two_phase(alp, eng16)
+    out, took = _seconds(lambda: crossover(r2, make_pdas_dd(alp).lp, engine=eng16))
+    launched = _counted(counters)
+    cert = out.extra["crossover"]
+    err = abs(float(out.objective) - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+    _cert_line("afiro dense-A engine", cert, f"  pdas + pdas_dd {int(r1.iterations)} + "
+               f"{int(r2.iterations)}, objective error {err:.3e}, crossover {took:.3f} s "
+               f"on {card}  launches { {k: v for k, v in launched.items() if v} }")
+    if not (cert["certified"] and cert["gap"] < 1e-9 and err <= 2e-6
+            and launched["potrf_tile"] > 0):
+        raise AssertionError(f"crossover afiro dense-A engine: {cert}, {err}, {launched}")
+    paths["dense-A crossover afiro"] = launched
+    say(f"[dense-A] phase 17 took {time.perf_counter() - t_phase:.3f} s")
+    return paths
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -2089,6 +2287,7 @@ def main() -> int:
      same_highs) = phase_batch(cimt, ddm, dd_cuda, counters, card, stats)
     by_path.update(phase_batch_sparse(cimt, counters, card, stats, sf, eng,
                                       same_sfs, same_highs))
+    by_path.update(phase_dense_engines(cimt, counters, card, pilot_s))
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

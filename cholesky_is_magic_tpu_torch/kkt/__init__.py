@@ -1,4 +1,5 @@
-"""Block-eliminated KKT Newton step (dense and fully sparse operators)."""
+"""Block-eliminated KKT Newton step (dense, dense-A sparse-engine and fully
+sparse operators)."""
 
 from cholesky_is_magic_tpu_torch.kkt.newton import (
     FILTER_THRESHOLD,
@@ -11,6 +12,8 @@ from cholesky_is_magic_tpu_torch.kkt.newton import (
     kkt_reduce,
     kkt_residuals,
     solve_kkt_newton,
+    solve_kkt_newton_checked,
+    sparse_kkt_operator,
 )
 
 __all__ = [
@@ -24,4 +27,6 @@ __all__ = [
     "kkt_reduce",
     "kkt_residuals",
     "solve_kkt_newton",
+    "solve_kkt_newton_checked",
+    "sparse_kkt_operator",
 ]

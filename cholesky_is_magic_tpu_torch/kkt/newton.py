@@ -1,7 +1,8 @@
 r"""Primal-dual KKT Newton direction by block Gaussian elimination.
 
 Counterpart of ``cholesky_is_magic_tpu/kkt/newton.py``: the dense
-operator over ops.dense and the fully sparse one over the tile engine
+operator over ops.dense, the dense-A one over a sparse engine
+(:func:`sparse_kkt_operator`) and the fully sparse one over the tile engine
 (:func:`ell_kkt_operator`).  Eliminating Δw, Δx, Δz from the KKT block system
 (sparse-newton-solve.lisp:1-26) leaves one SPD normal-equations solve
 
@@ -59,6 +60,40 @@ def dense_kkt_operator(
             true_residual=true_residual, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
             per_lane=per_lane,
+        )
+
+    def solve_scaled_normal(s, g):
+        solve_fn, ok = prepare_scaled_normal(s)
+        return solve_fn(g), ok
+
+    return KKTOperator(
+        mv=lambda v: A @ v,
+        rmv=lambda v: A.T @ v,
+        solve_scaled_normal=solve_scaled_normal,
+        prepare_scaled_normal=prepare_scaled_normal,
+    )
+
+
+def sparse_kkt_operator(
+    A: torch.Tensor,
+    engine,
+    row_boost: Optional[torch.Tensor] = None,
+    refine_steps: int = 0,
+    dbound: float = 0.0,
+    krylov_steps: int = 0,
+    krylov_gate=None,
+) -> KKTOperator:
+    """Operator over a dense (padded) A whose normal solve runs a sparse
+    engine built from A's pattern (sparse.tiled.engine_for's TiledCholesky
+    or a sparse.factor.BlockSparseCholesky): the sparse-newton-solve.lisp
+    backend, the same elimination with the planned factorization.  The
+    products stay dense matmuls.  ``refine_steps`` > 0 turns on the
+    engines' double-word refinement against the unassembled operator."""
+
+    def prepare_scaled_normal(s):
+        return engine.prepare_normal(
+            A, s, row_boost=row_boost, refine_steps=refine_steps,
+            dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
         )
 
     def solve_scaled_normal(s, g):
@@ -192,3 +227,13 @@ def kkt_residuals(sl, su, w, z, op: KKTOperator, e, f, g, h,
     r4 = (op.rmv(dy) + dz) - dw - h
     inf = lambda v: torch.max(torch.abs(v))
     return torch.stack([inf(r1), inf(r2), inf(r3), inf(r4)])
+
+
+def solve_kkt_newton_checked(sl, su, w, z, op: KKTOperator, e, f, g, h,
+                             tol: float = 1e-4):
+    """Checked drop-in (solve-kkt-newton-check, :200-223): returns
+    (deltas, residuals) with ``deltas.ok`` False where any block residual
+    is not below ``tol``, as well as on a failed factorization."""
+    deltas = solve_kkt_newton(sl, su, w, z, op, e, f, g, h)
+    res = kkt_residuals(sl, su, w, z, op, e, f, g, h, deltas)
+    return deltas._replace(ok=deltas.ok & torch.all(res < tol)), res

@@ -131,6 +131,38 @@ def operator_residual(
     return ddm.dd_add_w(ddm.dd_neg(u), g).to_working()
 
 
+def unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps: int,
+                           krylov_steps: int = 0, krylov_gate=None):
+    """The solve_fn of a factor-once sparse engine on a dense A: ``raw_solve``
+    (its triangular solves) refined by ``refine_steps`` Richardson steps
+    against the UNASSEMBLED operator (:func:`operator_residual`), or with
+    ``krylov_steps`` > 0 by flexible PCG with ``raw_solve`` as the
+    preconditioner, per call when ``krylov_gate`` is given; zero where the
+    factorization failed (``ok`` False)."""
+
+    def richardson_fn(g):
+        y = raw_solve(g)
+        for _ in range(refine_steps):
+            y = y + raw_solve(operator_residual(AD, y, g, row_boost))
+        return torch.where(ok, y, torch.zeros_like(y))
+
+    if krylov_steps == 0:
+        return richardson_fn
+    from cholesky_is_magic_tpu_torch.ops import krylov
+
+    def pcg_fn(g):
+        x = krylov.pcg_refine(
+            precond=raw_solve,
+            apply_n=krylov.dense_normal_apply(AD, row_boost),
+            residual_dd=krylov.dense_residual_dd(AD, g, row_boost),
+            b=g,
+            iters=krylov_steps,
+        )
+        return torch.where(ok, x.to_working(), torch.zeros_like(g))
+
+    return krylov.gated(pcg_fn, richardson_fn, krylov_gate)
+
+
 def prepare_normal(
     A: torch.Tensor,
     d: torch.Tensor,

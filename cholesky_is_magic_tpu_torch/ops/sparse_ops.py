@@ -85,6 +85,28 @@ def rmatvec(E: ELLMatrix, y: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, E.indices.reshape(-1), contrib.reshape(-1))
 
 
+def scale_columns(E: ELLMatrix, d: torch.Tensor) -> ELLMatrix:
+    """A · diag(d): the scale-sparse! analogue (sparse-cholesky.lisp:461-477),
+    the per-column scale gathered into each slot."""
+    return dataclasses.replace(E, values=E.values * d[E.indices])
+
+
+def sdmult(
+    E: ELLMatrix,
+    x: torch.Tensor,
+    y: torch.Tensor | None = None,
+    alpha: float = 1.0,
+    beta: float = 0.0,
+    transpose: bool = False,
+) -> torch.Tensor:
+    """y <- alpha·op(A)·x + beta·y, the full sparse-m* signature
+    (sparse-cholesky.lisp:567-614)."""
+    out = alpha * (rmatvec(E, x) if transpose else matvec(E, x))
+    if y is not None and beta != 0.0:
+        out = out + beta * y
+    return out
+
+
 def dd_matvec(E: ELLMatrix, x: torch.Tensor) -> ddm.DD:
     """A @ x in double-word: error-free slot products + compensated row
     reduction (the ELL twin of ops.dd.dd_matvec).  Padded slots hold exact
@@ -96,3 +118,16 @@ def dd_matvec(E: ELLMatrix, x: torch.Tensor) -> ddm.DD:
 def dd_matvec_dd(E: ELLMatrix, x: ddm.DD) -> ddm.DD:
     """A @ (x.hi + x.lo) in double-word (x a DD pair)."""
     return ddm.dd_add_w(dd_matvec(E, x.hi), matvec(E, x.lo))
+
+
+def to_dense(E: ELLMatrix) -> torch.Tensor:
+    """The dense (m, n_cols) matrix, repeated slots of a row summed.  The
+    sum adds one slot column at a time, in slot order (no row repeats within
+    a column), so it has one fixed order on every device, as JAX's
+    sequential ``.at[].add`` on the CPU."""
+    m, k = E.indices.shape
+    out = torch.zeros((m, E.n_cols), dtype=E.values.dtype, device=E.values.device)
+    rows = torch.arange(m, device=E.indices.device)
+    for s in range(k):
+        out[rows, E.indices[:, s]] += E.values[:, s]
+    return out

@@ -21,7 +21,11 @@ bakes A's pair weights, so only b, c, l, u and the iterates may differ (the
 JAX contract at ``parallel/batched.py:62-68``, not checked there or here).
 
 The mesh-sharded batch (``shard_batched_pdas``, ``mesh=``) is not ported
-(ROADMAP.md §1, multi-device).
+(ROADMAP.md §1, multi-device), nor is a batch of dense states on a dense-A
+engine (``engine=sparse.engine_for(A)``): a lane's assembly from its own
+scaled A would need index writes that have no vmap rule; it raises.
+Gondzio's correctors (``gondzio_correctors > 0``) run in every lane, their
+accept a per-lane select.
 """
 
 from __future__ import annotations

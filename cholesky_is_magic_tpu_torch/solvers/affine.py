@@ -349,7 +349,9 @@ def affine_scaling(
 
     ``engine`` is the tile engine of a state built by
     :func:`make_affine_state_sparse` (required there: every normal solve
-    runs on it and every product on the ELL / block-ELL operands);
+    runs on it and every product on the ELL / block-ELL operands), or on a
+    dense state a sparse engine of its A (``sparse.engine_for``,
+    ``BlockSparseCholesky``), which then runs every normal solve;
     ``mesh`` raises."""
     cfg = config or AffineConfig()
     check_backend(state.lp, engine, mesh)
@@ -443,7 +445,7 @@ def _affine_lanes(states: AffineState, cfg: AffineConfig,
     from cholesky_is_magic_tpu_torch.solvers.pdas import _lane_loop
     from cholesky_is_magic_tpu_torch.utils import lanes
 
-    check_backend(states.lp, engine, None)
+    check_backend(states.lp, engine, None, per_lane=True)
     dt, dev = states.x.dtype, states.x.device
     m = states.lp.m
     tol = (torch.tensor(cfg.residual_tol, dtype=dt, device=dev)

@@ -4,13 +4,16 @@ Counterpart of ``cholesky_is_magic_tpu/solvers/backend.py``: a solver asks
 for (A@v, Aᵀ@v) products and a scaled normal-equations solve, and the
 operand set decides the implementation —
 
-- dense ``DeviceLP``: matmuls + ops.dense;
+- dense ``DeviceLP``: matmuls + ops.dense, or with ``engine=`` a sparse
+  engine built from A's pattern (sparse.tiled.engine_for or a
+  sparse.factor.BlockSparseCholesky), whose ``prepare_normal`` assembles
+  and factors the tiles of N from the dense A;
 - fully sparse ``SparseKKTLP``: ELL / block-ELL products + the tile
   engine's pair-schedule assembly (``engine=`` from
   sparse.tiled.engine_for_sparse).
 
-Not ported: the mesh-sharded pipeline (``mesh=``) and the dense-A tile
-engine (``engine=`` with a dense ``DeviceLP``); both raise.
+Not ported: the mesh-sharded pipeline (``mesh=`` raises), and a batch of
+dense states on a dense-A engine (the batched loops raise, ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -19,16 +22,19 @@ from cholesky_is_magic_tpu_torch.ingest.device import SparseKKTLP
 from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 
 
-def check_backend(lp, engine, mesh) -> None:
-    """Raise on the backends the port does not have."""
+def check_backend(lp, engine, mesh, per_lane: bool = False) -> None:
+    """Raise on the backends the port does not have.  ``per_lane``: the
+    operands are a batch's stacked lanes."""
     if mesh is not None:
         raise NotImplementedError("mesh-sharded normal equations are not ported")
     if isinstance(lp, SparseKKTLP):
         if engine is None:
             raise ValueError("the sparse operand set needs engine= "
                              "(sparse.tiled.engine_for_sparse)")
-    elif engine is not None:
-        raise NotImplementedError("the dense-A tile engine is not ported")
+    elif engine is not None and per_lane:
+        raise NotImplementedError(
+            "a batch of dense states on a dense-A engine (engine_for, "
+            "BlockSparseCholesky) is not ported (ROADMAP.md §1)")
 
 
 def mv_rmv(lp):
@@ -57,15 +63,21 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
                            krylov_gate=None, method="direct", per_lane=False):
     """Factor (A·diag(d))(A·diag(d))ᵀ ONCE on the backend the operand set
     selects; returns (solve_fn, ok).  ``per_lane`` (a lane of a batched
-    solve: the host branches become per-lane selects) is read by both
-    backends, ``method`` by the dense one only."""
-    check_backend(lp, engine, mesh)
+    solve: the host branches become per-lane selects) is read by the
+    fully sparse and the plain dense backends, ``method`` by the plain
+    dense one only (the engines have their own kernels)."""
+    check_backend(lp, engine, mesh, per_lane)
     if isinstance(lp, SparseKKTLP):
         return engine.prepare_normal_ell(
             lp.E, lp.ET, d, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
             EB=lp.EB, ETB=lp.ETB, per_lane=per_lane,
+        )
+    if engine is not None:
+        return engine.prepare_normal(
+            lp.A, d, row_boost=row_boost, refine_steps=refine_steps,
+            dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
         )
     return dense_ops.prepare_normal(
         lp.A, d, row_boost=row_boost, refine_steps=refine_steps,

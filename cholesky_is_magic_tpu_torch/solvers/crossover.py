@@ -10,8 +10,9 @@ normal-equations factorization:
    ``min(x-l, u-x) > theta * (z + w)``; free and padded columns are basic).
 2. **Snap** nonbasic columns to their nearer bound, leaving B x_B = r.
 3. **Solve through the IPM's own normal equations** with d = 1_basic:
-   N_B = B·Bᵀ, factored by ops.dense.prepare_normal or the tile engine's
-   prepare_normal_ell (dbound singular retry and PCG refinement included).
+   N_B = B·Bᵀ, factored by ops.dense.prepare_normal, a dense-A engine's
+   prepare_normal or the tile engine's prepare_normal_ell (dbound singular
+   retry and PCG refinement included).
 4. **Double-word iterative refinement** around the f32 factor: the
    right-hand sides are O(1)-class, so the residual is re-evaluated in
    double-word against the exact operator and the correction re-solved.
@@ -147,12 +148,13 @@ def _ops_for(lp, engine):
 
     from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 
-    if engine is not None:
-        raise NotImplementedError("the dense-A tile engine is not ported")
     boost = (~lp.row_mask).to(lp.A.dtype)
+    # A sparse engine of the dense A (sparse.engine_for,
+    # BlockSparseCholesky) factors B·Bᵀ by its tiles; else ops.dense.
+    factor = engine.prepare_normal if engine is not None else dense_ops.prepare_normal
 
     def prepare(d, cfg):
-        return dense_ops.prepare_normal(
+        return factor(
             lp.A, d, row_boost=boost,
             refine_steps=cfg.refine_steps, dbound=cfg.dbound,
             krylov_steps=cfg.krylov_steps,
@@ -453,7 +455,9 @@ def crossover(
 
     ``result`` must carry duals (extra y/w/z — pdas, pdas_dd and the api
     front door all do).  ``lp`` is the DeviceLP / SparseKKTLP the solver
-    ran on; pass the same ``engine`` for the fully sparse path.  The
+    ran on; pass the same ``engine`` for the fully sparse path, or a sparse
+    engine of a DeviceLP's A (``sparse.engine_for``,
+    ``BlockSparseCholesky``) to factor B·Bᵀ by its tiles.  The
     returned SolveResult has the polished x / objective / duals and
     ``extra["crossover"]`` with the dd-evaluated certificate; when
     ``certified`` is False the ORIGINAL result is returned, with only

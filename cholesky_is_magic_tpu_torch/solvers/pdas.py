@@ -15,8 +15,12 @@ and the dbound retry (ops.dense) once per factorization.  One scaled
 normal factorization per iteration serves the repair, recenter and Newton
 branches alike (pdas.py:546-559 of the reference package).
 
-Gondzio's correctors are not reachable from ``api.solve`` and are not
-ported: ``gondzio_correctors > 0`` raises.
+Gondzio's multiple centrality correctors (``gondzio_correctors > 0`` with
+Mehrotra) run on the same factorization, each candidate computed and kept
+by a branchless select, as in the JAX package, so a lane of the batched
+loop takes them with no host read.  ``engine=`` takes the fully sparse
+tile engine of :func:`make_pdas_sparse`, or on a dense state a sparse
+engine built from its A (``sparse.engine_for``, ``BlockSparseCholesky``).
 """
 
 from __future__ import annotations
@@ -52,9 +56,8 @@ from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
 @dataclasses.dataclass(frozen=True)
 class PDASConfig:
-    """The JAX package's PDASConfig, field for field but for Gondzio's
-    tuning (its comments carry the rationale and measurements of each
-    knob)."""
+    """The JAX package's PDASConfig, field for field (its comments carry
+    the rationale and measurements of each knob)."""
 
     clamp: float = 1e8  # *clamp* (:37)
     gamma: float = 0.9  # step damping (:377)
@@ -73,12 +76,20 @@ class PDASConfig:
     krylov_gate_gap: float = 0.0
     # Mehrotra predictor-corrector on the shared factorization.
     mehrotra: bool = False
-    # Gondzio correctors: not ported (> 0 raises; their tuning fields are
-    # left out until they are).
+    # Gondzio centrality correctors on the shared factor (needs mehrotra):
+    # up to this many, each re-solving with the complementarity products at
+    # an enlarged trial step clipped into [beta_min, beta_max]·sigma·mu,
+    # kept only if the step grows by gamma·delta and the predicted mu does
+    # not grow; only while the gap is above gondzio_gate_gap.  0 disables.
     gondzio_correctors: int = 0
+    gondzio_delta: float = 0.1
+    gondzio_beta_min: float = 0.1
+    gondzio_beta_max: float = 10.0
+    gondzio_gamma: float = 0.1
+    gondzio_gate_gap: float = 1e-4
     # Step damping of the Mehrotra corrector step.
     mehrotra_gamma: float = 0.99
-    # Dense factor/solve kernel: only "direct" is ported.
+    # Dense factor/solve kernel, "direct" or "inverse" (ops.dense).
     factor_method: str = "direct"
     # Record per-iteration (gap, pobj, step) into result.extra["trace"].
     record_trace: bool = False
@@ -320,11 +331,6 @@ def _pos_step(v, dv):
     return torch.min(torch.clamp_min(lim, 0.0))
 
 
-def _check_config(cfg: PDASConfig) -> None:
-    if cfg.gondzio_correctors > 0:
-        raise NotImplementedError("Gondzio correctors are not ported")
-
-
 def pdas(
     state: PDASState,
     config: Optional[PDASConfig] = None,
@@ -334,10 +340,11 @@ def pdas(
     """The solver loop (pdas, :385-396): iterate until the relative duality gap
     < gap_tol at a primal-feasible iterate, arming the recenter path
     whenever the step stalls below 1e-6.  ``engine`` is the tile engine of
-    a state built by :func:`make_pdas_sparse`; ``mesh`` raises."""
+    a state built by :func:`make_pdas_sparse`, or a sparse engine of a
+    dense state's A (``sparse.engine_for``, ``BlockSparseCholesky``);
+    ``mesh`` raises."""
     cfg = config or PDASConfig()
     check_backend(state.lp, engine, mesh)
-    _check_config(cfg)
     return _pdas_loop(state, cfg, engine)
 
 
@@ -429,6 +436,53 @@ def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine,
         d2 = kkt_backsub(
             red2, sl, su, st.w, st.z, wu + de, zl + df, y2, rmv(y2), ok
         )
+        if cfg.gondzio_correctors > 0:
+            # Gondzio's correctors on the same factor (PDASConfig): each
+            # candidate is computed whether or not it is kept, and kept by a
+            # select (the JAX package's vectorized accept), so a lane of the
+            # batched loop runs them with no host read.
+            def g_step(dd_):
+                return torch.clamp_max(torch.minimum(
+                    _box_step(sl_t, su_t, dd_.dx),
+                    torch.minimum(_pos_step(st.w, dd_.dw), _pos_step(st.z, dd_.dz))),
+                    1.0)
+
+            def mu_pred(dd_, t_):
+                # The duality measure at the DAMPED step this direction
+                # would take: the accept checks progress, not only step
+                # length.
+                ts = cfg.mehrotra_gamma * t_
+                return (torch.sum(torch.where(pu, (st.w - ts * dd_.dw) * (su + ts * dd_.dx),
+                                              0.0))
+                        + torch.sum(torch.where(pl, (st.z - ts * dd_.dz) * (sl - ts * dd_.dx),
+                                                0.0))) / cnt
+
+            t_cur = g_step(d2)
+            mu_cur = mu_pred(d2, t_cur)
+            de_acc, df_acc = de, df
+            active = ok & (gap > cfg.gondzio_gate_gap)
+            lo_t = cfg.gondzio_beta_min * target
+            hi_t = cfg.gondzio_beta_max * target
+            for _ in range(cfg.gondzio_correctors):
+                t_t = torch.clamp_max(t_cur + cfg.gondzio_delta, 1.0)
+                vu = (st.w - t_t * d2.dw) * (su + t_t * d2.dx)
+                vl = (st.z - t_t * d2.dz) * (sl - t_t * d2.dx)
+                de_t = de_acc - torch.where(pu, torch.clamp(vu, lo_t, hi_t) - vu, 0.0)
+                df_t = df_acc - torch.where(pl, torch.clamp(vl, lo_t, hi_t) - vl, 0.0)
+                red3 = kkt_reduce(sl, su, st.w, st.z, wu + de_t, zl + df_t, dual)
+                y3 = solve_fn(primal - mv(red3.alpha))
+                d3 = kkt_backsub(red3, sl, su, st.w, st.z, wu + de_t, zl + df_t, y3,
+                                 rmv(y3), ok)
+                t_new = g_step(d3)
+                mu_new = mu_pred(d3, t_new)
+                acc = active & (t_new >= t_cur + cfg.gondzio_gamma * cfg.gondzio_delta) & (
+                    mu_new <= mu_cur)
+                d2 = type(d2)(*(torch.where(acc, b, a) for a, b in zip(d2, d3)))
+                de_acc = torch.where(acc, de_t, de_acc)
+                df_acc = torch.where(acc, df_t, df_acc)
+                t_cur = torch.where(acc, t_new, t_cur)
+                mu_cur = torch.where(acc, mu_new, mu_cur)
+                active = acc
         d = type(d)(*(torch.where(newton_b, c, a) for a, c in zip(d, d2)))
         gamma_n = cfg.mehrotra_gamma
     step_n = torch.minimum(
@@ -688,8 +742,7 @@ def _pdas_lanes(states: PDASState, cfg: PDASConfig, engine=None) -> SolveResult:
     Dense states, or sparse states of one A with its ``engine`` (the lanes
     share the engine's schedule and differ in b, c, l, u and iterates).
     Returns one SolveResult whose tensors have the lane axis first."""
-    check_backend(states.lp, engine, None)
-    _check_config(cfg)
+    check_backend(states.lp, engine, None, per_lane=True)
     B, n = states.x.shape
     trace = _lane_trace(cfg, B, n, states.x.dtype, states.x.device, 1)
 

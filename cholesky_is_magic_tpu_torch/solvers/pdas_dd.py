@@ -11,7 +11,10 @@ Updates accumulate error-free: state <- dd(state) - t * dx.
 
 As in :mod:`.pdas`, the jitted ``lax.while_loop`` is an eager host loop
 with the same carry and status codes, and ``lax.cond`` (the entry repair)
-a Python branch.  Gondzio correctors raise (see :mod:`.pdas`).
+a Python branch.  ``engine=`` on a dense state (a sparse engine of its A)
+runs every factorization through :func:`..kkt.newton.sparse_kkt_operator`,
+the entry repair's too; Gondzio's correctors run in double-word as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from cholesky_is_magic_tpu_torch.kkt.newton import (
     FILTER_THRESHOLD,
     dense_kkt_operator,
     ell_kkt_operator,
+    sparse_kkt_operator,
 )
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
@@ -36,7 +40,6 @@ from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
     _bounced,
-    _check_config,
     _keep_going,
     _lane_loop,
     _lane_trace,
@@ -162,16 +165,22 @@ def _boost(lp):
 
 
 def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
-    """KKT operator on the operand set: the fully sparse tile engine, or the
+    """KKT operator on the operand set: the fully sparse tile engine; the
     dense one with true-residual refinement (refined against the
     UNASSEMBLED operator in double-word, which corrects the f32 rounding
-    of assembling N; otherwise a ~1e-7 direction floor).  ``per_lane``: a
-    lane under ``torch.func.vmap``."""
+    of assembling N; otherwise a ~1e-7 direction floor); or, with an engine
+    on a dense state, that engine refined against the unassembled operator
+    too.  ``per_lane``: a lane under ``torch.func.vmap``."""
     if isinstance(lp, SparseKKTLP):
         return ell_kkt_operator(
             lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
             dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
             per_lane=per_lane,
+        )
+    if engine is not None:
+        return sparse_kkt_operator(
+            lp.A, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
+            dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
         )
     return dense_kkt_operator(
         lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
@@ -336,14 +345,14 @@ def pdas_dd(
     repair/recenter, best-iterate tracking and the precision-floor exit.
     ``config.entry_repair_tol`` optionally repairs the ENTRY iterate
     toward Ax = b first.  ``engine`` is the tile engine of a state built by
-    :func:`make_pdas_dd_sparse`; ``mesh`` raises."""
+    :func:`make_pdas_dd_sparse`, or a sparse engine of a dense state's A;
+    ``mesh`` raises."""
     cfg = config or PDASConfig(gap_tol=1e-8, max_iters=300)
     check_backend(state.lp, engine, mesh)
-    _check_config(cfg)
     return _pdas_dd_loop(state, cfg, engine)
 
 
-def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
+def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg, gap):
     """IPM-specialized FULL double-word elimination (see the JAX package's
     kkt_dd): with e = w∘su, f = z∘sl the eliminated terms simplify to
     alpha = beta·(-h - w + z), an O(1) quantity whose cancellation against
@@ -351,7 +360,8 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
     the Cholesky runs in f32, and dy gets one outer refinement against the
     exact dd operator A·diag(beta_dd)·Aᵀ + diag(boost) on the recycled
     factor.  With cfg.mehrotra a second solve on the SAME factor gives the
-    corrector."""
+    corrector, and cfg.gondzio_correctors more while ``gap`` is above
+    cfg.gondzio_gate_gap."""
     lp = st.lp
     zero = torch.zeros_like(sl)
     dd0 = DD(zero, zero)
@@ -450,6 +460,50 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg):
         pl, ddm.dd_add_w(ddm.dd_mul(dz_dd, dx_dd), -target), dd0
     )
     dw_dd, dx_dd, dy_dd, dz_dd = newton_dir(de_dd, df_dd)
+    if cfg.gondzio_correctors == 0:
+        return dw_dd, dx_dd, dy_dd, dz_dd, ok
+
+    # --- Gondzio's correctors, dd rendering: the trial complementarity
+    # products and the centrality-box clip run in working precision (they
+    # only steer the next rhs deviation); the deviation itself stays dd.
+    # Every candidate is computed and kept by a select (no host read). ---
+    def g_step(dw_, dx_, dz_):
+        return torch.clamp_max(
+            _dd_step(sl_dd, su_dd, st, dw_, dx_, dz_).to_working(), 1.0)
+
+    def mu_pred(dw_, dx_, dz_, t_):
+        # The duality measure at the damped step, on the hi parts.
+        ts = cfg.mehrotra_gamma * t_
+        return (torch.sum(torch.where(pu, (st.w.hi - ts * dw_.hi) * (su + ts * dx_.hi), 0.0))
+                + torch.sum(torch.where(pl, (st.z.hi - ts * dz_.hi) * (sl - ts * dx_.hi),
+                                       0.0))) / cnt
+
+    t_cur = g_step(dw_dd, dx_dd, dz_dd)
+    mu_cur = mu_pred(dw_dd, dx_dd, dz_dd, t_cur)
+    de_acc, df_acc = de_dd, df_dd
+    active = ok & (gap > cfg.gondzio_gate_gap)
+    lo_t = cfg.gondzio_beta_min * target
+    hi_t = cfg.gondzio_beta_max * target
+    for _ in range(cfg.gondzio_correctors):
+        t_t = torch.clamp_max(t_cur + cfg.gondzio_delta, 1.0)
+        vu = (st.w.hi - t_t * dw_dd.hi) * (su + t_t * dx_dd.hi)
+        vl = (st.z.hi - t_t * dz_dd.hi) * (sl - t_t * dx_dd.hi)
+        dtu = torch.where(pu, torch.clamp(vu, lo_t, hi_t) - vu, 0.0)
+        dtl = torch.where(pl, torch.clamp(vl, lo_t, hi_t) - vl, 0.0)
+        de_t = ddm.dd_add_w(de_acc, -dtu)
+        df_t = ddm.dd_add_w(df_acc, -dtl)
+        cw, cx, cy, cz = newton_dir(de_t, df_t)
+        t_new = g_step(cw, cx, cz)
+        mu_new = mu_pred(cw, cx, cz, t_new)
+        acc = active & (t_new >= t_cur + cfg.gondzio_gamma * cfg.gondzio_delta) & (
+            mu_new <= mu_cur)
+        dw_dd, dx_dd, dy_dd, dz_dd, de_acc, df_acc = (
+            ddm.dd_where(acc, new, old) for old, new in zip(
+                (dw_dd, dx_dd, dy_dd, dz_dd, de_acc, df_acc),
+                (cw, cx, cy, cz, de_t, df_t)))
+        t_cur = torch.where(acc, t_new, t_cur)
+        mu_cur = torch.where(acc, mu_new, mu_cur)
+        active = acc
     return dw_dd, dx_dd, dy_dd, dz_dd, ok
 
 
@@ -474,7 +528,7 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine,
         gate = gap < cfg.krylov_gate_gap
     op = _make_op(lp, cfg, engine, gate, per_lane)
     dw_dd, dx_dd, dy_dd, dz_dd, ok = _kkt_dd(
-        st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg
+        st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg, gap
     )
     # Ratio tests in dd.
     step_dd = _dd_step(sl_dd, su_dd, st, dw_dd, dx_dd, dz_dd)
@@ -630,8 +684,7 @@ def _pdas_dd_lanes(states: PDASDDState, cfg: PDASConfig,
     kernels run once for the whole batch: the double-word products on the
     stacked dense operands, or the assembly and the tile factor on the
     engine."""
-    check_backend(states.lp, engine, None)
-    _check_config(cfg)
+    check_backend(states.lp, engine, None, per_lane=True)
     repair_info = {}
     if cfg.entry_repair_tol > 0.0:
         states, pv0, pv1 = lanes.vmap(

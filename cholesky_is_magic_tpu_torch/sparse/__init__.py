@@ -8,9 +8,11 @@ Counterpart of ``cholesky_is_magic_tpu/sparse``:
   supernodes and the static tile plan (:class:`FactorPlan`);
 - :mod:`.tiled` is the panel-wave tile engine (:class:`.tiled.TiledCholesky`)
   with its fully sparse pair-schedule assembly, whose hand-written CUDA
-  kernels are launched by :mod:`.tiled_cuda` and ``ops.chol_cuda``.
-
-``BlockSparseCholesky`` (``sparse/factor.py``) is not ported.
+  kernels are launched by :mod:`.tiled_cuda` and ``ops.chol_cuda``, and its
+  dense-A entry point :func:`.tiled.engine_for`;
+- :mod:`.factor` is the blocked-sparse factorization on the padded dense
+  square (:class:`.factor.BlockSparseCholesky`), its diagonal tiles by
+  ``ops.chol.cholesky`` (the potrf kernel on the card).
 """
 
 from cholesky_is_magic_tpu_torch.sparse.symbolic import (
@@ -22,6 +24,8 @@ from cholesky_is_magic_tpu_torch.sparse.symbolic import (
     postorder,
     supernodes,
 )
+from cholesky_is_magic_tpu_torch.sparse.factor import BlockSparseCholesky
+from cholesky_is_magic_tpu_torch.sparse.tiled import engine_for
 
 __all__ = [
     "FactorPlan",
@@ -31,4 +35,6 @@ __all__ = [
     "postorder",
     "column_counts",
     "supernodes",
+    "BlockSparseCholesky",
+    "engine_for",
 ]

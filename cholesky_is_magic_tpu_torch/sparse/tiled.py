@@ -38,9 +38,15 @@ batched kernel for all the lanes (the plain forms with a lane axis off the
 card), and the dbound retry and the Krylov gate become per-lane selects
 with no host read, as ``lax.cond`` becomes under ``jax.vmap``.
 
-Not ported: the dense-A entry points (``engine_for``, ``assemble``,
-``prepare_normal``, ``solve_normal``), which raise ``NotImplementedError``,
-and the mesh methods (the solvers raise on ``mesh=``).
+The dense-A entry points (:func:`engine_for`, :meth:`TiledCholesky.assemble`,
+``prepare_normal``, ``solve_normal``) take a dense (padded) A instead of
+the pair schedule: the tiles of P·A·D²·Aᵀ·Pᵀ come from ``torch.matmul``
+over row blocks of the permuted, scaled A (XLA matmuls in the JAX package
+too), then the same panel loop (K1 per panel on the card) and solves, and
+the refinement residuals run against the unassembled operator through the
+double-word A·x and Aᵀ·x (the dd kernels on the card).
+
+Not ported: the mesh methods (the solvers raise on ``mesh=``).
 """
 
 from __future__ import annotations
@@ -83,9 +89,22 @@ def engine_for_sparse(A_host, block: int = 128, snode_align: bool = True,
     return eng
 
 
-def engine_for(A, block: int = 128, snode_align: bool = True):
-    """The dense-A engine entry point: not ported."""
-    raise NotImplementedError("the dense-A tile engine (engine_for) is not ported")
+def engine_for(A, block: int = 128, snode_align: bool = True,
+               device="cuda") -> "TiledCholesky":
+    """Analyse-once engine on ``device`` for a (possibly padded) dense A, a
+    tensor or an array: the entry point solvers take as
+    ``pdas(..., engine=...)`` on a dense state.  Zero (padded) rows
+    contribute only their boosted diagonal; the symbolic analysis sees them
+    as isolated vertices."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.sparse.symbolic import analyze
+
+    if isinstance(A, torch.Tensor):
+        A = A.detach().cpu().double().numpy()
+    A_host = sp.csc_matrix(np.asarray(A, np.float64))
+    return TiledCholesky(analyze(A_host, block=block), snode_align=snode_align,
+                         device=device)
 
 
 class TiledCholesky:
@@ -164,6 +183,31 @@ class TiledCholesky:
         diag_panel = np.full(self.NT + 1, -1, np.int64)
         diag_panel[diag_ids] = np.arange(B)
         self.diag_panel = put(diag_panel)  # tile -> its panel, or -1
+        # The dense-A assembly's tables, kept on the host (the per-panel
+        # index lists built from them go to the device at first assemble):
+        # each tile's (row, column) tile, and per column panel j the
+        # contiguous row-tile window [lo_j, hi_j] covering its resident
+        # tiles with the destination tile of each window row (DUMMY where
+        # not resident).
+        self.tile_i = np.asarray([t[0] for t in tiles] + [0], np.int64)
+        self.tile_j = np.asarray([t[1] for t in tiles] + [0], np.int64)
+        asm_lo, asm_dst = [], []
+        for j in range(B):
+            rows = [i for i in range(j, B) if mask[i, j] or i == j]
+            lo, hi = min(rows), max(rows)
+            asm_lo.append(lo)
+            rowset = set(rows)
+            asm_dst.append([tid[(lo + r, j)] if (lo + r) in rowset else DUMMY
+                            for r in range(hi - lo + 1)])
+        self.Rmax_asm = max(len(x) for x in asm_dst)
+        self.asm_lo = np.asarray(asm_lo, np.int64)
+        self.asm_dst = _pad2(asm_dst, DUMMY)
+        self._panels = None
+        # Relative matmul cost of the two assembly modes (units of b·b·n):
+        # range mode computes B full windows, scan mode exactly NT tiles.
+        self.range_cost = B * self.Rmax_asm
+        self.scan_cost = self.NT
+        self.assemble_mode = "auto"  # per-engine override ("scan"/"range")
 
         n_pad = B * b
         if aligned:
@@ -312,6 +356,76 @@ class TiledCholesky:
         boost_p = rb[..., self.pperm].reshape(*rb.shape[:-1], self.B, b)
         eye = torch.eye(b, dtype=dt, device=d.device)
         tiles[..., self.diag_ids, :, :] += eye * boost_p[..., :, :, None]
+        return tiles
+
+    # ---- dense-A assembly -----------------------------------------------
+
+    def _prep_operands(self, A, d, row_boost):
+        """Pad to the slot grid, permute, scale: (AD rows by slot, boost)."""
+        n_pad = self.B * self.b
+        m = A.shape[0]
+        if m < n_pad:
+            A = F.pad(A, (0, 0, 0, n_pad - m))
+            if row_boost is None:
+                row_boost = torch.zeros(m, dtype=A.dtype, device=A.device)
+            row_boost = F.pad(row_boost, (0, n_pad - m), value=1.0)
+        AD = A[self.pperm, :] * d[None, :]
+        boost_p = row_boost[self.pperm] if row_boost is not None else None
+        return AD, boost_p
+
+    def _panel_lists(self):
+        """Per column panel j: its window (lo, width), the window rows that
+        hold a resident tile and those tiles (range mode writes these and
+        never the dummy row), and its resident row tiles with their ids
+        (scan mode); the index lists on the device."""
+        if self._panels is None:
+            put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+            self._panels = []
+            for j in range(self.B):
+                rows = np.flatnonzero(self.asm_dst[j] != self.NT)
+                mine = np.flatnonzero(self.tile_j[:self.NT] == j)
+                self._panels.append((
+                    int(self.asm_lo[j]), int(rows[-1]) + 1, put(rows),
+                    put(self.asm_dst[j][rows]), put(self.tile_i[mine]), put(mine)))
+        return self._panels
+
+    def assemble(self, A, d, row_boost=None, mode: str = "auto"):
+        """Resident tiles of P(A·D)(A·D)ᵀPᵀ (+ the boost on the diagonal) as
+        an (NT+1, b, b) tensor, from a dense A by ``torch.matmul``.
+
+        - "scan": exactly the NT tile products, one batched matmul per
+          column panel over its resident row tiles (the JAX package runs
+          one tile per ``lax.scan`` step).  A batched matmul over all NT
+          tiles at once would gather NT row blocks of AD (NT·b·n values:
+          ~0.2 GB at the pilot LP in f32); per panel the gather holds one
+          panel's row tiles at most, and the host issues B matmuls, not NT;
+        - "range": one (w·b, n) x (n, b) matmul per column panel over the
+          contiguous window of w row tiles that covers its resident ones
+          (the JAX package pads every window to Rmax; its extra rows land
+          in the dummy tile), the resident rows copied to their tiles.  B
+          matmuls; over-computes where a window is taller than its
+          resident count.
+
+        "auto" takes range when its cost (B·Rmax) is at most 1.2× scan's
+        (NT), as in the JAX package.  Every resident tile is the product of
+        the same two row blocks either way."""
+        if mode == "auto":
+            mode = "range" if self.range_cost <= 1.2 * self.scan_cost else "scan"
+        if mode not in ("range", "scan"):
+            raise ValueError(f"assemble: unknown mode {mode!r}")
+        b = self.b
+        AD, boost_p = self._prep_operands(A, d, row_boost)
+        Ap = AD.reshape(self.B, b, -1)
+        tiles = AD.new_zeros((self.NT + 1, b, b))
+        for j, (lo, w, rows, rtiles, srows, stiles) in enumerate(self._panel_lists()):
+            if mode == "range":
+                G = torch.matmul(AD[lo * b:(lo + w) * b], Ap[j].T)
+                tiles[rtiles] = G.reshape(w, b, b)[rows]
+            else:
+                tiles[stiles] = torch.matmul(Ap[srows], Ap[j].T)
+        if boost_p is not None:
+            eye = torch.eye(b, dtype=tiles.dtype, device=tiles.device)
+            tiles[self.diag_ids] += eye * boost_p.reshape(self.B, b)[:, :, None]
         return tiles
 
     # ---- factor and solve -----------------------------------------------
@@ -466,12 +580,44 @@ class TiledCholesky:
         )
         return solve_fn(g), ok
 
-    def _dense_a(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the dense-A tile engine path (assemble / prepare_normal / "
-            "solve_normal) is not ported; use the pair-schedule path")
+    # ---- the dense-A normal equations -----------------------------------
 
-    assemble = prepare_normal = solve_normal = _dense_a
+    def prepare_normal(self, A, d, row_boost=None, refine_steps=0,
+                       dbound: float = 0.0, krylov_steps: int = 0,
+                       krylov_gate=None):
+        """Assemble and factor once from a dense A; returns (solve_fn, ok),
+        the factor-once / solve-many split.  ``refine_steps`` adds
+        double-word Richardson refinement against the UNASSEMBLED operator
+        (ops.dense.operator_residual), so the f32 tile factor reaches the
+        dense dd path's accuracy; ``krylov_steps`` > 0 switches to flexible
+        PCG with the tile factor as preconditioner, per call when
+        ``krylov_gate`` (a 0-dim bool tensor) is given.  ``ok`` is read on
+        the host only when the dbound retry is armed."""
+        from cholesky_is_magic_tpu_torch.ops.dense import unassembled_refinement
+
+        n_pad = self.B * self.b
+        m = A.shape[0]
+        tiles = self.assemble(A, d, row_boost, mode=self.assemble_mode)
+        L, invd, ok = self._factorize_dbound(tiles, dbound)
+        AD = A * d[None, :] if (refine_steps or krylov_steps) else None
+        rows = self.slot_of[:m]
+
+        def raw_solve(r):
+            rp = F.pad(r, (0, n_pad - m))[self.pperm]
+            return self.solve(L, invd, rp)[rows]
+
+        return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
+                                      krylov_steps, krylov_gate), ok
+
+    def solve_normal(self, A, d, g, row_boost=None, refine_steps=0,
+                     dbound: float = 0.0, krylov_steps: int = 0):
+        """Drop-in for ops.dense.solve_normal through the tile engine (see
+        prepare_normal).  Returns (y, ok)."""
+        solve_fn, ok = self.prepare_normal(
+            A, d, row_boost=row_boost, refine_steps=refine_steps,
+            dbound=dbound, krylov_steps=krylov_steps,
+        )
+        return solve_fn(g), ok
 
 
 # The engines the assembly operator can name: an operator takes tensors and

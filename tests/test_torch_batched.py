@@ -453,13 +453,18 @@ def test_unported_batch_modes_raise(call):
 
 
 def test_batched_loops_refuse_what_the_single_loops_refuse(batch):
+    """The batch refuses what a single loop refuses (an unknown factor
+    method) and takes what it takes: with Gondzio's correctors each lane
+    is its single solve (tests/test_torch_gondzio.py holds both against
+    the JAX package)."""
     _, _, ts, _ = batch["direct"]
-    cfg = tpdas.PDASConfig(mehrotra=True, gondzio_correctors=1)
-    with pytest.raises(NotImplementedError, match="Gondzio"):
-        parallel.batched_pdas(ts, cfg)
-    dd = parallel.stack_states([tpdas_dd.make_pdas_dd(lp) for lp in batch["tl"]])
-    with pytest.raises(NotImplementedError, match="Gondzio"):
-        parallel.batched_pdas_dd(dd, cfg)
+    cfg = tpdas.PDASConfig(max_iters=200, mehrotra=True, gondzio_correctors=1)
+    tr = parallel.batched_pdas(ts, cfg)
+    for k in range(len(SEEDS)):
+        one = tpdas.pdas(lanes.lane(ts, k), cfg)
+        assert (int(one.status), int(one.iterations)) == (
+            int(tr.status[k]), int(tr.iterations[k]))
+        np.testing.assert_allclose(tr.x[k].numpy(), one.x.numpy(), atol=1e-12)
     with pytest.raises(ValueError, match="unknown method"):
         parallel.batched_pdas(ts, tpdas.PDASConfig(factor_method="cholmod"))
 

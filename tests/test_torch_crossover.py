@@ -31,6 +31,7 @@ from cholesky_is_magic_tpu.utils.testing import (
     write_mps,
 )
 from cholesky_is_magic_tpu_torch import convert
+from cholesky_is_magic_tpu_torch import sparse as tsparse
 
 # The crossover modules (their packages re-export a function of the name).
 jxo = importlib.import_module("cholesky_is_magic_tpu.solvers.crossover")
@@ -404,7 +405,13 @@ def test_clean_entry_pays_nothing():
 
 
 def test_dense_engine_raises():
-    lp, res, *_ = _random_entry(7, "f32")
+    """A sparse engine of the dense A (ported; afiro is held against the
+    JAX package's engine in tests/test_torch_dense_engine.py): the f32
+    entry polished with the tiles takes the decisions of JAX's dense
+    crossover of it, the objective within 2e-6 of JAX's."""
+    lp, res, _fun, jout, _calls = _random_entry(7, "f32")
     tlp, tres = _port(lp, res, torch.float32)
-    with pytest.raises(NotImplementedError):
-        txo.crossover(tres, tlp, engine=object())
+    eng = tsparse.engine_for(tlp.A, block=16, device="cpu")
+    tout = txo.crossover(tres, tlp, engine=eng)
+    _cert_equal(jout.extra["crossover"], tout.extra["crossover"])
+    assert float(tout.objective) == pytest.approx(float(jout.objective), rel=2e-6)

@@ -13,8 +13,10 @@ and the batched tile and assembly kernels (each lane bit-equal to the single
 launch, at the m = 16384 schedule too), the batch solves (f64 lane counts
 equal to the CPU's; the f32 two-phase batch through the batched kernels; a
 sparse batch on one engine through the batched tile and assembly kernels;
-the slabbed front door), and float64 on the card, which takes the plain
-forms and launches no kernel.
+the slabbed front door), the dense-A engines (the tile engine's K1 per
+panel, BlockSparseCholesky's potrf per diagonal tile, the dd kernels in the
+refinement), and float64 on the card, which takes the plain forms and
+launches no kernel (Gondzio's correctors on a dense-A engine too).
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -1045,3 +1047,74 @@ def test_solve_batch_slabbed_on_the_card(dev):
     for a, b in zip(plain, slab):
         assert a.status == b.status
         assert b.objective == pytest.approx(a.objective, rel=1e-3, abs=1e-3)
+
+
+def _afiro_dense(dev, dtype):
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+
+    sf = cimt.to_standard_form(cimt.read_mps_file(AFIRO))
+    return to_device_lp(sf, pad_multiple=32, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("kind", ["tiled", "block sparse"])
+def test_dense_a_engines_on_the_card(dev, kind):
+    """A normal solve of afiro's equilibrated A by a dense-A engine in f32
+    on the card: within 1e-5 of the same engine's f64 solve on the CPU;
+    the tile kernel once per panel (the tile engine) or per diagonal tile
+    (BlockSparseCholesky's potrf), dd A·x twice and Aᵀ·x once for the
+    refinement step, no assembly kernel."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.solvers import make_pdas
+    from cholesky_is_magic_tpu_torch.sparse import BlockSparseCholesky, analyze, engine_for
+
+    lp = make_pdas(_afiro_dense(dev, torch.float32)).lp
+    A, boost = lp.A, (~lp.row_mask).float()  # the padded rows' unit diagonal
+    if kind == "tiled":
+        make = lambda d: engine_for(A, block=16, device=d)  # noqa: E731
+    else:
+        plan = analyze(sp.csc_matrix(A.cpu().double().numpy()), block=16)
+        make = lambda d: BlockSparseCholesky(plan, device=d)  # noqa: E731
+    eng, host = make(dev), make("cpu")
+    rng = np.random.default_rng(0)
+    d = rng.random(A.shape[1]) + 0.5
+    g = rng.normal(size=A.shape[0])
+    before = {**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES, **tiled_cuda.LAUNCHES}
+    y, ok = eng.solve_normal(A, torch.from_numpy(d).float().to(dev),
+                             torch.from_numpy(g).float().to(dev), row_boost=boost,
+                             refine_steps=1)
+    got = {k: v - before[k] for k, v in
+           {**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES, **tiled_cuda.LAUNCHES}.items()}
+    ref, ok_ref = host.solve_normal(A.cpu().double(), torch.from_numpy(d),
+                                    torch.from_numpy(g), row_boost=boost.cpu().double(),
+                                    refine_steps=1)
+    assert bool(ok) and bool(ok_ref)
+    assert float((y.cpu().double() - ref).norm() / ref.norm()) <= 1e-5
+    panels = eng.B if kind == "tiled" else eng.n_tiles
+    assert (got["potrf_tile"], got["mv"], got["rmv"], got["assemble_pairs"]) == (
+        panels, 2, 1, 0)
+
+
+def test_dense_engine_and_gondzio_in_float64_on_the_card_equal_the_cpu(dev):
+    """pdas_dd with Gondzio's correctors on afiro's dense state with a
+    dense-A engine, in f64 on the card: the CPU's status and count, no
+    kernel launched (f64 takes the plain forms)."""
+    from cholesky_is_magic_tpu_torch.solvers import PDASConfig, make_pdas, pdas
+    from cholesky_is_magic_tpu_torch.solvers.pdas_dd import make_pdas_dd, pdas_dd
+    from cholesky_is_magic_tpu_torch.sparse import engine_for
+
+    cfg1 = PDASConfig(max_iters=300, refine_steps=2, mehrotra=True, gondzio_correctors=2)
+    cfg2 = dataclasses.replace(cfg1, gap_tol=1e-9)
+    out = {}
+    for where in ("cuda", "cpu"):
+        lp = _afiro_dense(where, torch.float64)
+        eng = engine_for(make_pdas(lp).lp.A, block=16, device=where)
+        before = sum({**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES}.values())
+        r1 = pdas(make_pdas(lp), cfg1, engine=eng)
+        r2 = pdas_dd(make_pdas_dd(lp, warm=r1), cfg2, engine=eng)
+        assert sum({**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES}.values()) == before
+        out[where] = (int(r1.iterations), int(r2.iterations), r2.status_name,
+                      float(r2.objective))
+    assert out["cuda"][:3] == out["cpu"][:3]
+    assert out["cuda"][3] == pytest.approx(-464.75314285714285, rel=1e-9)

@@ -15,13 +15,16 @@ import torch
 from cholesky_is_magic_tpu.kkt import newton as jkkt
 from cholesky_is_magic_tpu.ops import dense as jdense
 from cholesky_is_magic_tpu.ops import krylov as jkrylov
+from cholesky_is_magic_tpu import sparse as jsparse
 from cholesky_is_magic_tpu.solvers import affine as jaff
+from cholesky_is_magic_tpu.sparse import tiled as jtiled
 from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
 from cholesky_is_magic_tpu_torch.kkt import newton as tkkt
 from cholesky_is_magic_tpu_torch.ops import dense as tdense
 from cholesky_is_magic_tpu_torch.ops import krylov as tkrylov
 from cholesky_is_magic_tpu_torch.solvers import affine as taff
 from cholesky_is_magic_tpu_torch.solvers import backend as tbackend
+from cholesky_is_magic_tpu_torch import sparse as tsparse
 
 torch.set_num_threads(1)
 
@@ -184,6 +187,84 @@ def test_kkt_newton_matches(seed):
     assert tkkt.FILTER_THRESHOLD == jkkt.FILTER_THRESHOLD
 
 
+def _unfiltered_kkt_inputs(seed, m=24, n=40):
+    """tests/test_sparse_ops.py:70-85's system: every bound present (no
+    filtered row), so every block residual of an exact solve is rounding."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((m, n)) < 0.1) * rng.normal(size=(m, n))
+    A[np.arange(m), np.arange(m)] += 2.0
+    pos = lambda k: 0.1 + 10 * rng.random(k)  # noqa: E731
+    vec = (pos(n), pos(n), pos(n), pos(n))
+    rhs = (rng.random(n), rng.random(n), rng.random(m), rng.random(n))
+    return A, vec, rhs
+
+
+def _engines(A, kind, block=8):
+    """The same sparse engine of A's pattern in both packages."""
+    import scipy.sparse as sp
+
+    if kind == "tiled":
+        return (jtiled.engine_for(A, block=block),
+                tsparse.engine_for(A, block=block, device="cpu"))
+    plan = lambda mod: mod.analyze(sp.csc_matrix(A), block=block, use_native=False)  # noqa: E731
+    return (jsparse.BlockSparseCholesky(plan(jsparse)),
+            tsparse.BlockSparseCholesky(plan(tsparse), device="cpu"))
+
+
+@pytest.mark.parametrize("refine_steps", [0, 2])
+@pytest.mark.parametrize("kind", ["tiled", "block_sparse"])
+def test_sparse_kkt_operator_matches(kind, refine_steps):
+    """The KKT elimination over a sparse engine of the dense A
+    (tests/test_sparse_ops.py:68-95): the deltas within 1e-10 of JAX's and
+    every block residual below 1e-8."""
+    A, vec, rhs = _unfiltered_kkt_inputs(4)
+    jA, tA = _pair(A)
+    jv, tv = zip(*map(_pair, vec))
+    jr, tr = zip(*map(_pair, rhs))
+    je, te = _engines(A, kind)
+    jop = jkkt.sparse_kkt_operator(jA, je, refine_steps=refine_steps)
+    top = tkkt.sparse_kkt_operator(tA, te, refine_steps=refine_steps)
+    jd = jkkt.solve_kkt_newton(*jv, jop, *jr)
+    td = tkkt.solve_kkt_newton(*tv, top, *tr)
+    assert bool(jd.ok) and bool(td.ok)
+    for a, b in zip(jd[:4], td[:4]):
+        _close(a, b, rtol=1e-10)
+    res = tkkt.kkt_residuals(*tv, top, *tr, td)
+    assert float(res.max()) < 1e-8
+    _close(jkkt.kkt_residuals(*jv, jop, *jr, jd), res, rtol=1e-8)
+
+
+def test_checked_newton_flags_a_zero_a():
+    """solve_kkt_newton_checked (tests/test_kkt.py:131): a zero A fails
+    the factorization; both packages flag it and report the same block
+    residuals.  On a sound A it keeps ok and JAX's residuals."""
+    n, m = 5, 3
+    one = np.ones(n)
+    jone, tone = _pair(one)
+    jg, tg = _pair(np.ones(m))
+    jA, tA = _pair(np.zeros((m, n)))
+    jd, jres = jkkt.solve_kkt_newton_checked(
+        jone, jone, jone, jone, jkkt.dense_kkt_operator(jA), jone, jone, jg, jone)
+    td, tres = tkkt.solve_kkt_newton_checked(
+        tone, tone, tone, tone, tkkt.dense_kkt_operator(tA), tone, tone, tg, tone)
+    assert not bool(jd.ok) and not bool(td.ok)
+    _close(jres, tres)
+    A, vec, rhs = _unfiltered_kkt_inputs(5)
+    jA, tA = _pair(A)
+    jv, tv = zip(*map(_pair, vec))
+    jr, tr = zip(*map(_pair, rhs))
+    jd, jres = jkkt.solve_kkt_newton_checked(*jv, jkkt.dense_kkt_operator(jA), *jr)
+    td, tres = tkkt.solve_kkt_newton_checked(*tv, tkkt.dense_kkt_operator(tA), *tr)
+    assert bool(jd.ok) and bool(td.ok)
+    _close(jres, tres, rtol=1e-8)
+    # A tolerance below the residuals flips ok in both.
+    tight = float(tres.max()) / 2
+    assert not bool(jkkt.solve_kkt_newton_checked(
+        *jv, jkkt.dense_kkt_operator(jA), *jr, tol=tight)[0].ok)
+    assert not bool(tkkt.solve_kkt_newton_checked(
+        *tv, tkkt.dense_kkt_operator(tA), *tr, tol=tight)[0].ok)
+
+
 def test_backend_seam():
     rng = np.random.default_rng(5)
     A = rng.normal(size=(6, 9))
@@ -208,10 +289,16 @@ def test_backend_seam():
     N = (A * d.numpy()) @ (A * d.numpy()).T + np.diag(boost.numpy())
     assert bool(ok)
     np.testing.assert_allclose(y.numpy(), np.linalg.solve(N, u), rtol=1e-10)
-    with pytest.raises(NotImplementedError):
-        tbackend.prepare_normal_backend(lp, object(), d, boost, 1)
+    # A dense state with a sparse engine of its A: the same solve by tiles.
+    eng = tsparse.engine_for(A, block=4, device="cpu")
+    solve_fn, ok = tbackend.prepare_normal_backend(lp, eng, d, boost, 1)
+    assert bool(ok)
+    np.testing.assert_allclose(solve_fn(torch.from_numpy(u)).numpy(), y.numpy(),
+                               rtol=1e-10)
     with pytest.raises(NotImplementedError):
         tbackend.prepare_normal_backend(lp, None, d, boost, 1, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbackend.prepare_normal_backend(lp, eng, d, boost, 1, per_lane=True)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

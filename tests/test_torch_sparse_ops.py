@@ -4,7 +4,9 @@ Both packages build their operands from the same numpy-seeded COO triplets
 (f64): the arrays must be equal, the BELL byte gate must agree, the
 double-word products are bit-equal where the operation order is the same
 (dd_matvec), and the products that end in a working-precision sum
-(matvec, rmatvec, dd_matvec_dd) agree within 1e-15 of Σ|a||x|."""
+(matvec, rmatvec, dd_matvec_dd) agree within 1e-15 of Σ|a||x|; sdmult
+(y <- alpha·op(A)·x + beta·y), scale_columns and to_dense (repeated slots
+summed) within 1e-12 relative."""
 
 import jax
 import jax.numpy as jnp
@@ -123,3 +125,52 @@ def test_bell_byte_gates_agree(kw):
             assert (J is None) == (T is None)
     assert tbell.from_coo(np.zeros(0, int), np.zeros(0, int), np.zeros(0),
                           (4, 4), device="cpu") is None
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("m,n,density", SHAPES)
+def test_sdmult_full_signature(m, n, density, transpose):
+    """y <- alpha·op(A)·x + beta·y (sparse-m*, tests/test_sparse_ops.py:40)."""
+    rows, cols, vals, rng = _coo(m + 2 * n, m, n, density)
+    J = jso.from_coo(rows, cols, vals, (m, n), dtype=jnp.float64)
+    T = tso.from_coo(rows, cols, vals, (m, n), dtype=torch.float64, device="cpu")
+    k_in, k_out = (m, n) if transpose else (n, m)
+    x, y = rng.normal(size=k_in), rng.normal(size=k_out)
+    for alpha, beta, with_y in ((-1.0, 2.0, True), (0.5, 0.0, True), (1.0, 0.0, False)):
+        yj = jnp.asarray(y) if with_y else None
+        yt = torch.from_numpy(y) if with_y else None
+        jo = jso.sdmult(J, jnp.asarray(x), yj, alpha=alpha, beta=beta,
+                        transpose=transpose)
+        to = tso.sdmult(T, torch.from_numpy(x), yt, alpha=alpha, beta=beta,
+                        transpose=transpose)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=1e-12,
+                                   atol=1e-12 * float(np.abs(np.asarray(jo)).max()))
+
+
+@pytest.mark.parametrize("m,n,density", SHAPES)
+def test_scale_columns_and_to_dense(m, n, density):
+    """A·diag(d) in ELL and the dense matrix back, the duplicate triplets
+    and the padded slots of each row summed (tests/test_sparse_ops.py:55)."""
+    rows, cols, vals, rng = _coo(3 * m + n, m, n, density)
+    J = jso.from_coo(rows, cols, vals, (m, n), dtype=jnp.float64)
+    T = tso.from_coo(rows, cols, vals, (m, n), dtype=torch.float64, device="cpu")
+    dense = np.zeros((m, n))
+    np.add.at(dense, (rows, cols), vals)
+    np.testing.assert_allclose(tso.to_dense(T).numpy(), np.asarray(jso.to_dense(J)),
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(tso.to_dense(T).numpy(), dense, rtol=1e-12, atol=0)
+    d = rng.random(n) + 0.5
+    JS = jso.scale_columns(J, jnp.asarray(d))
+    TS = tso.scale_columns(T, torch.from_numpy(d))
+    np.testing.assert_array_equal(TS.indices.numpy(), np.asarray(JS.indices))
+    np.testing.assert_allclose(TS.values.numpy(), np.asarray(JS.values), rtol=1e-12)
+    np.testing.assert_allclose(tso.to_dense(TS).numpy(), np.asarray(jso.to_dense(JS)),
+                               rtol=1e-12, atol=0)
+
+
+def test_coo_duplicates_summed():
+    rows, cols, vals = np.array([0, 0, 1]), np.array([1, 1, 0]), np.array([2.0, 3.0, 1.0])
+    T = tso.from_coo(rows, cols, vals, (2, 2), dtype=torch.float64, device="cpu")
+    J = jso.from_coo(rows, cols, vals, (2, 2), dtype=jnp.float64)
+    np.testing.assert_array_equal(tso.to_dense(T).numpy(), [[0.0, 5.0], [1.0, 0.0]])
+    np.testing.assert_array_equal(tso.to_dense(T).numpy(), np.asarray(jso.to_dense(J)))

@@ -186,17 +186,26 @@ def test_singular_and_dbound_retry_match():
 
 
 def test_unported_paths_raise_and_cpu_launches_nothing():
+    """The dense-A entry points are ported (tests/test_torch_dense_engine.py
+    holds them against the JAX package): on the pair-schedule engine they
+    give the pair assembly's tiles and its solve.  On CPU tensors neither
+    assembly launches a kernel."""
     A, rng = _pattern("sparse")
     te = ttiled.engine_for_sparse(A, block=8, dtype=torch.float64,
                                   device="cpu")
-    for call in (lambda: ttiled.engine_for(A),
-                 lambda: te.assemble(A, None),
-                 lambda: te.prepare_normal(A, None),
-                 lambda: te.solve_normal(A, None, None)):
-        with pytest.raises(NotImplementedError):
-            call()
     before = dict(tiled_cuda.LAUNCHES)
-    te.assemble_pairs(torch.ones(A.shape[1], dtype=torch.float64))
+    d = torch.from_numpy(rng.random(A.shape[1]) + 0.5)
+    boost = torch.zeros(A.shape[0], dtype=torch.float64)
+    tiles = te.assemble_pairs(d, boost)
+    dense = te.assemble(torch.from_numpy(A), d, boost)
     assert tiled_cuda.LAUNCHES == before
+    assert _rel(tiles.numpy(), dense.numpy()) <= 1e-12
+    g = torch.from_numpy(rng.normal(size=A.shape[0]))
+    y_dense, ok = te.solve_normal(torch.from_numpy(A), d, g)
+    y_pairs, ok_pairs = te.solve_normal_ell(
+        tso.from_dense(A, dtype=torch.float64, device="cpu"),
+        tso.from_dense(A.T, dtype=torch.float64, device="cpu"), d, g)
+    assert bool(ok) and bool(ok_pairs)
+    assert _rel(y_pairs.numpy(), y_dense.numpy()) <= 1e-10
     with pytest.raises(ValueError, match="CUDA"):
         tiled_cuda.assemble_pairs(te, torch.ones(120), torch.zeros(0))
