@@ -180,7 +180,27 @@ script then exits non-zero and never prints its last line):
    <= 1e-3) and afiro dense (pad 32) through pdas + pdas_dd + crossover on
    engine_for(block=16): certified, certificate gap < 1e-9, objective
    within 2e-6.  Counters reset before each path and read after: the tile
-   kernel and the dd kernels launched, the assembly kernel not.
+   kernel and the dd kernels launched, the assembly kernel not;
+18. mesh and the dense-A batch — an NCCL process group of world size 1 (a
+   TCP store on 127.0.0.1; one card, and NCCL refuses two ranks on one) and
+   ``lp_mesh(1, 1)`` over it, destroyed at the end: (a) the pilot A's
+   ``sharded_solve_normal`` (one refinement step) within 1e-6 of
+   ``ops.dense.solve_normal`` with the same refinement (its difference and
+   bit equality printed; dd A·x twice and Aᵀ·x once), then the pilot
+   through pdas then pdas_dd with ``mesh=`` to phase 5's bars, its counts
+   and time beside phase 5's; (b) the m = 16384 LP through the at-scale
+   two-phase flow with ``mesh=`` on a fresh engine: phase 8's bars, K4 once
+   per factorization (on rank 0's slab) and K1 once per panel of each, no
+   batched launch; (c) phase 15 (c)'s mix through ``solve_batch(mesh=...)``
+   beside plain ``solve_batch``: the same statuses, every optimal lane
+   within 1e-3 of HiGHS, solves/s of both; (d) 8 lanes of the pilot's A,
+   each with its own (b, c), through batched pdas (Mehrotra) then batched
+   pdas_dd (gap_tol 1e-9) on ``engine_for(A, block=128)``: every lane's
+   status that of its single solve on the engine (or, in the finisher, the
+   f32 precision floor where the other reaches the gap: the JAX package's
+   own limit), its objective within 1e-6 of it; the batched tile kernel a
+   multiple of the panels and both batched dd kernels launched, no single
+   launch; two-phase solves/s of the batch and of the single solves.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -189,8 +209,8 @@ tensor cores; H100 SXM data sheet), from this run's shapes.
 The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
 pilot, affine at scale, the presolved pdas_dd, the crossover cases, the
-dense dd ALM phase, the batched pdas and pdas_dd and phase 17's dense-A
-engine paths, each also apart);
+dense dd ALM phase, the batched pdas and pdas_dd, phase 17's dense-A
+engine paths and phase 18's mesh and dense-A batch paths, each also apart);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -2247,6 +2267,258 @@ def phase_dense_engines(cimt, counters, card, pilot_s):
     return paths
 
 
+def _nccl_world_of_one():
+    """A process group of world size 1 on NCCL over a TCP store on
+    127.0.0.1 (a free port), and ``lp_mesh(1, 1)`` over it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cholesky_is_magic_tpu_torch.parallel import lp_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    return lp_mesh(dp=1, tp=1)
+
+
+def _drifted(sf, k):
+    """k copies of a boxed StandardForm with its own (b, c) each, drifted
+    as tests/test_parallel.py:321-329 does: b = A·x0 for x0 inside the
+    box, c ~ N(0, 1)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((sf.a_vals, (sf.a_rows, sf.a_cols)), shape=(sf.ncons, sf.nvars))
+    out = []
+    for i in range(k):
+        rng = np.random.default_rng(1000 + i)
+        x0 = sf.l + (sf.u - sf.l) * (0.2 + 0.6 * rng.random(sf.nvars))
+        out.append(dataclasses.replace(sf, b=A @ x0, c=rng.normal(size=sf.nvars)))
+    return out
+
+
+DENSE_A_LANES = 8  # phase 18 (d): lanes that share the pilot's A
+
+
+def phase_mesh(cimt, counters, card, pilot_s, sf8, info8):
+    """Phase 18, the multi-device modes and the dense-A batch on the card,
+    at world size 1 (NCCL refuses two ranks on one card): (a) the dense tp
+    path on the pilot LP; (b) the sparse tp path on the m = 16384 LP; (c)
+    the dp batch through solve_batch; (d) a batch of 8 dense states on one
+    dense-A engine.  Returns the launches of each path."""
+    import torch.distributed as dist
+
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.ops import dd as ddm
+    from cholesky_is_magic_tpu_torch.ops import dense
+    from cholesky_is_magic_tpu_torch.solvers import PDASConfig, make_pdas, pdas
+    from cholesky_is_magic_tpu_torch.solvers.affine import _into_interior
+    from cholesky_is_magic_tpu_torch.solvers.pdas import make_pdas_sparse
+    from cholesky_is_magic_tpu_torch.solvers.pdas_dd import (
+        PDASDDState,
+        make_pdas_dd,
+        mu_recentered_duals,
+        pdas_dd,
+    )
+    from cholesky_is_magic_tpu_torch.solvers.result import Status
+    from cholesky_is_magic_tpu_torch.sparse import engine_for
+    from cholesky_is_magic_tpu_torch.utils import lanes
+    from cholesky_is_magic_tpu_torch.utils.testing import (
+        constructed_optimum_lp,
+        scipy_reference_solution,
+    )
+
+    t_phase = time.perf_counter()
+    f32 = dict(device="cuda", dtype=torch.float32)
+    mesh = _nccl_world_of_one()
+    paths = {}
+    try:
+        say(f"[mesh] NCCL process group of world size {dist.get_world_size()}, "
+            f"lp_mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}")
+        # (a) the dense tp path: one normal solve, then pdas + pdas_dd.
+        sf, info = constructed_optimum_lp("pilot", seed=0)
+        lp = to_device_lp(sf, pad_multiple=128, **f32)
+        A = make_pdas(lp).lp.A
+        g = torch.Generator(device="cuda").manual_seed(18)
+        d = torch.rand(A.shape[1], generator=g, device="cuda") + 0.5
+        rhs = torch.randn(A.shape[0], generator=g, device="cuda")
+        boost = (~lp.row_mask).to(torch.float32)
+        _reset(*counters.values())
+        y_tp, ok = parallel.sharded_solve_normal(mesh, A, d, rhs, row_boost=boost,
+                                                 refine_steps=1)
+        torch.cuda.synchronize()
+        launched = _counted(counters)
+        y, ok1 = dense.solve_normal(A, d, rhs, row_boost=boost, refine_steps=1,
+                                    true_residual=True)
+        rel = float(torch.linalg.norm(y_tp - y) / torch.linalg.norm(y))
+        say(f"[mesh tp solve_normal pilot] {tuple(A.shape)} ok {bool(ok)}: relative "
+            f"difference from ops.dense.solve_normal {rel:.3e} (limit 1e-6; bit-equal "
+            f"{bool(torch.equal(y_tp, y))}); launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        if not (bool(ok) and bool(ok1) and rel <= 1e-6 and launched["mv"] == 2
+                and launched["rmv"] == 1):
+            raise AssertionError(f"mesh tp solve_normal: ok {bool(ok)}, {rel}, {launched}")
+        paths["mesh tp solve_normal pilot"] = launched
+        cfg1 = PDASConfig(max_iters=500, refine_steps=2)
+        cfg2 = PDASConfig(max_iters=500, gap_tol=1e-9, refine_steps=2)
+        _reset(*counters.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r1 = pdas(make_pdas(lp), cfg1, mesh=mesh)
+        r2 = pdas_dd(make_pdas_dd(lp, warm=r1), cfg2, mesh=mesh)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launched = _counted(counters)
+        ref = info["objective"]
+        gap = float(r2.extra["gap"])
+        err = abs(float(r2.objective) - ref) / (1.0 + abs(ref))
+        say(f"[mesh tp pilot] pdas + pdas_dd with mesh=: {int(r1.iterations)} + "
+            f"{int(r2.iterations)} iterations (phase 5: 27 + 16), {r2.status_name}, gap "
+            f"{gap:.3e}, objective error {err:.3e}, {took:.3f} s (phase 5's second "
+            f"solve {pilot_s:.3f} s) on {card}; launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        if not (gap <= 1e-8 and err <= 1e-7 and launched["mv"] > 0
+                and launched["rmv"] > 0 and np.isfinite(r2.x.cpu().numpy()).all()):
+            raise AssertionError(f"mesh tp pilot: gap {gap}, error {err}, {launched}")
+        paths["mesh tp pilot"] = launched
+        # (b) the sparse tp path: the m = 16384 LP on a fresh engine, the
+        # api's at-scale two-phase flow (AT_SCALE_KW) with mesh=.
+        t = time.perf_counter()
+        cold, eng = make_pdas_sparse(sf8, block=AT_SCALE_KW["block"], **f32)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        p1 = PDASConfig(max_iters=500, refine_steps=2, mehrotra=True)
+        p2 = PDASConfig(max_iters=500, gap_tol=1e-9, refine_steps=2, mehrotra=True,
+                        entry_repair_tol=AT_SCALE_KW["entry_repair_tol"])
+        _reset(*counters.values())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r1 = pdas(cold, p1, engine=eng, mesh=mesh)
+        l, u, mask = cold.lp.l, cold.lp.u, cold.lp.col_mask
+        x = _into_interior(r1.x, l, u, mask)
+        w, z = mu_recentered_duals(x, l, u, torch.clamp_min(r1.extra["w"], 1e-8),
+                                   torch.clamp_min(r1.extra["z"], 1e-8), mask)
+        st = PDASDDState(x=ddm.dd_from(x), y=ddm.dd_from(r1.extra["y"]),
+                         w=ddm.dd_from(w), z=ddm.dd_from(z), lp=cold.lp)
+        r2 = pdas_dd(st, p2, engine=eng, mesh=mesh)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        launched = _counted(counters)
+        ref = info8["objective"]
+        gap = float(r2.extra["gap"])
+        err = abs(float(r2.objective) - ref) / abs(ref)
+        factorizations = launched["assemble_pairs"]
+        say(f"[mesh tp at scale] engine {build_s:.3f} s ({eng.B} panels); pdas + pdas_dd "
+            f"with mesh=: {int(r1.iterations)} + {int(r2.iterations)} iterations (phase 8: "
+            f"12 + 4), {r2.status_name}, gap {gap:.3e}, objective error {err:.3e}, "
+            f"{took:.3f} s on {card}; {factorizations} factorizations, K1 "
+            f"{launched['potrf_tile']} ({launched['potrf_tile'] / max(factorizations, 1):.0f}"
+            f" a factorization); launches {launched}")
+        if not (gap <= 1e-6 and err <= 1e-5
+                and factorizations >= int(r1.iterations) + int(r2.iterations)
+                and launched["potrf_tile"] == eng.B * factorizations
+                and launched["assemble_pairs_batched"] == 0
+                and launched["potrf_tile_batched"] == 0):
+            raise AssertionError(f"mesh tp at scale: gap {gap}, error {err}, {launched}")
+        paths["mesh tp at scale"] = launched
+        # (c) the dp batch: phase 15 (c)'s mix through solve_batch with and
+        # without the mesh, in turns.
+        ineqs = [_mixed_batch_lp(s) for s in range(BATCH_MIXED)]
+        mixed = [_sf_of(cimt, q) for q in ineqs]
+        highs = np.array([scipy_reference_solution(q)[1] for q in ineqs])
+        kw = dict(max_iters=60, mehrotra=True)
+        times = {"plain": [], "mesh": []}
+        reps = {}
+        for tag in ("plain", "mesh"):
+            _reset(*counters.values())
+            out, took = _seconds(lambda: cimt.solve_batch(
+                mixed, mesh=mesh if tag == "mesh" else None, **kw))
+            reps[tag] = out
+            times[tag].append(took)
+            if tag == "mesh":
+                paths["mesh dp solve_batch"] = _counted(counters)
+        st_p = np.array([int(r.result.status) for r in reps["plain"]])
+        st_m = np.array([int(r.result.status) for r in reps["mesh"]])
+        obj = np.array([r.objective for r in reps["mesh"]])
+        opt = st_m == Status.OPTIMAL
+        err = np.abs(obj - highs) / np.maximum(1.0, np.abs(highs))
+        say(f"[mesh dp batch] {BATCH_MIXED} LPs: statuses equal {bool((st_p == st_m).all())}"
+            f", optimal {int(opt.sum())}, worst objective error of an optimal lane vs "
+            f"HiGHS {err[opt].max():.3e} (limit 1e-3); solves/s plain "
+            + " ".join(f"{BATCH_MIXED / t:.1f}" for t in times["plain"]) + ", mesh "
+            + " ".join(f"{BATCH_MIXED / t:.1f}" for t in times["mesh"])
+            + f" on {card}; launches "
+            f"{ {k: v for k, v in paths['mesh dp solve_batch'].items() if v} }")
+        if not ((st_p == st_m).all() and opt.any() and (err[opt] <= 1e-3).all()
+                and paths["mesh dp solve_batch"]["mv_batched"] > 0):
+            raise AssertionError(f"mesh dp batch: statuses {st_m}, errors {err[opt].max()}")
+    finally:
+        dist.destroy_process_group()
+    # (d) a batch of dense states on one dense-A engine: the pilot's A,
+    # each lane its own (b, c).
+    lps = [to_device_lp(s, pad_multiple=128, **f32) for s in _drifted(sf, DENSE_A_LANES)]
+    states = [make_pdas(x) for x in lps]
+    eng = engine_for(states[0].lp.A, block=128)
+    c1 = PDASConfig(max_iters=500, refine_steps=2, mehrotra=True)
+    c2 = PDASConfig(max_iters=500, gap_tol=1e-9, refine_steps=2, mehrotra=True)
+    _reset(*counters.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b1 = parallel.batched_pdas(parallel.stack_states(states), c1, engine=eng)
+    torch.cuda.synchronize()
+    paths["dense-A batch pdas"] = _counted(counters)
+    _reset(*counters.values())
+    dd_states = [make_pdas_dd(x, warm=lanes.lane(b1, k)) for k, x in enumerate(lps)]
+    b2 = parallel.batched_pdas_dd(parallel.stack_states(dd_states), c2, engine=eng)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    paths["dense-A batch pdas_dd"] = _counted(counters)
+    t = time.perf_counter()
+    singles = []
+    for x in lps:
+        s1 = pdas(make_pdas(x), c1, engine=eng)
+        singles.append((s1, pdas_dd(make_pdas_dd(x, warm=s1), c2, engine=eng)))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t
+    rows = []
+    bad = []
+    # A finisher that stops at the f32 precision floor (the JAX package's
+    # own limit, ROADMAP §3) where its twin reaches the gap is held to the
+    # objective bar, as phase 16 (c) holds its floored lanes.
+    floor_or_optimal = {Status.OPTIMAL, Status.PRECISION_FLOOR}
+    for k, (s1, s2) in enumerate(singles):
+        rel = abs(float(b2.objective[k]) - float(s2.objective)) / max(1.0, abs(float(s2.objective)))
+        st = (int(b2.status[k]), int(s2.status))
+        rows.append(f"{k}: {int(b1.iterations[k])}+{int(b2.iterations[k])} vs "
+                    f"{int(s1.iterations)}+{int(s2.iterations)}, statuses {st}, gaps "
+                    f"{float(b2.extra['gap'][k]):.2e} / {float(s2.extra['gap']):.2e}, "
+                    f"objectives apart {rel:.1e}")
+        if not (int(b1.status[k]) == int(s1.status) and rel <= 1e-6
+                and (st[0] == st[1] or set(st) == floor_or_optimal)):
+            bad.append(k)
+    say(f"[dense-A batch] {DENSE_A_LANES} lanes of the pilot's A {tuple(states[0].lp.A.shape)}"
+        f" on engine_for(block=128) ({eng.B} panels): batched pdas + pdas_dd statuses "
+        f"{b1.status.tolist()} / {b2.status.tolist()}; lane: batch vs single counts "
+        + "; ".join(rows)
+        + f"; {DENSE_A_LANES / batch_s:.2f} two-phase solves/s batched ({batch_s:.3f} s) "
+        f"against {DENSE_A_LANES / single_s:.2f} single ({single_s:.3f} s) on {card}")
+    for tag in ("dense-A batch pdas", "dense-A batch pdas_dd"):
+        got = paths[tag]
+        say(f"[{tag}] launches { {k: v for k, v in got.items() if v} }")
+        if not (got["potrf_tile_batched"] > 0 and got["potrf_tile_batched"] % eng.B == 0
+                and got["mv_batched"] > 0 and got["rmv_batched"] > 0
+                and got["potrf_tile"] == got["mv"] == got["rmv"] == 0):
+            raise AssertionError(f"{tag}: launches {got}")
+    if bad:
+        raise AssertionError(f"dense-A batch: lanes {bad} differ from their single solves")
+    say(f"[mesh] phase 18 took {time.perf_counter() - t_phase:.3f} s")
+    return paths
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -2288,6 +2560,7 @@ def main() -> int:
     by_path.update(phase_batch_sparse(cimt, counters, card, stats, sf, eng,
                                       same_sfs, same_highs))
     by_path.update(phase_dense_engines(cimt, counters, card, pilot_s))
+    by_path.update(phase_mesh(cimt, counters, card, pilot_s, sf, info))
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's

@@ -1,7 +1,8 @@
 """cholesky-is-magic on PyTorch and CUDA: primal affine scaling and the
 pdas -> pdas_dd solve, dense and fully sparse, with the host presolve and
-crossover, the matrix-free family (APPROX and the ALM outer loops), and the
-batch mode (many LPs in one lane-batched loop).
+crossover, the matrix-free family (APPROX and the ALM outer loops), the
+batch mode (many LPs in one lane-batched loop) and the multi-device modes
+(a batch split over 'dp', an LP's columns over 'tp').
 
 The PyTorch port of :mod:`cholesky_is_magic_tpu`, written for an NVIDIA H100
 (``sm_90a``).  The JAX package stays the reference this port is held
@@ -19,9 +20,12 @@ against; the module paths mirror it, so each counterpart is easy to find:
 - :mod:`.solvers` — primal affine scaling, pdas and its double-word pdas_dd
   finisher, crossover (a certified vertex polish), APPROX and the ALM /
   AALM / ADCD outer loops;
-- :mod:`.parallel` — batched pdas / pdas_dd over stacked dense LPs or
-  same-A sparse states on one tile engine, the slabbed loop, batched
-  affine scaling and batched sparse normal solves;
+- :mod:`.parallel` — batched pdas / pdas_dd over stacked dense LPs (on a
+  dense-A engine too) or same-A sparse states on one tile engine, the
+  slabbed loop, batched affine scaling and batched sparse normal solves;
+  the ('dp', 'tp') device mesh over a ``torch.distributed`` process group
+  (``lp_mesh``), the dp-split batch and the column-sharded normal
+  equations (``mesh=`` in the solvers, the batch and ``solve_batch``);
 - :mod:`.api`     — ``solve(problem, "affine" | "pdas" | "pdas_dd" | "alm" |
   "aalm" | "selfdual", sparse=..., presolve=..., crossover=...,
   device=...)`` and ``solve_batch(problems, slab_iters=...)`` /

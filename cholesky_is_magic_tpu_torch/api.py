@@ -133,21 +133,25 @@ def solve_batch(
 
     pdas only.  ``slab_iters`` > 0 runs the slabbed loop
     (parallel.batched_pdas_slabbed: lanes that stop are compacted out every
-    ``slab_iters`` iterations).  ``mesh`` (the sharded batch) is not ported
-    and raises.  ``device`` defaults to the card; without one the call
-    raises unless it asks for ``"cpu"``.  The batched result comes to the
-    host in one copy per tensor."""
+    ``slab_iters`` iterations).  ``mesh`` (a ('dp', 'tp') DeviceMesh,
+    ``parallel.lp_mesh``; every rank makes the call) splits the batch's
+    lanes over 'dp' (parallel.shard_batched_pdas; the problem count must
+    divide by dp unless ``slab_iters`` pads the buckets) and gives every
+    rank every report.  ``device`` defaults to the card; without one the
+    call raises unless it asks for ``"cpu"``.  The batched result comes to
+    the host in one copy per tensor."""
     from cholesky_is_magic_tpu_torch.parallel import (
         batched_pdas,
         batched_pdas_slabbed,
+        shard_batched_pdas,
     )
     from cholesky_is_magic_tpu_torch.solvers.pdas import PDASConfig, make_pdas
     from cholesky_is_magic_tpu_torch.utils import lanes
 
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_batch(mesh=...): the sharded batch is not ported "
-            "(ROADMAP.md §1, multi-device)")
+        from cholesky_is_magic_tpu_torch.parallel.sharded import check_mesh
+
+        check_mesh(mesh)
     if isinstance(problems, BatchEmbed):
         # Pre-embedded: pad_multiple / dtype / rescale / device are the
         # handle's.
@@ -200,8 +204,11 @@ def solve_batch(
         wx = _into_interior(wx, lpb.l, lpb.u, lpb.col_mask)
         batched = dataclasses.replace(batched, x=wx, y=wy, w=ww, z=wz)
     if slab_iters > 0:
-        res = batched_pdas_slabbed(batched, cfg, slab_iters=slab_iters)
+        res = batched_pdas_slabbed(batched, cfg, slab_iters=slab_iters,
+                                   mesh=mesh)
     else:
+        if mesh is not None:
+            batched = shard_batched_pdas(batched, mesh)
         res = batched_pdas(batched, cfg)
     # ONE copy per tensor to the host, not a scalar read per report.
     leaves, build = lanes.flatten(res)

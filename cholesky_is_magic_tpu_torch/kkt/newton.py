@@ -3,7 +3,9 @@ r"""Primal-dual KKT Newton direction by block Gaussian elimination.
 Counterpart of ``cholesky_is_magic_tpu/kkt/newton.py``: the dense
 operator over ops.dense, the dense-A one over a sparse engine
 (:func:`sparse_kkt_operator`) and the fully sparse one over the tile engine
-(:func:`ell_kkt_operator`).  Eliminating Δw, Δx, Δz from the KKT block system
+(:func:`ell_kkt_operator`, its factorizations sharded over a mesh's 'tp'
+with ``mesh=``); the column-sharded one is
+``parallel.sharded.sharded_kkt_operator``.  Eliminating Δw, Δx, Δz from the KKT block system
 (sparse-newton-solve.lisp:1-26) leaves one SPD normal-equations solve
 
     (A·diag(s))·(A·diag(s))ᵀ Δy = g - A·alpha,     s = sqrt(beta),
@@ -82,18 +84,22 @@ def sparse_kkt_operator(
     dbound: float = 0.0,
     krylov_steps: int = 0,
     krylov_gate=None,
+    per_lane: bool = False,
 ) -> KKTOperator:
     """Operator over a dense (padded) A whose normal solve runs a sparse
     engine built from A's pattern (sparse.tiled.engine_for's TiledCholesky
     or a sparse.factor.BlockSparseCholesky): the sparse-newton-solve.lisp
     backend, the same elimination with the planned factorization.  The
     products stay dense matmuls.  ``refine_steps`` > 0 turns on the
-    engines' double-word refinement against the unassembled operator."""
+    engines' double-word refinement against the unassembled operator.
+    ``per_lane``: a lane under ``torch.func.vmap`` (A the lane's own; the
+    dbound retry and the Krylov gate selected per lane)."""
 
     def prepare_scaled_normal(s):
         return engine.prepare_normal(
             A, s, row_boost=row_boost, refine_steps=refine_steps,
             dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
+            per_lane=per_lane,
         )
 
     def solve_scaled_normal(s, g):
@@ -117,13 +123,16 @@ def ell_kkt_operator(
     krylov_steps: int = 0,
     krylov_gate=None,
     per_lane: bool = False,
+    mesh=None,
 ) -> KKTOperator:
     """Fully sparse operator: ELL / block-ELL products and the tile
     engine's pair-schedule assembly and factorization
     (sparse.tiled.engine_for_sparse).  No dense A operand anywhere — ``lp``
     is an ingest.device.SparseKKTLP.  ``per_lane``: a lane under
     ``torch.func.vmap`` (the dbound retry and the Krylov gate selected per
-    lane)."""
+    lane).  ``mesh`` shards every factorization's assembly pair slabs and
+    Schur updates over the mesh's 'tp' axis (the products and the solves
+    stay replicated)."""
     from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
 
     def prepare_scaled_normal(s):
@@ -131,7 +140,7 @@ def ell_kkt_operator(
             lp.E, lp.ET, s, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            EB=lp.EB, ETB=lp.ETB, per_lane=per_lane,
+            EB=lp.EB, ETB=lp.ETB, mesh=mesh, per_lane=per_lane,
         )
 
     def solve_scaled_normal(s, g):

@@ -132,13 +132,15 @@ def operator_residual(
 
 
 def unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps: int,
-                           krylov_steps: int = 0, krylov_gate=None):
+                           krylov_steps: int = 0, krylov_gate=None,
+                           per_lane: bool = False):
     """The solve_fn of a factor-once sparse engine on a dense A: ``raw_solve``
     (its triangular solves) refined by ``refine_steps`` Richardson steps
     against the UNASSEMBLED operator (:func:`operator_residual`), or with
     ``krylov_steps`` > 0 by flexible PCG with ``raw_solve`` as the
-    preconditioner, per call when ``krylov_gate`` is given; zero where the
-    factorization failed (``ok`` False)."""
+    preconditioner, per call when ``krylov_gate`` is given (both paths and
+    a select in a lane, ``per_lane``); zero where the factorization failed
+    (``ok`` False)."""
 
     def richardson_fn(g):
         y = raw_solve(g)
@@ -160,7 +162,7 @@ def unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps: int,
         )
         return torch.where(ok, x.to_working(), torch.zeros_like(g))
 
-    return krylov.gated(pcg_fn, richardson_fn, krylov_gate)
+    return krylov.gated(pcg_fn, richardson_fn, krylov_gate, per_lane=per_lane)
 
 
 def prepare_normal(

@@ -20,12 +20,18 @@ constraint matrix A, and with it one tile engine: its assembly schedule
 bakes A's pair weights, so only b, c, l, u and the iterates may differ (the
 JAX contract at ``parallel/batched.py:62-68``, not checked there or here).
 
-The mesh-sharded batch (``shard_batched_pdas``, ``mesh=``) is not ported
-(ROADMAP.md §1, multi-device), nor is a batch of dense states on a dense-A
-engine (``engine=sparse.engine_for(A)``): a lane's assembly from its own
-scaled A would need index writes that have no vmap rule; it raises.
-Gondzio's correctors (``gondzio_correctors > 0``) run in every lane, their
-accept a per-lane select.
+Dense lanes may also run on a dense-A engine (``engine=sparse.engine_for(A)``
+or a ``BlockSparseCholesky``) built from the pattern they share: each lane
+assembles its tiles from its own scaled A (the JAX package passes the engine
+through ``jax.vmap``), one batched tile-kernel launch per panel for all the
+lanes.  Gondzio's correctors (``gondzio_correctors > 0``) run in every lane,
+their accept a per-lane select.
+
+The dp axis (``shard_batched_pdas``, ``mesh=``): every rank of a ('dp',
+'tp') DeviceMesh (``parallel.lp_mesh``) makes the same call; each dp rank
+runs its contiguous block of the lanes, with no communication inside the
+solve, and one all-gather over 'dp' gives every rank the whole result in
+lane order, as the JAX package's global array does.
 """
 
 from __future__ import annotations
@@ -47,7 +53,15 @@ from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils import lanes
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
-_MESH = "is not ported (ROADMAP.md §1, multi-device)"
+
+@dataclasses.dataclass(frozen=True)
+class DPShard:
+    """A stacked batch split over the mesh's 'dp' axis
+    (:func:`shard_batched_pdas`): ``states`` holds this rank's contiguous
+    block of the lanes."""
+
+    states: object
+    mesh: object
 
 
 def stack_device_lps(lps: Sequence[DeviceLP]) -> DeviceLP:
@@ -80,20 +94,25 @@ def batched_pdas(states, config: Optional[PDASConfig] = None,
                  engine=None) -> SolveResult:
     """The pdas loop over stacked states, each lane as its own solve
     (status, count, best iterate); one SolveResult whose tensors have the
-    lane axis first.  ``engine`` (the tile engine shared by every lane)
-    runs a stacked sparse batch (:func:`stack_sparse_states`) through the
-    fully sparse pipeline, one assembly and one panel loop per iteration
-    for all lanes: every lane must share the engine's A (see the module
-    docstring)."""
-    return _pdas_lanes(states, config or PDASConfig(), engine)
+    lane axis first.  ``engine`` is a dense-A engine of the lanes' shared
+    pattern (``sparse.engine_for``, ``BlockSparseCholesky``) on stacked
+    dense states, or the tile engine of a stacked sparse batch
+    (:func:`stack_sparse_states`), which runs the fully sparse pipeline, one
+    assembly and one panel loop per iteration for all lanes: every lane must
+    then share the engine's A (see the module docstring).  States of
+    :func:`shard_batched_pdas` run this rank's lanes and return the whole
+    batch on every rank."""
+    return _on_lanes(_pdas_lanes, states, config or PDASConfig(), engine)
 
 
 def batched_pdas_dd(states, config: Optional[PDASConfig] = None,
                     engine=None) -> SolveResult:
     """The double-word finisher over stacked states, each lane as its own
-    solve, dense or (``engine``) same-A sparse; ``config.entry_repair_tol``
-    repairs each lane's entry iterate independently."""
-    return _pdas_dd_lanes(states, config or PDASConfig(), engine)
+    solve, dense (with or without a dense-A ``engine``) or (``engine``)
+    same-A sparse; ``config.entry_repair_tol`` repairs each lane's entry
+    iterate independently.  States of :func:`shard_batched_pdas` as in
+    :func:`batched_pdas`."""
+    return _on_lanes(_pdas_dd_lanes, states, config or PDASConfig(), engine)
 
 
 def batched_affine(states, config: Optional[AffineConfig] = None
@@ -101,8 +120,44 @@ def batched_affine(states, config: Optional[AffineConfig] = None
     """Primal affine scaling over stacked dense ``AffineState``s, each lane
     as its own solve (the JAX ``jax.vmap`` of the affine loop): per lane the
     repair and the optimize step are both computed every iteration and
-    selected (see ``solvers.affine``)."""
-    return _affine_lanes(states, config or AffineConfig())
+    selected (see ``solvers.affine``).  States of :func:`shard_batched_pdas`
+    as in :func:`batched_pdas`."""
+    return _on_lanes(_affine_lanes, states, config or AffineConfig())
+
+
+def _on_lanes(loop, states, *args):
+    """``loop(states, *args)``; on a :class:`DPShard`, this rank's lanes and
+    then every rank's results gathered over 'dp' in lane order."""
+    if not isinstance(states, DPShard):
+        return loop(states, *args)
+    return _gather_lanes(loop(states.states, *args), states.mesh)
+
+
+def _dp_group(mesh):
+    import torch.distributed as dist
+
+    from cholesky_is_magic_tpu_torch.parallel.sharded import check_mesh
+
+    check_mesh(mesh)
+    group = mesh.get_group("dp")
+    return group, dist.get_world_size(group)
+
+
+def _gather_lanes(obj, mesh):
+    """Every tensor of ``obj`` (this rank's lanes first) gathered over the
+    mesh's 'dp' ranks and concatenated along the lane axis in rank order."""
+    import torch.distributed as dist
+
+    group, size = _dp_group(mesh)
+    leaves, build = lanes.flatten(obj)
+
+    def gather(t):
+        u = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+        parts = [torch.empty_like(u) for _ in range(size)]
+        dist.all_gather(parts, u, group=group)
+        return torch.cat(parts).to(t.dtype)
+
+    return build([gather(t) for t in leaves])
 
 
 def batched_pdas_slabbed(states, config: Optional[PDASConfig] = None,
@@ -122,18 +177,20 @@ def batched_pdas_slabbed(states, config: Optional[PDASConfig] = None,
     the statuses and counts once per slab; finished lanes' results stay on
     the device and come to the host in one copy at the end.  ``iterations``
     is each lane's sum over its slabs.  The result's tensors are on the
-    host.  ``record_trace`` / ``record_iterates`` are refused; ``mesh``
-    raises."""
+    host.  ``record_trace`` / ``record_iterates`` are refused.  ``mesh``
+    runs every slab's lanes split over 'dp' (:func:`shard_batched_pdas`),
+    each bucket a multiple of dp (as in the JAX package; the pad lanes'
+    results are dropped); every rank returns the whole batch."""
     if mesh is not None:
-        raise NotImplementedError("batched_pdas_slabbed(mesh=...) " + _MESH)
+        _dp_group(mesh)
     cfg = config or PDASConfig()
     if cfg.record_trace or cfg.record_iterates:
         raise ValueError("slabbed batching does not support trace recording")
-    return _slabbed(states, cfg, slab_iters)
+    return _slabbed(states, cfg, slab_iters, mesh)
 
 
 @highest_precision
-def _slabbed(states, cfg: PDASConfig, slab_iters: int) -> SolveResult:
+def _slabbed(states, cfg: PDASConfig, slab_iters: int, mesh=None) -> SolveResult:
     B = states.x.shape[0]
     device = states.x.device
     active = np.arange(B)
@@ -148,11 +205,17 @@ def _slabbed(states, cfg: PDASConfig, slab_iters: int) -> SolveResult:
             stall = max(2, min(stall, k - 2))
         slab_cfg = dataclasses.replace(cfg, max_iters=k, stall_exit_iters=stall)
         bucket = 1 << int(active.size - 1).bit_length()
+        if mesh is not None:
+            # Keep the bucket dp-divisible, so every slab stays split (for a
+            # power-of-two dp the buckets stay powers of two).
+            dp = _dp_group(mesh)[1]
+            bucket = -(-max(bucket, dp) // dp) * dp
         sel = torch.as_tensor(np.concatenate(
             [np.arange(active.size), np.zeros(bucket - active.size, np.int64)]),
             device=device)
         dev = _take(cur, sel)
-        res = _pdas_lanes(dev, slab_cfg)
+        res = (_pdas_lanes(dev, slab_cfg) if mesh is None
+               else batched_pdas(shard_batched_pdas(dev, mesh), slab_cfg))
         # The slab's one host read: statuses and counts.
         status, its = torch.stack([res.status, res.iterations]).cpu().numpy()
         status, its = status[: active.size], its[: active.size]
@@ -191,8 +254,20 @@ def _take(obj, idx: torch.Tensor):
     return build([t[idx] for t in leaves])
 
 
-def shard_batched_pdas(states, mesh):
-    raise NotImplementedError("shard_batched_pdas " + _MESH)
+def shard_batched_pdas(states, mesh) -> DPShard:
+    """Split stacked states (any of :func:`stack_states` /
+    :func:`stack_sparse_states`) over the mesh's 'dp' axis: this rank keeps
+    its contiguous block of the lanes (replicated within its 'tp' group).
+    The batched loops take the result and return the whole batch on every
+    rank.  A lane count that dp does not divide raises ``ValueError``."""
+    _, dp = _dp_group(mesh)
+    leaves, build = lanes.flatten(states)
+    B = leaves[0].shape[0]
+    if B % dp:
+        raise ValueError(f"{B} lanes do not divide over dp={dp}")
+    w = B // dp
+    lo = mesh.get_local_rank("dp") * w
+    return DPShard(build([t[lo:lo + w] for t in leaves]), mesh)
 
 
 @highest_precision
@@ -205,13 +280,16 @@ def batched_normal_solves(engine, E, ET, D: torch.Tensor, G: torch.Tensor,
     serving primitive for scenario sweeps and re-solves: one analysis, one
     schedule, and per lane only the values; on the card one assembly
     launch and one tile-kernel launch per panel for all lanes.  Returns
-    (Y, ok) with the lane axis first.  ``mesh`` raises."""
-    if mesh is not None:
-        raise NotImplementedError("batched_normal_solves(mesh=...) " + _MESH)
+    (Y, ok) with the lane axis first.  ``mesh`` splits the lanes over 'dp'
+    (a lane count dp divides; no communication inside the solves) and gives
+    every rank the whole (Y, ok)."""
 
     def one(d, g):
         return engine.solve_normal_ell(
             E, ET, d, g, refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, per_lane=True)
 
-    return lanes.vmap(one, D, G)
+    if mesh is None:
+        return lanes.vmap(one, D, G)
+    mine = shard_batched_pdas((D, G), mesh)
+    return _gather_lanes(lanes.vmap(one, *mine.states), mesh)

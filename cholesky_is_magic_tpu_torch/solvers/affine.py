@@ -32,6 +32,11 @@ runs :func:`_affine_lanes`: each iteration vmaps the one-lane iteration with
 per lane, as under ``jax.vmap``: the repair and the optimize step, the
 slack-cap retry and the stall retry (five normal solves an iteration), with
 one host read an iteration.
+
+``mesh=`` runs the loop on every rank of a ('dp', 'tp') DeviceMesh with
+every projection and repair solve over its 'tp' axis: a dense LP held by
+columns (parallel.sharded), or the fully sparse engine's factorizations
+sharded.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from cholesky_is_magic_tpu_torch.solvers.backend import (
     check_backend,
     mv_rmv as _mv_rmv,
     row_boost as _row_boost,
+    shard_for,
     solve_normal_backend as _solve_normal_backend,
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
@@ -213,7 +219,8 @@ def _max_step(l, x, u, g, mask):
     return torch.min(step)
 
 
-def _project(lp, scale, c_dir, refine_steps, engine=None, per_lane=False):
+def _project(lp, scale, c_dir, refine_steps, engine=None, per_lane=False,
+             mesh=None):
     """min ||x + [scale]c||  s.t. A[scale]x = 0  (project, :98-116).
 
     Returns (dg, ok): dg = sc - (AD)ᵀ N⁻¹ (AD) sc with sc = -scale·c and
@@ -224,7 +231,7 @@ def _project(lp, scale, c_dir, refine_steps, engine=None, per_lane=False):
     v = mv(scale * sc)
     boost = _row_boost(lp)
     y, ok = _solve_normal_backend(lp, engine, scale, v, boost, refine_steps,
-                                  per_lane)
+                                  per_lane, mesh)
     dg = sc - scale * rmv(y)
     return torch.where(lp.col_mask, dg, 0.0), ok
 
@@ -235,7 +242,7 @@ def _residual(lp, x):
 
 
 def _scaling_step(state: AffineState, centering, cfg: AffineConfig,
-                  engine=None, per_lane: bool = False):
+                  engine=None, per_lane: bool = False, mesh=None):
     """one-affine-scaling-iteration (:165-207) minus the recursion; returns
     (new_x, ok, unbounded, step, norm_g, norm_dg, descent).  ``centering``
     is a host bool; a failed factorization is retried once (a host branch)
@@ -254,11 +261,12 @@ def _scaling_step(state: AffineState, centering, cfg: AffineConfig,
         c_dir = (_centering_direction(lp.l, x, lp.u, lp.col_mask) if centering
                  else lp.c)
     slack = _slack(lp.l, x, lp.u, cfg.max_slack, lp.col_mask)
-    dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine, per_lane)
+    dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine, per_lane,
+                      mesh)
     if per_lane or not bool(ok):
         slack2 = _slack(lp.l, x, lp.u, math.sqrt(cfg.max_slack), lp.col_mask)
         dg2, ok2 = _project(lp, slack2, c_dir, cfg.refine_steps, engine,
-                            per_lane)
+                            per_lane, mesh)
         if per_lane:
             slack, dg = torch.where(ok, slack, slack2), torch.where(ok, dg, dg2)
             ok = ok | ok2
@@ -276,7 +284,7 @@ def _scaling_step(state: AffineState, centering, cfg: AffineConfig,
 
 
 def _optimize_iteration(state: AffineState, centering, cfg: AffineConfig,
-                        engine=None, per_lane: bool = False):
+                        engine=None, per_lane: bool = False, mesh=None):
     """The optimize/recenter path with the stall retry: a non-centering
     step that stalls (step·||g|| < tol) is redone once as a centering step
     (:200-204).  Returns (x, cont, status) as 0-dim tensors.  ``per_lane``
@@ -285,7 +293,7 @@ def _optimize_iteration(state: AffineState, centering, cfg: AffineConfig,
     centering retry, all computed."""
     lp, x0 = state.lp, state.x
     new_x, ok, unbounded, step, norm_g, norm_dg, descent = _scaling_step(
-        state, centering, cfg, engine, per_lane)
+        state, centering, cfg, engine, per_lane, mesh)
     # The true variable count, not the padded length
     # (affine-scaling.lisp:193-194 uses (length x)).
     n_rows = torch.tensor(lp.n, dtype=x0.dtype, device=x0.device)
@@ -308,7 +316,8 @@ def _optimize_iteration(state: AffineState, centering, cfg: AffineConfig,
             if stop:
                 rx, cont = x0, False
             elif stalled:
-                rx, rok, runb, *_ = _scaling_step(state, True, cfg, engine)
+                rx, rok, runb, *_ = _scaling_step(state, True, cfg, engine,
+                                                  mesh=mesh)
     # A singular projection aborts (:178-181).
     cont = cont & rok
     status = torch.where(
@@ -319,7 +328,7 @@ def _optimize_iteration(state: AffineState, centering, cfg: AffineConfig,
 
 
 def _repair_iteration(state: AffineState, residual, cfg: AffineConfig,
-                      engine=None, per_lane: bool = False):
+                      engine=None, per_lane: bool = False, mesh=None):
     """Least-squares step back toward Ax = b (one-repair-iteration,
     :226-243): dg = (AD)ᵀ N⁻¹ r, step = gamma·min(max-step, 1/gamma).
     Returns (x, cont, status)."""
@@ -328,7 +337,7 @@ def _repair_iteration(state: AffineState, residual, cfg: AffineConfig,
     _, rmv = _mv_rmv(lp)
     boost = _row_boost(lp)
     y, ok = _solve_normal_backend(lp, engine, slack, residual, boost,
-                                  cfg.refine_steps, per_lane)
+                                  cfg.refine_steps, per_lane, mesh)
     dg = torch.where(lp.col_mask, slack * rmv(y), 0.0)
     g = dg * slack
     step = cfg.gamma * torch.clamp_max(
@@ -351,15 +360,20 @@ def affine_scaling(
     :func:`make_affine_state_sparse` (required there: every normal solve
     runs on it and every product on the ELL / block-ELL operands), or on a
     dense state a sparse engine of its A (``sparse.engine_for``,
-    ``BlockSparseCholesky``), which then runs every normal solve;
-    ``mesh`` raises."""
+    ``BlockSparseCholesky``), which then runs every normal solve.
+    ``mesh`` (every rank of the mesh makes the call) runs every normal
+    solve over its 'tp' axis: a dense state's LP held by columns
+    (parallel.sharded), a fully sparse state's engine sharded.  Every rank
+    returns the whole result."""
     cfg = config or AffineConfig()
     check_backend(state.lp, engine, mesh)
-    return _affine_loop(state, cfg, engine)
+    state = dataclasses.replace(state, lp=shard_for(state.lp, mesh))
+    return _affine_loop(state, cfg, engine, mesh)
 
 
 @highest_precision
-def _affine_loop(state: AffineState, cfg: AffineConfig, engine) -> SolveResult:
+def _affine_loop(state: AffineState, cfg: AffineConfig, engine,
+                 mesh=None) -> SolveResult:
     lp = state.lp
     dt, dev = state.x.dtype, state.x.device
     tol = (torch.tensor(cfg.residual_tol, dtype=dt, device=dev)
@@ -386,11 +400,12 @@ def _affine_loop(state: AffineState, cfg: AffineConfig, engine) -> SolveResult:
             break
         st = AffineState(x=x, lp=lp)
         if needs_repair:
-            new_x, cont, status = _repair_iteration(st, residual, cfg, engine)
+            new_x, cont, status = _repair_iteration(st, residual, cfg, engine,
+                                                    mesh=mesh)
         else:
             centering = (i + 1) % cfg.recenter_every == 0  # driver :283
             new_x, cont, status = _optimize_iteration(st, centering, cfg,
-                                                      engine)
+                                                      engine, mesh=mesh)
         if cfg.record_trace:
             vals = (torch.dot(x, lp.c), norm, torch.linalg.norm(new_x - x))
             for buf, v in zip(trace, vals):
@@ -445,7 +460,7 @@ def _affine_lanes(states: AffineState, cfg: AffineConfig,
     from cholesky_is_magic_tpu_torch.solvers.pdas import _lane_loop
     from cholesky_is_magic_tpu_torch.utils import lanes
 
-    check_backend(states.lp, engine, None, per_lane=True)
+    check_backend(states.lp, engine, None)
     dt, dev = states.x.dtype, states.x.device
     m = states.lp.m
     tol = (torch.tensor(cfg.residual_tol, dtype=dt, device=dev)

@@ -10,31 +10,50 @@ operand set decides the implementation —
   and factors the tiles of N from the dense A;
 - fully sparse ``SparseKKTLP``: ELL / block-ELL products + the tile
   engine's pair-schedule assembly (``engine=`` from
-  sparse.tiled.engine_for_sparse).
+  sparse.tiled.engine_for_sparse); with ``mesh=`` too, the engine shards
+  its assembly's pair slabs and its panels' Schur updates over 'tp';
+- column-sharded ``parallel.sharded.ShardedLP`` (or ``mesh=`` on a dense
+  LP): the products and the normal solve of parallel.sharded, one
+  all-reduce per factorization over the mesh's 'tp' axis.
 
-Not ported: the mesh-sharded pipeline (``mesh=`` raises), and a batch of
-dense states on a dense-A engine (the batched loops raise, ROADMAP.md §1).
+Every backend also runs inside a lane of a batched solve (``per_lane``).
 """
 
 from __future__ import annotations
 
-from cholesky_is_magic_tpu_torch.ingest.device import SparseKKTLP
+from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseKKTLP
 from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 
 
-def check_backend(lp, engine, mesh, per_lane: bool = False) -> None:
-    """Raise on the backends the port does not have.  ``per_lane``: the
-    operands are a batch's stacked lanes."""
+def check_backend(lp, engine, mesh) -> None:
+    """Raise on arguments no backend takes: a ``mesh`` that is not a
+    ('dp', 'tp') DeviceMesh (``TypeError``), a sparse operand set without
+    its engine (``ValueError``)."""
     if mesh is not None:
-        raise NotImplementedError("mesh-sharded normal equations are not ported")
-    if isinstance(lp, SparseKKTLP):
-        if engine is None:
-            raise ValueError("the sparse operand set needs engine= "
-                             "(sparse.tiled.engine_for_sparse)")
-    elif engine is not None and per_lane:
-        raise NotImplementedError(
-            "a batch of dense states on a dense-A engine (engine_for, "
-            "BlockSparseCholesky) is not ported (ROADMAP.md §1)")
+        from cholesky_is_magic_tpu_torch.parallel.sharded import check_mesh
+
+        check_mesh(mesh)
+    if isinstance(lp, SparseKKTLP) and engine is None:
+        raise ValueError("the sparse operand set needs engine= "
+                         "(sparse.tiled.engine_for_sparse)")
+
+
+def shard_for(lp, mesh):
+    """The operand set a solver runs on under ``mesh``: a dense DeviceLP
+    held by columns over 'tp' (parallel.sharded.shard_lp_columns), any
+    other operand set as it is (the fully sparse one shards inside its
+    engine)."""
+    if mesh is None or not isinstance(lp, DeviceLP):
+        return lp
+    from cholesky_is_magic_tpu_torch.parallel.sharded import shard_lp_columns
+
+    return shard_lp_columns(lp, mesh)
+
+
+def _sharded(lp):
+    from cholesky_is_magic_tpu_torch.parallel.sharded import ShardedLP
+
+    return isinstance(lp, ShardedLP)
 
 
 def mv_rmv(lp):
@@ -49,6 +68,8 @@ def mv_rmv(lp):
         rmv = ((lambda v: bell.matvec(lp.ETB, v)) if lp.ETB is not None
                else (lambda v: so.matvec(lp.ET, v)))
         return mv, rmv
+    if _sharded(lp):
+        return lp.shard.mv, lp.shard.rmv
     return (lambda v: lp.A @ v, lambda v: lp.A.T @ v)
 
 
@@ -64,20 +85,33 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
     """Factor (A·diag(d))(A·diag(d))ᵀ ONCE on the backend the operand set
     selects; returns (solve_fn, ok).  ``per_lane`` (a lane of a batched
     solve: the host branches become per-lane selects) is read by the
-    fully sparse and the plain dense backends, ``method`` by the plain
-    dense one only (the engines have their own kernels)."""
-    check_backend(lp, engine, mesh, per_lane)
+    fully sparse backend, the engines and the plain dense backend,
+    ``method`` by the plain dense one only (the engines have their own
+    kernels).  ``mesh`` shards the fully sparse engine's factorization, or
+    runs a dense LP's normal solve column-sharded (as a ShardedLP's always
+    runs)."""
+    check_backend(lp, engine, mesh)
     if isinstance(lp, SparseKKTLP):
         return engine.prepare_normal_ell(
             lp.E, lp.ET, d, lp.m, row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            EB=lp.EB, ETB=lp.ETB, per_lane=per_lane,
+            EB=lp.EB, ETB=lp.ETB, mesh=mesh, per_lane=per_lane,
+        )
+    if mesh is not None or _sharded(lp):
+        from cholesky_is_magic_tpu_torch.parallel.sharded import sharded_prepare_normal
+
+        A = lp.shard if _sharded(lp) else lp.A
+        return sharded_prepare_normal(
+            mesh if mesh is not None else lp.mesh, A, d, row_boost=row_boost,
+            refine_steps=refine_steps, dbound=dbound,
+            krylov_steps=krylov_steps, krylov_gate=krylov_gate,
         )
     if engine is not None:
         return engine.prepare_normal(
             lp.A, d, row_boost=row_boost, refine_steps=refine_steps,
             dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
+            per_lane=per_lane,
         )
     return dense_ops.prepare_normal(
         lp.A, d, row_boost=row_boost, refine_steps=refine_steps,
@@ -87,10 +121,11 @@ def prepare_normal_backend(lp, engine, d, row_boost, refine_steps,
 
 
 def solve_normal_backend(lp, engine, d, g, row_boost, refine_steps,
-                         per_lane=False):
+                         per_lane=False, mesh=None):
     """(A·diag(d))(A·diag(d))ᵀ y = g on the backend the operand set
     selects: one :func:`prepare_normal_backend` and one solve.  Returns
     (y, ok)."""
     solve_fn, ok = prepare_normal_backend(lp, engine, d, row_boost,
-                                          refine_steps, per_lane=per_lane)
+                                          refine_steps, mesh=mesh,
+                                          per_lane=per_lane)
     return solve_fn(g), ok

@@ -20,7 +20,11 @@ Mehrotra) run on the same factorization, each candidate computed and kept
 by a branchless select, as in the JAX package, so a lane of the batched
 loop takes them with no host read.  ``engine=`` takes the fully sparse
 tile engine of :func:`make_pdas_sparse`, or on a dense state a sparse
-engine built from its A (``sparse.engine_for``, ``BlockSparseCholesky``).
+engine built from its A (``sparse.engine_for``, ``BlockSparseCholesky``),
+in the single loop and in every lane of the batched one.  ``mesh=`` (a
+('dp', 'tp') DeviceMesh, ``parallel.lp_mesh``) runs the loop on every rank
+of the mesh: a dense LP held by columns over 'tp' (parallel.sharded), or
+the fully sparse engine's factorizations sharded over 'tp'.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from cholesky_is_magic_tpu_torch.solvers.affine import (
 from cholesky_is_magic_tpu_torch.solvers.backend import (
     check_backend,
     mv_rmv as _mv_rmv,
+    shard_for,
     prepare_normal_backend as _prepare_normal_backend,
     row_boost as _row_boost,
 )
@@ -341,21 +346,27 @@ def pdas(
     < gap_tol at a primal-feasible iterate, arming the recenter path
     whenever the step stalls below 1e-6.  ``engine`` is the tile engine of
     a state built by :func:`make_pdas_sparse`, or a sparse engine of a
-    dense state's A (``sparse.engine_for``, ``BlockSparseCholesky``);
-    ``mesh`` raises."""
+    dense state's A (``sparse.engine_for``, ``BlockSparseCholesky``).
+    ``mesh`` (every rank of the mesh makes the call) runs every normal
+    solve over its 'tp' axis: a dense state's LP is held by columns
+    (parallel.sharded.shard_lp_columns, unless it already is) and its
+    products and factorizations are column-sharded; a fully sparse state's
+    engine shards its assembly and Schur updates.  Every rank returns the
+    whole result."""
     cfg = config or PDASConfig()
     check_backend(state.lp, engine, mesh)
-    return _pdas_loop(state, cfg, engine)
+    state = dataclasses.replace(state, lp=shard_for(state.lp, mesh))
+    return _pdas_loop(state, cfg, engine, mesh)
 
 
 def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine,
-                   per_lane: bool = False):
+                   per_lane: bool = False, mesh=None):
     """one-pdas-iteration (:319-383). Returns (new_st, gap, pviol, step, ok).
 
     Repair, recenter and Newton all reduce to ONE scaled normal solve
     (A·diag(s))(A·diag(s))ᵀ y = rhs with a branch-selected (s, rhs).
     ``per_lane``: a lane under ``torch.func.vmap`` (the dbound retry and
-    the Krylov gate become per-lane selects)."""
+    the Krylov gate become per-lane selects); ``mesh``: see :func:`pdas`."""
     lp = st.lp
     sl, su, wu, zl, primal, dual = _violation(st)
     pobj, dobj = _objectives(st, cfg.clamp)
@@ -385,7 +396,7 @@ def _one_iteration(st: PDASState, repair_flag, cfg: PDASConfig, engine,
     if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
         gate = gap < cfg.krylov_gate_gap
     solve_fn, ok = _prepare_normal_backend(
-        lp, engine, s_sel, boost, cfg.refine_steps, None,
+        lp, engine, s_sel, boost, cfg.refine_steps, mesh,
         cfg.dbound, cfg.krylov_steps, krylov_gate=gate,
         method=cfg.factor_method, per_lane=per_lane,
     )
@@ -658,13 +669,14 @@ def _result(out: dict, iterations, trace, cfg: PDASConfig) -> SolveResult:
 
 
 @highest_precision
-def _pdas_loop(state: PDASState, cfg: PDASConfig, engine) -> SolveResult:
+def _pdas_loop(state: PDASState, cfg: PDASConfig, engine,
+               mesh=None) -> SolveResult:
     lp = state.lp
     trace = _new_trace(cfg, state.x.shape[0], state.x.dtype, state.x.device, 1)
     st, c, i = state, _start(state), 0
     while i < cfg.max_iters and bool(_keep_going(cfg, c)):
         new_st, gap_i, pviol, step, ok = _one_iteration(st, c.repair_flag, cfg,
-                                                        engine)
+                                                        engine, mesh=mesh)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap_i, torch.dot(st.x, lp.c), step]
             if cfg.record_iterates:
@@ -739,10 +751,12 @@ def _pdas_lanes(states: PDASState, cfg: PDASConfig, engine=None) -> SolveResult:
     """:func:`_pdas_loop` over stacked states (every tensor with a leading
     lane axis B) by :func:`_lane_loop`: each iteration vmaps
     :func:`_one_iteration` with ``per_lane`` (no host read inside it).
-    Dense states, or sparse states of one A with its ``engine`` (the lanes
-    share the engine's schedule and differ in b, c, l, u and iterates).
-    Returns one SolveResult whose tensors have the lane axis first."""
-    check_backend(states.lp, engine, None, per_lane=True)
+    Dense states, with or without a dense-A ``engine`` of their shared
+    pattern (each lane assembles from its own A), or sparse states of one A
+    with its ``engine`` (the lanes share the engine's schedule and differ in
+    b, c, l, u and iterates).  Returns one SolveResult whose tensors have
+    the lane axis first."""
+    check_backend(states.lp, engine, None)
     B, n = states.x.shape
     trace = _lane_trace(cfg, B, n, states.x.dtype, states.x.device, 1)
 

@@ -13,8 +13,13 @@ As in :mod:`.pdas`, the jitted ``lax.while_loop`` is an eager host loop
 with the same carry and status codes, and ``lax.cond`` (the entry repair)
 a Python branch.  ``engine=`` on a dense state (a sparse engine of its A)
 runs every factorization through :func:`..kkt.newton.sparse_kkt_operator`,
-the entry repair's too; Gondzio's correctors run in double-word as in the
-JAX package.
+the entry repair's too, in the single loop and in every lane of the batched
+one; Gondzio's correctors run in double-word as in the JAX package.
+``mesh=`` runs the loop on every rank of a ('dp', 'tp') DeviceMesh: a dense
+LP held by columns over 'tp' (the double-word products as per-rank dd
+partials with hi and lo all-reduced apart, every factorization through
+``parallel.sharded_kkt_operator``), or the fully sparse engine's
+factorizations sharded over 'tp'.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from cholesky_is_magic_tpu_torch.kkt.newton import (
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 from cholesky_is_magic_tpu_torch.solvers.affine import _slack
-from cholesky_is_magic_tpu_torch.solvers.backend import check_backend
+from cholesky_is_magic_tpu_torch.solvers.backend import check_backend, shard_for
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
@@ -138,8 +143,10 @@ def make_pdas_dd_sparse(
 
 def _linops(lp):
     """The three double-word A-products the loop needs, dispatched on the
-    operand set: dense (the CUDA double-word kernels on the card) or fully
-    sparse (block-ELL when carried, else the ELL pair)."""
+    operand set: dense (the CUDA double-word kernels on the card),
+    column-sharded (the same products on each rank's block, made whole by
+    all-reduces of the hi and lo words or all-gathers) or fully sparse
+    (block-ELL when carried, else the ELL pair)."""
     if isinstance(lp, SparseKKTLP):
         from cholesky_is_magic_tpu_torch.ops import bell
         from cholesky_is_magic_tpu_torch.ops import sparse_ops as so
@@ -152,6 +159,8 @@ def _linops(lp):
                     lambda v: bell.dd_matvec(lp.ETB, v))
         return (mv_dd, lambda y_dd: so.dd_matvec_dd(lp.ET, y_dd),
                 lambda v: so.dd_matvec(lp.ET, v))
+    if not isinstance(lp, DeviceLP):  # a parallel.sharded.ShardedLP
+        return lp.shard.mv_dd, lp.shard.rmv_dd, lp.shard.rmv_w
     return (
         lambda x_dd: ddm.dd_matvec_dd(lp.A, x_dd),
         lambda y_dd: ddm.dd_rmatvec_dd(lp.A, y_dd),
@@ -164,8 +173,11 @@ def _boost(lp):
     return (~lp.row_mask).to(torch.float32)
 
 
-def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
-    """KKT operator on the operand set: the fully sparse tile engine; the
+def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False,
+             mesh=None):
+    """KKT operator on the operand set: the fully sparse tile engine (its
+    factorizations sharded over ``mesh``'s 'tp' when given); a
+    column-sharded LP's tp pipeline (parallel.sharded_kkt_operator); the
     dense one with true-residual refinement (refined against the
     UNASSEMBLED operator in double-word, which corrects the f32 rounding
     of assembling N; otherwise a ~1e-7 direction floor); or, with an engine
@@ -175,12 +187,21 @@ def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
         return ell_kkt_operator(
             lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
             dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
-            per_lane=per_lane,
+            mesh=mesh, per_lane=per_lane,
+        )
+    if not isinstance(lp, DeviceLP):  # a parallel.sharded.ShardedLP
+        from cholesky_is_magic_tpu_torch.parallel.sharded import sharded_kkt_operator
+
+        return sharded_kkt_operator(
+            lp.mesh, lp.shard, row_boost=_boost(lp),
+            refine_steps=cfg.refine_steps, dbound=cfg.dbound,
+            krylov_steps=cfg.krylov_steps, krylov_gate=gate,
         )
     if engine is not None:
         return sparse_kkt_operator(
             lp.A, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
             dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
+            per_lane=per_lane,
         )
     return dense_kkt_operator(
         lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
@@ -190,7 +211,7 @@ def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False):
 
 
 def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
-                  per_lane: bool = False):
+                  per_lane: bool = False, mesh=None):
     """Min-norm LS correction of the entry iterate toward Ax = b in the
     Dikin metric (PDASConfig.entry_repair_tol), all in double-word with
     cfg.entry_repair_refines refinement passes; kept only where it reduced
@@ -212,7 +233,7 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
         return state, pv0, pv0
 
     x = state.x
-    op = _make_op(lp, cfg, engine, None, per_lane)
+    op = _make_op(lp, cfg, engine, None, per_lane, mesh)
     boost = _boost(lp)
     s = _slack(lp.l, x.hi, lp.u, cfg.repair_slack_cap, mask)
     s = torch.where(mask, s, 0.0)  # padding inert in N and in dx
@@ -345,11 +366,16 @@ def pdas_dd(
     repair/recenter, best-iterate tracking and the precision-floor exit.
     ``config.entry_repair_tol`` optionally repairs the ENTRY iterate
     toward Ax = b first.  ``engine`` is the tile engine of a state built by
-    :func:`make_pdas_dd_sparse`, or a sparse engine of a dense state's A;
-    ``mesh`` raises."""
+    :func:`make_pdas_dd_sparse`, or a sparse engine of a dense state's A.
+    ``mesh`` (every rank of the mesh makes the call) runs every
+    factorization over its 'tp' axis, the entry repair's too: a dense
+    state's LP is held by columns (parallel.sharded), a fully sparse
+    state's engine shards its assembly and Schur updates (pdas's ``mesh``).
+    Every rank returns the whole result."""
     cfg = config or PDASConfig(gap_tol=1e-8, max_iters=300)
     check_backend(state.lp, engine, mesh)
-    return _pdas_dd_loop(state, cfg, engine)
+    state = dataclasses.replace(state, lp=shard_for(state.lp, mesh))
+    return _pdas_dd_loop(state, cfg, engine, mesh)
 
 
 def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg, gap):
@@ -508,9 +534,10 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg, gap):
 
 
 def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine,
-                   per_lane: bool = False):
+                   per_lane: bool = False, mesh=None):
     """One double-word iteration.  Returns (new_st, gap, pviol, step, ok);
-    ``per_lane``: a lane under ``torch.func.vmap``."""
+    ``per_lane``: a lane under ``torch.func.vmap``; ``mesh``: see
+    :func:`pdas_dd`."""
     lp = st.lp
     sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd = _dd_violation(st)
     pviol = torch.max(torch.abs(primal_dd.to_working()))
@@ -526,7 +553,7 @@ def _one_iteration(st: PDASDDState, cfg: PDASConfig, engine,
     gate = None
     if cfg.krylov_steps > 0 and cfg.krylov_gate_gap > 0.0:
         gate = gap < cfg.krylov_gate_gap
-    op = _make_op(lp, cfg, engine, gate, per_lane)
+    op = _make_op(lp, cfg, engine, gate, per_lane, mesh)
     dw_dd, dx_dd, dy_dd, dz_dd, ok = _kkt_dd(
         st, sl_dd, su_dd, sl, su, wu, zl, primal_dd, dual_dd, op, cfg, gap
     )
@@ -648,11 +675,12 @@ def _result(out: dict, iterations, trace, cfg: PDASConfig,
 
 
 @highest_precision
-def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
+def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine,
+                  mesh=None) -> SolveResult:
     lp = state.lp
     repair_info = {}
     if cfg.entry_repair_tol > 0.0:
-        state, pv0, pv1 = _entry_repair(state, cfg, engine)
+        state, pv0, pv1 = _entry_repair(state, cfg, engine, mesh=mesh)
         repair_info = {"entry_repair": {"pviol_before": pv0,
                                         "pviol_after": pv1}}
     # The trace is f32 even in an f64 run, as in the JAX package.
@@ -660,7 +688,7 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine) -> SolveResult:
                        state.x.hi.device, 2)
     st, c, i = state, _start(state), 0
     while i < cfg.max_iters and bool(_keep_going(cfg, c)):
-        new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine)
+        new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine, mesh=mesh)
         if cfg.record_trace or cfg.record_iterates:
             vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
                     step]
@@ -679,12 +707,13 @@ def _pdas_dd_lanes(states: PDASDDState, cfg: PDASConfig,
                    engine=None) -> SolveResult:
     """:func:`_pdas_dd_loop` over stacked states by
     :func:`.pdas._lane_loop`: the entry repair and every iteration vmapped
-    with ``per_lane`` (no host read inside).  Dense states, or sparse ones
-    of one A with its ``engine``.  On the card in f32 each iteration's
+    with ``per_lane`` (no host read inside).  Dense states (with or without
+    a dense-A ``engine`` of their shared pattern), or sparse ones of one A
+    with its ``engine``.  On the card in f32 each iteration's
     kernels run once for the whole batch: the double-word products on the
     stacked dense operands, or the assembly and the tile factor on the
     engine."""
-    check_backend(states.lp, engine, None, per_lane=True)
+    check_backend(states.lp, engine, None)
     repair_info = {}
     if cfg.entry_repair_tol > 0.0:
         states, pv0, pv1 = lanes.vmap(

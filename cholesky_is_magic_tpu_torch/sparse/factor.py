@@ -19,6 +19,12 @@ on the card, chosen by the operands' device: the plain recursive TRSM
 would cost hundreds of launches per tile there.  The Schur updates keep
 the JAX package's order, tile pair by tile pair.  ``ok`` is read on the
 host once per factorization, and only when the dbound retry is armed.
+
+Inside a lane of a batch of dense states (``per_lane``: the lanes share
+A's pattern, each assembles N from its own A under ``torch.func.vmap``) a
+float32 CUDA tile goes through the tile-factor operator of ops.chol, one
+batched tile-kernel launch per panel for all the lanes, and the dbound
+retry and the Krylov gate are per-lane selects.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import chol
+from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
 
 
@@ -70,16 +77,22 @@ class BlockSparseCholesky:
 
     # ---- factorization -------------------------------------------------
 
-    def factorize(self, N_perm: torch.Tensor) -> torch.Tensor:
+    def factorize(self, N_perm: torch.Tensor, per_lane: bool = False) -> torch.Tensor:
         """L·Lᵀ of the (padded, permuted) normal matrix by the tile
-        schedule; ``N_perm`` is left as it is."""
+        schedule; ``N_perm`` is left as it is.  ``per_lane``: a lane under
+        ``torch.func.vmap`` (see the module docstring)."""
         b = self.plan.block
         S = N_perm.clone()
         L = torch.zeros_like(N_perm)
         sl = lambda t: slice(t * b, (t + 1) * b)  # noqa: E731
         on_card = S.is_cuda
+        lane_kernel = per_lane and takes_kernel(S.device, S.dtype)
         for k in range(self.n_tiles):
-            Lkk = chol.cholesky(S[sl(k), sl(k)].contiguous())
+            Lkk = S[sl(k), sl(k)].contiguous()
+            if lane_kernel:
+                chol.factor_tile_(Lkk, torch.zeros_like(Lkk), per_lane=True)
+            else:
+                Lkk = chol.cholesky(Lkk)
             L[sl(k), sl(k)] = Lkk
             cols = {}
             for i in self.panel_rows[k]:
@@ -106,7 +119,10 @@ class BlockSparseCholesky:
         With ``tile_sparse`` (by default on when under 60% of the lower
         tiles are nonzero, the JAX package's gate) only the structurally
         nonzero tiles of N are computed, one (b, n) x (n, b) matmul per
-        tile, and mirrored; otherwise one product AD·ADᵀ, symmetrized."""
+        tile, and mirrored, and N is put together from them and zero tiles
+        by concatenation (no write into a tensor made beforehand, so that
+        it runs under ``torch.func.vmap`` too); otherwise one product
+        AD·ADᵀ, symmetrized."""
         n_pad = self.plan.n_padded
         m = A.shape[0]
         if m < n_pad:
@@ -121,16 +137,18 @@ class BlockSparseCholesky:
         if tile_sparse is None:
             tile_sparse = density < 0.6
         if tile_sparse:
-            N = AD.new_zeros((n_pad, n_pad))
             sl = lambda t: slice(t * b, (t + 1) * b)  # noqa: E731
-            for i in range(B):
-                for j in range(i + 1):
-                    if not self._mask[i, j]:
-                        continue
-                    T = AD[sl(i)] @ AD[sl(j)].T
-                    N[sl(i), sl(j)] = T
-                    if i != j:
-                        N[sl(j), sl(i)] = T.T
+            T = {(i, j): AD[sl(i)] @ AD[sl(j)].T
+                 for i in range(B) for j in range(i + 1) if self._mask[i, j]}
+            zero = AD.new_zeros((b, b))
+
+            def tile(i, j):
+                if i >= j:
+                    return T.get((i, j), zero)
+                return T[(j, i)].T if (j, i) in T else zero
+
+            N = torch.cat([torch.cat([tile(i, j) for j in range(B)], dim=1)
+                           for i in range(B)])
         else:
             N = AD @ AD.T
             N = 0.5 * (N + N.T)
@@ -150,25 +168,29 @@ class BlockSparseCholesky:
         dbound: float = 0.0,
         krylov_steps: int = 0,
         krylov_gate=None,
+        per_lane: bool = False,
     ):
         """Assemble and factor once; return (solve_fn, ok).  ``dbound`` > 0
         arms the singular retry: on a failed factorization, refactor once
         with dbound·max(diag N) added to the diagonal; refinement still
         runs against the unregularized, unassembled operator
         (ops.dense.operator_residual).  ``krylov_steps`` > 0: flexible PCG
-        on the factor, per call when ``krylov_gate`` is given."""
+        on the factor, per call when ``krylov_gate`` is given.
+        ``per_lane``: a lane under ``torch.func.vmap`` (the retry computed
+        always and selected where the first factorization failed)."""
         from cholesky_is_magic_tpu_torch.ops.dense import unassembled_refinement
 
         n_pad = self.plan.n_padded
         m = A.shape[0]
         N = self.assemble_normal(A, d, row_boost)
-        L = self.factorize(N)
+        L = self.factorize(N, per_lane)
         ok = self._check(L)
-        if dbound > 0.0 and not bool(ok):
+        if dbound > 0.0 and (per_lane or not bool(ok)):
             jitter = dbound * torch.max(torch.diagonal(N))
             eye = torch.eye(n_pad, dtype=N.dtype, device=N.device)
-            L = self.factorize(N + jitter * eye)
-            ok = self._check(L)
+            L2 = self.factorize(N + jitter * eye, per_lane)
+            ok2 = self._check(L2)
+            L, ok = (torch.where(ok, L, L2), ok | ok2) if per_lane else (L2, ok2)
         AD = A * d[None, :] if (refine_steps or krylov_steps) else None
         rows = self.slot_of[:m]
 
@@ -179,7 +201,7 @@ class BlockSparseCholesky:
             return yp[rows]
 
         return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
-                                      krylov_steps, krylov_gate), ok
+                                      krylov_steps, krylov_gate, per_lane), ok
 
     def solve_normal(
         self,

@@ -42,17 +42,27 @@ The dense-A entry points (:func:`engine_for`, :meth:`TiledCholesky.assemble`,
 ``prepare_normal``, ``solve_normal``) take a dense (padded) A instead of
 the pair schedule: the tiles of P·A·D²·Aᵀ·Pᵀ come from ``torch.matmul``
 over row blocks of the permuted, scaled A (XLA matmuls in the JAX package
-too), then the same panel loop (K1 per panel on the card) and solves, and
-the refinement residuals run against the unassembled operator through the
-double-word A·x and Aᵀ·x (the dd kernels on the card).
+too), put in tile order by one gather, then the same panel loop (K1 per
+panel on the card) and solves, and the refinement residuals run against the
+unassembled operator through the double-word A·x and Aᵀ·x (the dd kernels
+on the card).  They run inside a lane too (``per_lane``: a batch of dense
+states whose lanes share A's pattern, each assembling from its own A).
 
-Not ported: the mesh methods (the solvers raise on ``mesh=``).
+The mesh (tensor-parallel) mode of the fully sparse path
+(``prepare_normal_ell(mesh=...)``, JAX ``sparse/tiled.py:541-706``): every
+rank of the mesh's 'tp' group assembles its contiguous slab of the sorted
+pair schedule (K4 on the card, over a schedule of the slab's runs) and one
+all-reduce sums the slabs' tiles; in the panel loop each rank computes its
+share of the panel's SYRK pairs and one all-reduce per panel carries the
+Schur updates; the tile factor (K1), the TRSMs, the triangular solves and
+the refinement stay replicated.
 """
 
 from __future__ import annotations
 
 import itertools
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -290,20 +300,13 @@ class TiledCholesky:
         self.asm_k = put(ks[order])
         self.asm_dst_flat = put(dst)
         self.n_pairs = len(ws)
-        run_dst, run_start = np.unique(dst, return_index=True)
-        run_start = np.append(run_start, len(dst)).astype(np.int64)
-        run_dst = run_dst.astype(np.int64)
+        run_start, run_dst, by_rank, self._asm_passes = _runs_and_passes(dst)
+        self._asm_dst_np, self._run_start_np, self._run_dst_np = dst, run_start, run_dst
         self.asm_run_start = put(run_start)
         self.asm_run_dst = put(run_dst)
-        # The plain version's order: a pair's rank in its run (its
-        # destination's occurrence), the pairs grouped by rank, so that no
-        # scatter sees a destination twice (see _assemble_pairs_plain).
-        rank = np.arange(len(dst)) - np.repeat(run_start[:-1], np.diff(run_start))
-        by_rank = np.argsort(rank, kind="stable")
-        bounds = np.cumsum(np.bincount(rank)) if len(rank) else np.zeros(0, np.int64)
-        self._asm_passes = list(zip([0, *bounds[:-1].tolist()], bounds.tolist()))
         self.asm_pass_pos = put(by_rank)
         self.asm_pass_dst = put(dst[by_rank])
+        self._slabs = {}  # (ntp, rank) -> _Slab, the mesh mode's schedules
         self.op_key = next(_KEYS)
         _ENGINES[self.op_key] = self
         # The assembly kernel's 32-bit view of this schedule, where
@@ -329,7 +332,7 @@ class TiledCholesky:
             return assemble_pairs_op(d, row_boost, self.op_key)
         return _assemble_pairs(self, d, row_boost)
 
-    def _assemble_pairs_plain(self, d, row_boost):
+    def _assemble_pairs_plain(self, d, row_boost, slab=None):
         """The plain version: one gather of d², one multiply, the sorted sums,
         then the boost.  Leading axes of ``d`` (and of ``row_boost``, or
         none) are lanes: (..., n) gives (..., NT+1, b, b), each lane equal to
@@ -338,19 +341,28 @@ class TiledCholesky:
         destination appears twice in a pass): each entry adds its pairs one
         after the other in schedule order from zero, as the kernel does and
         as one sequential ``index_add_`` would, and on the card no order
-        rests on atomics, so the result is the same run after run."""
+        rests on atomics, so the result is the same run after run.
+        ``slab`` (a :class:`_Slab` of the mesh mode): only its pairs, and the
+        boost only where the slab carries it."""
         b = self.b
         dt = self.asm_w.dtype
         lead = d.shape[:-1]
         d2 = (d * d).to(dt)
-        vals = (self.asm_w * d2[..., self.asm_k]).reshape(
-            int(np.prod(lead)), self.n_pairs)
+        if slab is None:
+            p0, p1, pos, pdst, passes, boost = (
+                0, self.n_pairs, self.asm_pass_pos, self.asm_pass_dst,
+                self._asm_passes, True)
+        else:
+            p0, p1, pos, pdst, passes, boost = slab[:6]
+        vals = (self.asm_w[p0:p1] * d2[..., self.asm_k[p0:p1]]).reshape(
+            int(np.prod(lead)), p1 - p0)
         flat = vals.new_zeros((vals.shape[0], (self.NT + 1) * b * b))
-        for lo, hi in self._asm_passes:
-            flat.index_add_(1, self.asm_pass_dst[lo:hi],
-                            vals[:, self.asm_pass_pos[lo:hi]])
+        for lo, hi in passes:
+            flat.index_add_(1, pdst[lo:hi], vals[:, pos[lo:hi]])
         tiles = flat.reshape(*lead, self.NT + 1, b, b)
         tiles[..., self.NT, :, :] = 0.0
+        if not boost:
+            return tiles
         rb = F.pad(row_boost.to(dt), (0, self.B * b - row_boost.shape[-1]),
                    value=1.0)
         boost_p = rb[..., self.pperm].reshape(*rb.shape[:-1], self.B, b)
@@ -375,18 +387,26 @@ class TiledCholesky:
 
     def _panel_lists(self):
         """Per column panel j: its window (lo, width), the window rows that
-        hold a resident tile and those tiles (range mode writes these and
-        never the dummy row), and its resident row tiles with their ids
-        (scan mode); the index lists on the device."""
+        hold a resident tile, and its resident row tiles (scan mode); the
+        index lists on the device.  And per mode the gather that puts the
+        panels' products, concatenated in panel order, in tile order (then
+        the dummy tile): range mode's products are the window rows' tiles,
+        scan mode's the resident tiles of the column, so each tile is one
+        product exactly once either way."""
         if self._panels is None:
             put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
-            self._panels = []
+            panels, rtiles, stiles = [], [], []
             for j in range(self.B):
                 rows = np.flatnonzero(self.asm_dst[j] != self.NT)
                 mine = np.flatnonzero(self.tile_j[:self.NT] == j)
-                self._panels.append((
-                    int(self.asm_lo[j]), int(rows[-1]) + 1, put(rows),
-                    put(self.asm_dst[j][rows]), put(self.tile_i[mine]), put(mine)))
+                panels.append((int(self.asm_lo[j]), int(rows[-1]) + 1, put(rows),
+                               put(self.tile_i[mine])))
+                rtiles.append(self.asm_dst[j][rows])
+                stiles.append(mine)
+            order = {mode: put(np.append(np.argsort(np.concatenate(ids), kind="stable"),
+                                         self.NT))
+                     for mode, ids in (("range", rtiles), ("scan", stiles))}
+            self._panels = panels, order
         return self._panels
 
     def assemble(self, A, d, row_boost=None, mode: str = "auto"):
@@ -402,13 +422,16 @@ class TiledCholesky:
         - "range": one (w·b, n) x (n, b) matmul per column panel over the
           contiguous window of w row tiles that covers its resident ones
           (the JAX package pads every window to Rmax; its extra rows land
-          in the dummy tile), the resident rows copied to their tiles.  B
-          matmuls; over-computes where a window is taller than its
-          resident count.
+          in the dummy tile), the resident rows kept.  B matmuls;
+          over-computes where a window is taller than its resident count.
 
         "auto" takes range when its cost (B·Rmax) is at most 1.2× scan's
         (NT), as in the JAX package.  Every resident tile is the product of
-        the same two row blocks either way."""
+        the same two row blocks either way.  The panels' products are
+        concatenated in panel order with a zero dummy tile and put in tile
+        order by one gather (:meth:`_panel_lists`): no tile is written by
+        index into a tensor made beforehand, so the assembly runs under
+        ``torch.func.vmap`` as it runs alone, each lane from its own A."""
         if mode == "auto":
             mode = "range" if self.range_cost <= 1.2 * self.scan_cost else "scan"
         if mode not in ("range", "scan"):
@@ -416,13 +439,15 @@ class TiledCholesky:
         b = self.b
         AD, boost_p = self._prep_operands(A, d, row_boost)
         Ap = AD.reshape(self.B, b, -1)
-        tiles = AD.new_zeros((self.NT + 1, b, b))
-        for j, (lo, w, rows, rtiles, srows, stiles) in enumerate(self._panel_lists()):
+        panels, order = self._panel_lists()
+        parts = []
+        for j, (lo, w, rows, srows) in enumerate(panels):
             if mode == "range":
                 G = torch.matmul(AD[lo * b:(lo + w) * b], Ap[j].T)
-                tiles[rtiles] = G.reshape(w, b, b)[rows]
+                parts.append(G.reshape(w, b, b)[rows])
             else:
-                tiles[stiles] = torch.matmul(Ap[srows], Ap[j].T)
+                parts.append(torch.matmul(Ap[srows], Ap[j].T))
+        tiles = torch.cat(parts + [AD.new_zeros((1, b, b))])[order[mode]]
         if boost_p is not None:
             eye = torch.eye(b, dtype=tiles.dtype, device=tiles.device)
             tiles[self.diag_ids] += eye * boost_p.reshape(self.B, b)[:, :, None]
@@ -430,15 +455,28 @@ class TiledCholesky:
 
     # ---- factor and solve -----------------------------------------------
 
-    def factorize(self, tiles, per_lane: bool = False):
+    def factorize(self, tiles, per_lane: bool = False, mesh=None):
         """One host loop over the panels; per panel one tile factor +
         inverse, one batched TRSM, one batched SYRK + index_add_.  Leaves
         ``tiles`` as it is.  ``per_lane`` (a lane under ``torch.func.vmap``):
         the tile factor through its operator, one launch for all the lanes.
-        Returns (L_tiles, invdiag, ok)."""
+        ``mesh``: each panel's SYRK batch shared over the mesh's 'tp' ranks,
+        everything else replicated; each rank computes its contiguous share
+        of the panel's Schur-update pairs into a zero buffer of all of them,
+        and one all-reduce per panel sums the buffers before the one
+        ``index_add_``.  A panel's pairs have distinct destinations, so each
+        buffer entry is one rank's product plus zeros and the all-reduce
+        adds nothing else: given the same tiles the factor is the single
+        factorization's, up to how a rank's smaller batched matmul rounds
+        (bit for bit at tp = 1).  Returns (L_tiles, invdiag, ok)."""
         b = self.b
         L = tiles.clone()
         invd = tiles.new_zeros((self.B, b, b))
+        if mesh is not None:
+            import torch.distributed as dist
+
+            group = mesh.get_group("tp")
+            ntp, rank = dist.get_world_size(group), mesh.get_local_rank("tp")
         for k in range(self.B):
             chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
             nr = self._n_rows[k]
@@ -447,8 +485,15 @@ class TiledCholesky:
                 L[rid] = torch.matmul(L[rid], invd[k].T)
             ns = self._n_syrk[k]
             if ns:
-                sa, sb = self.syrk_a[k, :ns], self.syrk_b[k, :ns]
+                lo, hi = 0, ns
+                if mesh is not None:
+                    w = -(-ns // ntp)
+                    lo, hi = min(rank * w, ns), min((rank + 1) * w, ns)
+                sa, sb = self.syrk_a[k, lo:hi], self.syrk_b[k, lo:hi]
                 U = torch.matmul(L[sa], L[sb].transpose(1, 2))
+                if mesh is not None:
+                    U = F.pad(U, (0, 0, 0, 0, lo, ns - hi))
+                    dist.all_reduce(U, group=group)
                 L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
         diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
         ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
@@ -479,31 +524,96 @@ class TiledCholesky:
             z[k] = invd[k].T @ acc
         return z[:B].reshape(B * b)
 
-    def _factorize_dbound(self, tiles, dbound, per_lane: bool = False):
+    def _factorize_dbound(self, tiles, dbound, per_lane: bool = False,
+                          mesh=None):
         """factorize with the CHOLMOD-dbound singular retry: on failure,
         refactor once with dbound·max(diag) added to the diagonal tiles.
         ``per_lane`` (a lane under ``torch.func.vmap``): the retry is
         computed always and selected where the first factorization failed,
-        with no host read, as the JAX ``lax.cond`` under ``jax.vmap``."""
-        L, invd, ok = self.factorize(tiles, per_lane)
+        with no host read, as the JAX ``lax.cond`` under ``jax.vmap``.
+        ``mesh``: both factorizations over its 'tp' axis."""
+        L, invd, ok = self.factorize(tiles, per_lane, mesh)
         if dbound <= 0.0 or (not per_lane and bool(ok)):
             return L, invd, ok
         eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
         diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
         tiles2 = tiles.clone()
         tiles2[self.diag_ids] += dbound * torch.max(diags) * eye[None]
-        retry = self.factorize(tiles2, per_lane)
+        retry = self.factorize(tiles2, per_lane, mesh)
         if not per_lane:
             return retry
         return (torch.where(ok, L, retry[0]), torch.where(ok, invd, retry[1]),
                 ok | retry[2])
+
+    # ---- the mesh (tensor-parallel) mode --------------------------------
+
+    def _slab(self, ntp: int, rank: int) -> "_Slab":
+        """Rank ``rank``'s share of the sorted pair schedule over ``ntp``
+        ranks, made once per (ntp, rank): the contiguous slab of
+        ceil(pairs / ntp) pairs (the last ones shorter), its plain version's
+        passes, and on a card in float32 the assembly kernel's schedule of
+        the slab's runs (:func:`.tiled_cuda.kernel_schedule`; a run cut by a
+        slab boundary keeps only the slab's pairs).  Rank 0 carries the
+        boost; the other ranks' slabs leave every entry without a pair in
+        the slab at zero."""
+        key = (ntp, rank)
+        if key not in self._slabs:
+            w = -(-self.n_pairs // ntp)
+            p0, p1 = min(rank * w, self.n_pairs), min((rank + 1) * w, self.n_pairs)
+            _, _, by_rank, passes = _runs_and_passes(self._asm_dst_np[p0:p1])
+            put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+            kernel = None
+            if self._kernel_schedule is not None:
+                from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+                kernel = tiled_cuda.kernel_schedule(self, *self._slab_runs(p0, p1),
+                                                    boost=rank == 0)
+            self._slabs[key] = _Slab(
+                p0, p1, put(by_rank), put(self._asm_dst_np[p0:p1][by_rank]),
+                passes, rank == 0, kernel)
+        return self._slabs[key]
+
+    def _slab_runs(self, p0: int, p1: int):
+        """The runs of the sorted pair schedule that meet pairs [p0, p1),
+        cut to them: (run starts with the end appended, run destinations),
+        what ``tiled_cuda.kernel_schedule`` takes."""
+        if p1 == p0:
+            return np.array([p0], np.int64), np.zeros(0, np.int64)
+        rs = self._run_start_np
+        s0 = int(np.searchsorted(rs[:-1], p0, "right")) - 1
+        s1 = int(np.searchsorted(rs[:-1], p1, "left"))
+        return np.clip(rs[s0:s1 + 1], p0, p1), self._run_dst_np[s0:s1]
+
+    def assemble_pairs_tp(self, mesh, d, row_boost):
+        """:meth:`assemble_pairs` over the mesh's 'tp' axis: each rank sums
+        its slab of the pair schedule (:meth:`_slab`) into a whole tile
+        array (K4 over the slab's schedule on float32 CUDA tensors, the
+        plain version otherwise), and one all-reduce adds the ranks' arrays
+        (``(NT+1)·b²`` values once per factorization).  Every entry's pairs
+        lie in one slab, or in two neighbouring slabs where a slab boundary
+        cuts its run: both ranks then hold a partial of that entry and the
+        all-reduce adds the two, the only change of summation order against
+        one rank (at tp = 1 the tiles are the single assembly's, bit for
+        bit)."""
+        import torch.distributed as dist
+
+        group = mesh.get_group("tp")
+        slab = self._slab(dist.get_world_size(group), mesh.get_local_rank("tp"))
+        if takes_kernel(d.device, d.dtype, self.asm_w.dtype):
+            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
+
+            tiles = tiled_cuda.assemble_pairs(self, d, row_boost, slab.kernel)
+        else:
+            tiles = self._assemble_pairs_plain(d, row_boost, slab)
+        dist.all_reduce(tiles, group=group)
+        return tiles
 
     # ---- the fully sparse normal equations ------------------------------
 
     def prepare_normal_ell(self, E, ET, d, m, row_boost=None, refine_steps=0,
                            dbound: float = 0.0, krylov_steps: int = 0,
                            krylov_gate=None, EB=None, ETB=None,
-                           per_lane: bool = False):
+                           per_lane: bool = False, mesh=None):
         """Factor once, solve many, from sparse operands: pair-schedule
         assembly + planned tile factorization; each solve_fn(g) adds
         double-word refinement against the unassembled operator.  ``E`` /
@@ -513,15 +623,27 @@ class TiledCholesky:
         tile factor as preconditioner, per call when ``krylov_gate`` (a
         0-dim bool tensor) is given.  ``m`` is the row count.
         ``per_lane``: a lane under ``torch.func.vmap`` (the dbound retry and
-        the Krylov gate computed both ways and selected).  Returns
-        (solve_fn, ok)."""
+        the Krylov gate computed both ways and selected).  ``mesh`` (every
+        rank of it makes the call; a ('dp', 'tp') DeviceMesh) assembles and
+        factors over its 'tp' axis (:meth:`assemble_pairs_tp`,
+        :meth:`factorize`); the triangular solves and the refinement stay
+        replicated.  Returns (solve_fn, ok)."""
         from cholesky_is_magic_tpu_torch.ops import sparse_ops
 
         n_pad = self.B * self.b
         boost = row_boost if row_boost is not None else torch.zeros(
             m, dtype=d.dtype, device=d.device)
-        tiles = self.assemble_pairs(d, boost, per_lane)
-        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane)
+        if mesh is not None:
+            from cholesky_is_magic_tpu_torch.parallel.sharded import check_mesh
+
+            check_mesh(mesh)
+            if per_lane:
+                raise ValueError("prepare_normal_ell: mesh= runs one lane per "
+                                 "call (the dp batch splits the lanes)")
+            tiles = self.assemble_pairs_tp(mesh, d, boost)
+        else:
+            tiles = self.assemble_pairs(d, boost, per_lane)
+        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane, mesh)
         d2 = ddm.two_prod(d, d) if refine_steps else None
         rows = self.slot_of[:m]
 
@@ -570,13 +692,14 @@ class TiledCholesky:
 
     def solve_normal_ell(self, E, ET, d, g, row_boost=None, refine_steps=0,
                          dbound: float = 0.0, krylov_steps: int = 0,
-                         EB=None, ETB=None, per_lane: bool = False):
+                         EB=None, ETB=None, per_lane: bool = False, mesh=None):
         """(A·D)(A·D)ᵀ y = g entirely from sparse operands (see
         prepare_normal_ell).  Returns (y, ok)."""
         solve_fn, ok = self.prepare_normal_ell(
             E, ET, d, g.shape[0], row_boost=row_boost,
             refine_steps=refine_steps, dbound=dbound,
             krylov_steps=krylov_steps, EB=EB, ETB=ETB, per_lane=per_lane,
+            mesh=mesh,
         )
         return solve_fn(g), ok
 
@@ -584,7 +707,7 @@ class TiledCholesky:
 
     def prepare_normal(self, A, d, row_boost=None, refine_steps=0,
                        dbound: float = 0.0, krylov_steps: int = 0,
-                       krylov_gate=None):
+                       krylov_gate=None, per_lane: bool = False):
         """Assemble and factor once from a dense A; returns (solve_fn, ok),
         the factor-once / solve-many split.  ``refine_steps`` adds
         double-word Richardson refinement against the UNASSEMBLED operator
@@ -592,13 +715,17 @@ class TiledCholesky:
         dense dd path's accuracy; ``krylov_steps`` > 0 switches to flexible
         PCG with the tile factor as preconditioner, per call when
         ``krylov_gate`` (a 0-dim bool tensor) is given.  ``ok`` is read on
-        the host only when the dbound retry is armed."""
+        the host only when the dbound retry is armed.  ``per_lane`` (a lane
+        of a batch of dense states under ``torch.func.vmap``, A the lane's
+        own): the tile factor through its operator (one batched launch per
+        panel for all the lanes), the retry and the gate selected per
+        lane."""
         from cholesky_is_magic_tpu_torch.ops.dense import unassembled_refinement
 
         n_pad = self.B * self.b
         m = A.shape[0]
         tiles = self.assemble(A, d, row_boost, mode=self.assemble_mode)
-        L, invd, ok = self._factorize_dbound(tiles, dbound)
+        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane)
         AD = A * d[None, :] if (refine_steps or krylov_steps) else None
         rows = self.slot_of[:m]
 
@@ -607,7 +734,7 @@ class TiledCholesky:
             return self.solve(L, invd, rp)[rows]
 
         return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
-                                      krylov_steps, krylov_gate), ok
+                                      krylov_steps, krylov_gate, per_lane), ok
 
     def solve_normal(self, A, d, g, row_boost=None, refine_steps=0,
                      dbound: float = 0.0, krylov_steps: int = 0):
@@ -618,6 +745,38 @@ class TiledCholesky:
             dbound=dbound, krylov_steps=krylov_steps,
         )
         return solve_fn(g), ok
+
+
+def _runs_and_passes(dst: np.ndarray):
+    """For sorted flat destinations: (run_start, run_dst, by_rank, passes).
+    The runs of equal destinations (their starts, with the end appended,
+    and their destinations); and the plain assembly's order: a pair's rank
+    in its run (its destination's occurrence), the pairs grouped by rank
+    (``by_rank``), each group one pass (``passes``, its bounds in
+    ``by_rank``), so that no scatter sees a destination twice (see
+    ``TiledCholesky._assemble_pairs_plain``)."""
+    run_dst, run_start = np.unique(dst, return_index=True)
+    run_start = np.append(run_start, len(dst)).astype(np.int64)
+    rank = np.arange(len(dst)) - np.repeat(run_start[:-1], np.diff(run_start))
+    by_rank = np.argsort(rank, kind="stable")
+    bounds = np.cumsum(np.bincount(rank)) if len(rank) else np.zeros(0, np.int64)
+    passes = list(zip([0, *bounds[:-1].tolist()], bounds.tolist()))
+    return run_start, run_dst.astype(np.int64), by_rank, passes
+
+
+class _Slab(NamedTuple):
+    """A rank's share of the pair schedule in the mesh mode
+    (``TiledCholesky._slab``): pairs [p0, p1), the plain version's passes
+    over them (positions in the slab, destinations, bounds), whether it
+    carries the boost, and the kernel's schedule of its runs (or None)."""
+
+    p0: int
+    p1: int
+    pass_pos: torch.Tensor
+    pass_dst: torch.Tensor
+    passes: list
+    boost: bool
+    kernel: object
 
 
 # The engines the assembly operator can name: an operator takes tensors and

@@ -74,12 +74,15 @@ class KernelSchedule(NamedTuple):
 
 
 def kernel_schedule(eng, run_start: np.ndarray, run_dst: np.ndarray,
-                    chunk: int = CHUNK) -> KernelSchedule:
+                    chunk: int = CHUNK, boost: bool = True) -> KernelSchedule:
     """The engine's pair schedule as the kernel reads it (see the module
     docstring), from the host's ``run_start`` (runs + 1 offsets into the
     pairs) and ``run_dst`` (the runs' flat destinations, ascending): a few
-    searches over the runs, no pass over the pairs.  Raises where an index
-    does not fit 32 bits."""
+    searches over the runs, no pass over the pairs.  The runs may be a
+    part of the engine's (a rank's slab in the mesh mode: the offsets
+    still index the engine's pair arrays, and every entry no run reaches
+    is written zero); ``boost=False`` gives no run a boost and adds no
+    empty diagonal run.  Raises where an index does not fit 32 bits."""
     b = eng.b
     total = (eng.NT + 1) * b * b
     if total + chunk > _INT32_MAX or eng.n_pairs >= _INT32_MAX or (
@@ -89,6 +92,13 @@ def kernel_schedule(eng, run_start: np.ndarray, run_dst: np.ndarray,
             "not fit the kernel's 32-bit indices")
     # Slot k·b + r sits on the diagonal of panel k's diagonal tile; the
     # diagonal tiles come in panel order, so diag_dst ascends.
+    chunks = -(-total // chunk)
+    put = lambda a: torch.as_tensor(a.astype(np.int32), device=eng.device)  # noqa: E731
+    if not boost:
+        return KernelSchedule(
+            eng.asm_k.to(torch.int32), put(run_start), put(run_dst),
+            put(np.full(len(run_dst), -1, np.int64)),
+            put(np.searchsorted(run_dst, np.arange(chunks + 1) * chunk)), chunk)
     diag_dst = (eng._diag_ids_np[:, None] * (b * b)
                 + np.arange(b)[None, :] * (b + 1)).reshape(-1)
     pos = np.searchsorted(run_dst, diag_dst)
@@ -101,18 +111,19 @@ def kernel_schedule(eng, run_start: np.ndarray, run_dst: np.ndarray,
     run_row = np.full(len(run_dst), -1, np.int64)
     # Slot s holds the permuted row whose slot_of is s.
     run_row[np.searchsorted(run_dst, diag_dst)] = np.argsort(eng._slot_of_np)
-    chunks = -(-total // chunk)
     chunk_run = np.searchsorted(run_dst, np.arange(chunks + 1) * chunk)
-    put = lambda a: torch.as_tensor(a.astype(np.int32), device=eng.device)  # noqa: E731
     return KernelSchedule(eng.asm_k.to(torch.int32), put(run_start), put(run_dst),
                           put(run_row), put(chunk_run), chunk)
 
 
-def assemble_pairs(eng, d: torch.Tensor, row_boost: torch.Tensor) -> torch.Tensor:
+def assemble_pairs(eng, d: torch.Tensor, row_boost: torch.Tensor,
+                   sched: KernelSchedule = None) -> torch.Tensor:
     """The (NT+1, b, b) resident tiles of the engine ``eng``'s normal
     matrix for the column scaling ``d`` (f32, on the card) and the boost
     ``row_boost`` of the first len(row_boost) permuted rows (the other
-    slots get 1)."""
+    slots get 1).  ``sched``: a schedule of part of the engine's runs (a
+    rank's slab in the mesh mode, ``TiledCholesky._slab``) in place of the
+    engine's whole one."""
     if not (d.is_cuda and eng.asm_w.is_cuda and row_boost.is_cuda):
         raise ValueError("assemble_pairs takes CUDA tensors")
     if d.dtype != torch.float32 or eng.asm_w.dtype != torch.float32:
@@ -122,7 +133,7 @@ def assemble_pairs(eng, d: torch.Tensor, row_boost: torch.Tensor) -> torch.Tenso
         raise ValueError("assemble_pairs: d must be a contiguous vector")
     rb = row_boost.to(torch.float32).contiguous()
     b, NT = eng.b, eng.NT
-    sched = eng._kernel_schedule
+    sched = eng._kernel_schedule if sched is None else sched
     tiles = torch.empty((NT + 1, b, b), dtype=torch.float32, device=d.device)
     lib = cuda_build.load(_SIGNATURES)
     LAUNCHES["assemble_pairs"] += 1

@@ -312,3 +312,270 @@ def scipy_reference_solution(lp: InequalityLP):
         method="highs",
     )
     return res.status, res.fun, res.x
+
+
+# ---- ranks of a process group, for the mesh modes on the CPU -------------
+#
+# The counterpart of the JAX tests' 8-virtual-device CPU mesh: the mesh modes
+# (parallel.lp_mesh, ``mesh=``) run SPMD over the ranks of a torch.distributed
+# process group, so a test starts the ranks itself, over gloo.  The rank-side
+# code lives here, in a module that imports no jax, so that a spawned rank
+# never imports a test module (or jax with it).
+
+
+def _rank_main(rank: int, world_size: int, store: str, results, fn, args):
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        results.put((rank, fn(*args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world_size: int, *args, timeout: float = 300.0) -> list:
+    """``fn(*args)`` on each of ``world_size`` spawned processes that form a
+    gloo process group (a file store in a fresh temporary directory);
+    returns the ranks' results in rank order.  ``fn`` must be importable by
+    name and its arguments and results picklable (numpy arrays, not jax
+    ones).  A rank that raises fails the call with its traceback
+    (``torch.multiprocessing.ProcessRaisedException``); ranks not done
+    within ``timeout`` seconds are killed and the call raises
+    ``TimeoutError``."""
+    import os
+    import queue
+    import shutil
+    import tempfile
+    import time
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="cim-ranks-")
+    results = mp.get_context("spawn").Queue()
+    ctx = mp.start_processes(
+        _rank_main, args=(world_size, os.path.join(tmp, "store"), results, fn, args),
+        nprocs=world_size, join=False, start_method="spawn")
+    out: dict = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            # Drain before joining: a rank whose result is still in the pipe
+            # cannot exit.
+            try:
+                while True:
+                    rank, value = results.get(timeout=0.2)
+                    out[rank] = value
+            except queue.Empty:
+                pass
+            if ctx.join(timeout=0.2) and len(out) == world_size:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{world_size - len(out)} of {world_size} ranks not done "
+                    f"in {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world_size)]
+
+
+def _lp_from_arrays(a: dict):
+    """A DeviceLP on the CPU from the numpy arrays of one (``lp_arrays``)."""
+    import torch
+
+    from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
+
+    return DeviceLP(**{k: torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+                       for k, v in a.items()})
+
+
+def lp_arrays(lp) -> dict:
+    """A dense LP's fields as numpy arrays and ints (either package's
+    DeviceLP): what a rank of :func:`run_ranks` can be sent."""
+    names = ("A", "c", "b", "l", "u", "row_mask", "col_mask", "row_type")
+    out = {k: np.array(getattr(lp, k)) for k in names}
+    out.update(m=int(lp.m), n=int(lp.n))
+    return out
+
+
+def result_arrays(res) -> dict:
+    """A SolveResult's x, status, iterations, objective and (where it has
+    one) gap as numpy arrays."""
+    out = {k: np.array(getattr(res, k)) for k in
+           ("x", "status", "iterations", "objective")}
+    if "gap" in res.extra:
+        out["gap"] = np.array(res.extra["gap"])
+    return out
+
+
+def mesh_cases(runs: list) -> list:
+    """Rank side of the mesh tests: for each (dp, tp, cases) of ``runs``
+    make ``lp_mesh(dp, tp, "cpu")`` and run each case, a (kind, keyword
+    arguments) pair, returning its numpy results (a list per run).  Kinds:
+    "normal" (parallel.sharded_solve_normal), "placement"
+    (parallel.shard_lp_columns), "pdas" / "pdas_dd" / "affine" (the solver
+    with ``mesh=`` on a dense LP's state), "sparse" (the fully sparse
+    pdas and pdas_dd with ``mesh=`` on fresh engines), "batch" (the dp
+    batch: batched_pdas / batched_pdas_dd of shard_batched_pdas, the slabbed
+    loop and solve_batch with ``mesh=``), "normal_ell" (the tile engine's
+    solve_normal_ell with ``mesh=``, and its sharded assembly's tiles),
+    "normal_batch" (batched_normal_solves with ``mesh=``)."""
+    from cholesky_is_magic_tpu_torch.parallel import lp_mesh
+
+    out = []
+    for dp, tp, cases in runs:
+        mesh = lp_mesh(dp, tp, device_type="cpu")
+        out.append([_MESH_CASES[kind](mesh, **kw) for kind, kw in cases])
+    return out
+
+
+def _case_normal(mesh, A, d, g, **kw):
+    import torch
+
+    from cholesky_is_magic_tpu_torch.parallel import sharded_solve_normal
+
+    t = lambda v: None if v is None else torch.as_tensor(v)  # noqa: E731
+    rb = kw.pop("row_boost", None)
+    y, ok = sharded_solve_normal(mesh, t(A), t(d), t(g), row_boost=t(rb), **kw)
+    return {"y": y.numpy(), "ok": bool(ok)}
+
+
+def _case_placement(mesh, lp):
+    from cholesky_is_magic_tpu_torch.parallel import shard_lp_columns
+
+    slp = shard_lp_columns(_lp_from_arrays(lp), mesh)
+    return {"A": slp.A.numpy(), "lo": slp.shard.lo, "shape": slp.shape}
+
+
+def _solver_case(solver):
+    def run(mesh, lp, cfg):
+        import importlib
+
+        dlp = _lp_from_arrays(lp)
+        if solver == "affine":
+            aff = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.affine")
+            res = aff.affine_scaling(aff.make_affine_state(dlp),
+                                     aff.AffineConfig(**cfg), mesh=mesh)
+        else:
+            pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+            dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+            cfg = pdas.PDASConfig(**cfg)
+            res = (pdas.pdas(pdas.make_pdas(dlp), cfg, mesh=mesh) if solver == "pdas"
+                   else dd.pdas_dd(dd.make_pdas_dd(dlp), cfg, mesh=mesh))
+        return result_arrays(res)
+
+    return run
+
+
+def _case_sparse(mesh, sf, block, cfg, dd_cfg):
+    """make_pdas_sparse's state through pdas, and make_pdas_dd_sparse's
+    through pdas_dd, each on a fresh engine, both with ``mesh``."""
+    import importlib
+
+    import torch
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+    kw = dict(block=block, dtype=torch.float64, device="cpu")
+    st, eng = pdas.make_pdas_sparse(sf, **kw)
+    r1 = pdas.pdas(st, pdas.PDASConfig(**cfg), engine=eng, mesh=mesh)
+    st2, eng2 = dd.make_pdas_dd_sparse(sf, **kw)
+    r2 = dd.pdas_dd(st2, pdas.PDASConfig(**dd_cfg), engine=eng2, mesh=mesh)
+    return {"pdas": result_arrays(r1), "pdas_dd": result_arrays(r2)}
+
+
+def _case_normal_ell(mesh, sf, block, d, g, refine_steps, dbound=0.0):
+    """The tile engine's normal solve with ``mesh`` on a fresh engine of the
+    LP's A, and the tiles its sharded assembly gives."""
+    import torch
+
+    eng, E, ET = _engine_and_ell(sf, block)
+    d, g = torch.as_tensor(d), torch.as_tensor(g)
+    y, ok = eng.solve_normal_ell(E, ET, d, g, refine_steps=refine_steps,
+                                 dbound=dbound, mesh=mesh)
+    tiles = eng.assemble_pairs_tp(mesh, d, torch.zeros(sf.ncons, dtype=d.dtype))
+    return {"y": y.numpy(), "ok": bool(ok), "tiles": tiles.numpy()}
+
+
+def _case_batch(mesh, lps, cfg, dd_cfg, sfs, slab_iters):
+    """The dp batch of dense LPs: batched_pdas and batched_pdas_dd on
+    shard_batched_pdas's lanes, the slabbed loop and solve_batch, all with
+    the mesh; every rank returns the whole batch."""
+    import importlib
+
+    import torch
+
+    from cholesky_is_magic_tpu_torch import api, parallel
+    from cholesky_is_magic_tpu_torch.utils import lanes
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+    cfg, dd_cfg = pdas.PDASConfig(**cfg), pdas.PDASConfig(**dd_cfg)
+    dlps = [_lp_from_arrays(a) for a in lps]
+    states = parallel.stack_states([pdas.make_pdas(lp) for lp in dlps])
+    r1 = parallel.batched_pdas(parallel.shard_batched_pdas(states, mesh), cfg)
+    dd_states = parallel.stack_states([
+        dd.make_pdas_dd(lp, warm=lanes.lane(r1, k)) for k, lp in enumerate(dlps)])
+    r2 = parallel.batched_pdas_dd(parallel.shard_batched_pdas(dd_states, mesh),
+                                  dd_cfg)
+    slab = parallel.batched_pdas_slabbed(states, cfg, slab_iters=slab_iters,
+                                         mesh=mesh)
+    reports = api.solve_batch(sfs, device="cpu", dtype=torch.float64,
+                              pad_multiple=16, max_iters=cfg.max_iters,
+                              mesh=mesh)
+    return {"pdas": result_arrays(r1), "pdas_dd": result_arrays(r2),
+            "slabbed": result_arrays(slab),
+            "solve_batch": [result_arrays(r.result) for r in reports]}
+
+
+def _case_normal_batch(mesh, sf, block, D, G, refine_steps):
+    """batched_normal_solves with ``mesh`` on an engine of the LP's A."""
+    import torch
+
+    from cholesky_is_magic_tpu_torch.parallel import batched_normal_solves
+
+    eng, E, ET = _engine_and_ell(sf, block)
+    Y, ok = batched_normal_solves(eng, E, ET, torch.as_tensor(D),
+                                  torch.as_tensor(G), mesh=mesh,
+                                  refine_steps=refine_steps)
+    return {"Y": Y.numpy(), "ok": ok.numpy()}
+
+
+def _engine_and_ell(sf, block):
+    """A fresh f64 CPU tile engine of a StandardForm's A, and its ELL
+    forms of A and Aᵀ."""
+    import scipy.sparse as sp
+    import torch
+
+    from cholesky_is_magic_tpu_torch.ops import sparse_ops
+    from cholesky_is_magic_tpu_torch.sparse.tiled import engine_for_sparse
+
+    m, n = sf.ncons, sf.nvars
+    A = sp.csc_matrix((sf.a_vals, (sf.a_rows, sf.a_cols)), shape=(m, n))
+    eng = engine_for_sparse(A, block=block, dtype=torch.float64, device="cpu")
+    kw = dict(dtype=torch.float64, device="cpu")
+    E = sparse_ops.from_coo(sf.a_rows, sf.a_cols, sf.a_vals, (m, n), **kw)
+    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, sf.a_vals, (n, m), **kw)
+    return eng, E, ET
+
+
+_MESH_CASES = {
+    "normal_batch": _case_normal_batch,
+    "normal": _case_normal,
+    "placement": _case_placement,
+    "pdas": _solver_case("pdas"),
+    "pdas_dd": _solver_case("pdas_dd"),
+    "affine": _solver_case("affine"),
+    "sparse": _case_sparse,
+    "normal_ell": _case_normal_ell,
+    "batch": _case_batch,
+}

@@ -443,15 +443,6 @@ def test_solve_batch_embed_cache(front_door):
     assert cimt.solve_batch([], **f64, **kw) == []
 
 
-@pytest.mark.parametrize("call", [
-    lambda: cimt.solve_batch([], mesh=object(), device="cpu"),
-    lambda: parallel.shard_batched_pdas(None, None),
-], ids=["mesh", "shard"])
-def test_unported_batch_modes_raise(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
-
-
 def test_batched_loops_refuse_what_the_single_loops_refuse(batch):
     """The batch refuses what a single loop refuses (an unknown factor
     method) and takes what it takes: with Gondzio's correctors each lane

@@ -240,7 +240,7 @@ def test_batched_normal_solves_lanes_equal_single_solves(normal_solves):
         y1, ok1 = ns["eng"].solve_normal_ell(ns["E"], ns["ET"], ns["D"][i],
                                              ns["G"][i], refine_steps=1)
         assert bool(ok1) and torch.equal(Y[i], y1)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         parallel.batched_normal_solves(ns["eng"], ns["E"], ns["ET"], ns["D"],
                                        ns["G"], mesh=object())
 

@@ -1118,3 +1118,148 @@ def test_dense_engine_and_gondzio_in_float64_on_the_card_equal_the_cpu(dev):
                       float(r2.objective))
     assert out["cuda"][:3] == out["cpu"][:3]
     assert out["cuda"][3] == pytest.approx(-464.75314285714285, rel=1e-9)
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A process group of world size 1 on NCCL (a TCP store on 127.0.0.1)
+    and ``lp_mesh(1, 1)`` over it; destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cholesky_is_magic_tpu_torch.parallel import lp_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield lp_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tp_solve_normal_ell_at_world_size_1(dev, nccl_mesh):
+    """The m = 16384 engine's solve_normal_ell with ``mesh=`` at world size
+    1 on NCCL: its assembly (K4 on rank 0's slab, the whole schedule) is
+    bit-equal to the unsharded assembly, and the solve (K1 once per panel)
+    within 1e-5 of the unsharded one."""
+    from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
+    from cholesky_is_magic_tpu_torch.ops import sparse_ops
+
+    eng, sf = _at_scale_engine(dev)
+    vals, _ = scale_constraints(sf.a_rows, sf.a_vals, sf.b)
+    m, n = sf.ncons, sf.nvars
+    E = sparse_ops.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), device=dev)
+    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), device=dev)
+    rng = np.random.default_rng(14)
+    d = torch.tensor(rng.random(n) + 0.5, dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.normal(size=m), dtype=torch.float32, device=dev)
+    boost = torch.zeros(m, dtype=torch.float32, device=dev)
+    assert torch.equal(eng.assemble_pairs_tp(nccl_mesh, d, boost),
+                       eng.assemble_pairs(d, boost))
+    before = _counts()
+    y_tp, ok_tp = eng.solve_normal_ell(E, ET, d, g, refine_steps=1, mesh=nccl_mesh)
+    got = {k: v - before[k] for k, v in _counts().items()}
+    y, ok = eng.solve_normal_ell(E, ET, d, g, refine_steps=1)
+    assert bool(ok_tp) and bool(ok)
+    assert float((y_tp - y).norm() / y.norm()) <= 1e-5
+    assert (got["assemble_pairs"], got["potrf_tile"]) == (1, eng.B)
+    assert got["assemble_pairs_batched"] == got["potrf_tile_batched"] == 0
+
+
+@pytest.mark.parametrize("ntp", [2, 4])
+def test_slab_assembly_kernels_on_the_card(dev, ntp):
+    """The tp mode's assembly on the m = 16384 schedule without a process
+    group: each rank's slab by the assembly kernel over the slab's own
+    schedule is bit-equal to the plain slab assembly, only rank 0's carries
+    the boost, and the slabs sum to the whole assembly within
+    8·eps32·Σ|w·d²| per entry (a run cut by a slab boundary is summed in
+    two parts)."""
+    eng, sf = _at_scale_engine(dev)
+    rng = np.random.default_rng(15)
+    d = torch.tensor(rng.random(sf.nvars) + 0.5, dtype=torch.float32, device=dev)
+    boost = torch.tensor((rng.random(sf.ncons) < 0.1) * 0.5, dtype=torch.float32,
+                         device=dev)
+    parts = []
+    for rank in range(ntp):
+        slab = eng._slab(ntp, rank)
+        assert slab.boost == (rank == 0)
+        tiles = tiled_cuda.assemble_pairs(eng, d, boost, slab.kernel)
+        assert torch.equal(tiles, eng._assemble_pairs_plain(d, boost, slab))
+        parts.append(tiles)
+    whole = eng.assemble_pairs(d, boost)
+    absw = torch.zeros_like(whole).view(-1).index_add_(
+        0, eng.asm_dst_flat, (eng.asm_w * d[eng.asm_k] ** 2).abs())
+    err = (sum(parts) - whole).abs().view(-1)
+    assert bool((err <= 8 * EPS32 * absw).all())
+
+
+def test_dense_a_engine_batch_on_the_card(dev):
+    """A batch of 4 dense states of one A (the family of
+    tests/test_parallel.py:321-329, block 16, f32) on engine_for: each
+    lane's assembled tiles within 1e-6 (relative to the largest entry) of
+    the single engine's assembly of that lane (a batched matmul may round
+    apart); on those tiles the batched tile kernel gives each lane the
+    single launch's factor and inverse bit for bit; batched pdas then
+    pdas_dd on the engine launch the batched tile and dd kernels and no
+    single one, every lane at its single solve's status (or a finisher at
+    the f32 precision floor where its twin is optimal, held as
+    chip_smoke.py phase 18 (d) holds it), the objective within 1e-6."""
+    import importlib
+
+    import cholesky_is_magic_tpu_torch as cimt
+    from cholesky_is_magic_tpu_torch import parallel
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.ingest.mps import read_mps_string
+    from cholesky_is_magic_tpu_torch.sparse import engine_for
+    from cholesky_is_magic_tpu_torch.utils import lanes
+    from cholesky_is_magic_tpu_torch.utils.testing import random_lp, write_mps
+
+    pdas = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas")
+    dd = importlib.import_module("cholesky_is_magic_tpu_torch.solvers.pdas_dd")
+    base = random_lp(11, n_ub=24, n_eq=6, n=32, bounded=True)
+    lps = []
+    for i in range(4):
+        rng = np.random.default_rng(1000 + i)
+        x0 = base.l + (base.u - base.l) * (0.2 + 0.6 * rng.random(32))
+        lane = dataclasses.replace(
+            base, b_ub=base.A_ub @ x0 + 0.05 + rng.random(base.A_ub.shape[0]),
+            b_eq=base.A_eq @ x0, c=rng.normal(size=32))
+        sf = cimt.to_standard_form(read_mps_string(write_mps(lane)))
+        lps.append(to_device_lp(sf, pad_multiple=16, dtype=torch.float32, device=dev))
+    states = [pdas.make_pdas(lp) for lp in lps]
+    eng = engine_for(states[0].lp.A, block=16, device=dev)
+    A = torch.stack([st.lp.A for st in states])
+    D = torch.tensor(np.random.default_rng(2).random((4, A.shape[2])) + 0.5,
+                     dtype=torch.float32, device=dev)
+    boost = (~states[0].lp.row_mask).float()  # the padded rows' unit diagonal
+    batched = lanes.vmap(lambda a, v: eng.assemble(a, v, boost), A, D)
+    for k in range(4):
+        one = eng.assemble(A[k], D[k], boost)
+        assert float((batched[k] - one).abs().max() / one.abs().max()) <= 1e-6
+    for t in eng._diag_ids_np:
+        T = batched[:, int(t)].contiguous()
+        L, X = chol_cuda.potrf_tile_batched(T)
+        for k in range(4):
+            L1, X1 = chol_cuda.potrf_tile(T[k])
+            assert torch.equal(L[k], L1) and torch.equal(X[k], X1)
+    c1 = pdas.PDASConfig(max_iters=200, refine_steps=2, mehrotra=True)
+    c2 = pdas.PDASConfig(max_iters=300, gap_tol=1e-9, refine_steps=2, mehrotra=True)
+    before = _counts()
+    b1 = parallel.batched_pdas(parallel.stack_states(states), c1, engine=eng)
+    b2 = parallel.batched_pdas_dd(parallel.stack_states(
+        [dd.make_pdas_dd(lp, warm=lanes.lane(b1, k)) for k, lp in enumerate(lps)]),
+        c2, engine=eng)
+    got = {k: v - before[k] for k, v in _counts().items()}
+    assert got["potrf_tile_batched"] > 0 and got["mv_batched"] > 0 and got["rmv_batched"] > 0
+    assert got["potrf_tile"] == got["mv"] == got["rmv"] == 0
+    for k, lp in enumerate(lps):
+        s1 = pdas.pdas(states[k], c1, engine=eng)
+        s2 = dd.pdas_dd(dd.make_pdas_dd(lp, warm=s1), c2, engine=eng)
+        assert int(b1.status[k]) == int(s1.status)
+        st = {int(b2.status[k]), int(s2.status)}
+        assert len(st) == 1 or st == {1, 5}  # optimal / precision floor
+        assert float(b2.objective[k]) == pytest.approx(float(s2.objective), rel=1e-6)

@@ -295,10 +295,14 @@ def test_backend_seam():
     assert bool(ok)
     np.testing.assert_allclose(solve_fn(torch.from_numpy(u)).numpy(), y.numpy(),
                                rtol=1e-10)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tbackend.prepare_normal_backend(lp, None, d, boost, 1, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbackend.prepare_normal_backend(lp, eng, d, boost, 1, per_lane=True)
+    # The engine's per-lane form (a lane of a batch of dense states) on one
+    # lane: the same solve.
+    solve_fn, ok = tbackend.prepare_normal_backend(lp, eng, d, boost, 1, per_lane=True)
+    assert bool(ok)
+    np.testing.assert_allclose(solve_fn(torch.from_numpy(u)).numpy(), y.numpy(),
+                               rtol=1e-10)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

@@ -8,19 +8,16 @@ JAX package in f64 on the CPU.
   count, every recorded iterate within 1e-6 (ROADMAP's trajectory bar);
 - ``batched_pdas`` and ``batched_pdas_dd`` with the correctors: every lane
   takes its single solve's status and count, x within 1e-12 (the accept
-  step is a per-lane select with no host read);
-- a batch of dense states on a dense-A engine still raises, naming
-  ROADMAP (not in this slice).
+  step is a per-lane select with no host read).  A batch of dense states
+  on a dense-A engine is held in tests/test_torch_dense_engine_batch.py.
 
 JAX's compile of the dd loop with its correctors is most of the cost, so
 each JAX solve runs once."""
 
-import dataclasses
 import importlib
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import cholesky_is_magic_tpu as cim
@@ -28,7 +25,6 @@ from cholesky_is_magic_tpu.ingest import to_device_lp
 from cholesky_is_magic_tpu.ingest.mps import read_mps_string
 from cholesky_is_magic_tpu.utils.testing import random_lp, write_mps
 from cholesky_is_magic_tpu_torch import convert, parallel
-from cholesky_is_magic_tpu_torch.sparse import engine_for
 from cholesky_is_magic_tpu_torch.utils import lanes
 
 jpdas = importlib.import_module("cholesky_is_magic_tpu.solvers.pdas")
@@ -105,19 +101,3 @@ def test_batched_loops_take_the_correctors():
     assert (trd.status.numpy() == 1).all()
     for k, st in enumerate(dd_states):
         _assert_lane_is_its_solve(trd, k, tdd.pdas_dd(st, dd_cfg))
-
-
-def test_batch_on_a_dense_engine_raises():
-    tl = [convert.device_lp_from_numpy(_lp(s), device="cpu") for s in SEEDS[:2]]
-    states = [tpdas.make_pdas(lp) for lp in tl]
-    eng = engine_for(states[0].lp.A, block=16, device="cpu")
-    stacked = parallel.stack_states(states)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.batched_pdas(stacked, tpdas.PDASConfig(), engine=eng)
-    dd = parallel.stack_states([tdd.make_pdas_dd(lp) for lp in tl])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parallel.batched_pdas_dd(dd, tpdas.PDASConfig(), engine=eng)
-    # The single loop takes the same engine on one lane.
-    one = tpdas.pdas(states[0], dataclasses.replace(tpdas.PDASConfig(), max_iters=2),
-                     engine=eng)
-    assert int(one.iterations) == 2

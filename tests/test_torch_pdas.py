@@ -124,7 +124,7 @@ def test_unported_options_raise():
                 tpdas.pdas(st, tpdas.PDASConfig(**one),
                            engine=tsparse.engine_for(st.lp.A, block=16, device="cpu"))):
         assert int(res.iterations) == 1 and res.status_name == plain.status_name
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpdas.pdas(st, mesh=object())
     # "inverse" is ported (tests/test_torch_batched.py); an unknown kernel
     # name raises.

@@ -131,7 +131,7 @@ def test_slabbed_refusals(slabbed):
     cfg = tpdas.PDASConfig(max_iters=20, record_trace=True)
     with pytest.raises(ValueError, match="trace"):
         parallel.batched_pdas_slabbed(slabbed["ts"], cfg)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         parallel.batched_pdas_slabbed(slabbed["ts"], mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cimt.solve_batch([], slab_iters=16, mesh=object(), device="cpu")

@@ -172,5 +172,5 @@ def test_solve_sparse_pdas_and_the_engine_contract():
                                        device="cpu")
     with pytest.raises(ValueError, match="engine"):
         tpdas.pdas(tst)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpdas.pdas(tst, engine=teng, mesh=object())
