@@ -201,6 +201,26 @@ script then exits non-zero and never prints its last line):
    own limit), its objective within 1e-6 of it; the batched tile kernel a
    multiple of the panels and both batched dd kernels launched, no single
    launch; two-phase solves/s of the batch and of the single solves.
+19. cli + tools — (a) the pilot LP and the m = 16384 LP written as MPS files
+   (read back bit-equal) and solved through the command line in this
+   process (``__main__.main``, stdout captured, counters reset before and
+   read after): the pilot with ``--solver pdas_dd`` to phase 5's bars (both
+   dd kernels launched), the m = 16384 LP with the at-scale recipe and
+   ``--report`` to phase 8's bars (the tile and assembly kernels launched;
+   the report equal to ``diag.factor_report`` of phase 8's plan), each
+   count beside its phase's; ``diag.device_memory_report`` after it (0 <
+   peak <= limit) and ``live_buffer_report`` before, after and after
+   ``gc``; then a real ``python -m cholesky_is_magic_tpu_torch afiro.mps
+   --solver pdas_dd --json`` process to phase 4's bars, the kernel library
+   loaded, not rebuilt, and its wall time; (b) ``diag.profile_trace``
+   around afiro's f32 pdas_dd (``annotate("pdas_dd")``) and one assembly,
+   factorization and solve on phase 8's engine (``annotate("engine")``):
+   the written trace's kernel events of each hand-written kernel equal to
+   its counters' deltas, both annotations in it, its size; (c) the pilot's
+   pdas state after 5 iterations through ``utils/checkpoint.py`` onto the
+   card bit-equal, a warm pdas from it in no more iterations than cold;
+   ``nan_debug`` raising on a CUDA 0/0; ``checked_solve_kkt_newton``
+   passing on a 64 x 128 f32 system and raising on a zero A.
 
 Each kernel in the JSON line carries its bound: the larger of the bytes it
 must move over 3.35 TB/s and its flops over 67 TFLOP/s (FP32 without
@@ -210,7 +230,8 @@ The second-to-last line is a JSON object describing each kernel (its
 ``launches`` summed over the main paths' runs: pdas_dd, the f32 affine
 pilot, affine at scale, the presolved pdas_dd, the crossover cases, the
 dense dd ALM phase, the batched pdas and pdas_dd, phase 17's dense-A
-engine paths and phase 18's mesh and dense-A batch paths, each also apart);
+engine paths, phase 18's mesh and dense-A batch paths and phase 19's
+command-line and traced paths, each also apart);
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -593,10 +614,10 @@ def phase_pilot(cimt, dd_cuda, card):
     if not all(launches[k] > 0 for k in ("mv", "rmv")):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     rep2, took = _timed_solve(cimt, sf, "pdas_dd", device="cuda", dtype=torch.float32)
+    counts = (rep2.summary['phase1_iterations'], rep2.summary['iterations'])
     say(f"[pilot] second solve wall-clock {took:.3f} s "
-        f"({rep2.summary['phase1_iterations']} + {rep2.summary['iterations']} "
-        f"iterations) on {card}")
-    return launches, took
+        f"({counts[0]} + {counts[1]} iterations) on {card}")
+    return launches, took, counts
 
 
 def _recon_err(L, N):
@@ -2519,6 +2540,298 @@ def phase_mesh(cimt, counters, card, pilot_s, sf8, info8):
     return paths
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# Phase 19 (b): the kernels' functions in the profiler's trace, and the
+# counters whose deltas they must equal (a batched launch runs the same
+# function).
+TRACED = {"dd_mv_kernel": ("mv", "mv_batched"),
+          "dd_rmv_kernel": ("rmv", "rmv_batched"),
+          "potrf_tile_kernel": ("potrf_tile", "potrf_tile_batched"),
+          "assemble_chunks_kernel": ("assemble_pairs", "assemble_pairs_batched")}
+
+
+def _write_mps(sf, path):
+    """A StandardForm of equality rows as an MPS file: columns in order,
+    each column's entries in the COO order, every value by ``repr``, so that
+    reading it back gives the same arrays in the same order.  (The package's
+    ``utils/testing.py::write_mps`` loops over a dense A.)"""
+    if not (np.all(sf.row_type == 0) and sf.obj_sign == 1.0):
+        raise ValueError("_write_mps takes a minimization with equality rows")
+    order = np.argsort(sf.a_cols, kind="stable")
+    rows, cols, vals = sf.a_rows[order], sf.a_cols[order], sf.a_vals[order]
+    starts = np.searchsorted(cols, np.arange(sf.nvars + 1))
+    out = ["NAME          STANDARD", "ROWS", " N  OBJ"]
+    out += [f" E  R{i}" for i in range(sf.ncons)]
+    out.append("COLUMNS")
+    for j in range(sf.nvars):
+        if sf.c[j] != 0.0 or starts[j] == starts[j + 1]:
+            out.append(f"    C{j}  OBJ  {float(sf.c[j])!r}")
+        out += [f"    C{j}  R{i}  {float(v)!r}"
+                for i, v in zip(rows[starts[j]:starts[j + 1]], vals[starts[j]:starts[j + 1]])]
+    out.append("RHS")
+    out += [f"    RHS  R{i}  {float(v)!r}" for i, v in enumerate(sf.b) if v != 0.0]
+    out.append("BOUNDS")
+    for j, (lo, hi) in enumerate(zip(sf.l, sf.u)):
+        if lo == -np.inf:
+            out.append(f" MI BND  C{j}")  # the reader's MI also sets ub = 0
+            if hi != 0.0:
+                out.append(f" UP BND  C{j}  {float(hi)!r}" if hi != np.inf
+                           else f" PL BND  C{j}")
+            continue
+        if lo != 0.0:
+            out.append(f" LO BND  C{j}  {float(lo)!r}")
+        if hi != np.inf:
+            out.append(f" UP BND  C{j}  {float(hi)!r}")
+    out.append("ENDATA")
+    with open(path, "w") as fh:
+        fh.write("\n".join(out) + "\n")
+    import cholesky_is_magic_tpu_torch as cimt
+
+    back = cimt.to_standard_form(cimt.read_mps_file(path))
+    for k in ("a_rows", "a_cols", "a_vals", "b", "c", "l", "u"):
+        if not np.array_equal(getattr(back, k), getattr(sf, k)):
+            raise AssertionError(f"{path}: {k} does not round-trip")
+
+
+def _cli(cli_main, counters, argv):
+    """``python -m cholesky_is_magic_tpu_torch`` in this process: stdout
+    captured, the counters reset just before and read just after.  Returns
+    its lines, its JSON line, the launches and the host seconds."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    _reset(*counters.values())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t
+    launches = _counted(counters)
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"CLI {argv}: exit {rc}")
+    return lines, json.loads(lines[-1]), launches, took
+
+
+def _cli_line(tag, out, err, took, launches, earlier):
+    say(f"[cli] {tag}: status {out['status']}  iterations {out['phase1_iterations']} + "
+        f"{out['iterations']} ({earlier})  gap {out['gap']:.3e}  objective "
+        f"{out['objective']:.12f}  objective error {err:.3e}  wall_seconds "
+        f"{out['wall_seconds']}  host {took:.3f} s  launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def _trace_kernels(logdir):
+    """The written trace's size in MB, its kernel events by TRACED function
+    and its annotation names."""
+    import glob
+    import re
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"profile_trace wrote {files}")
+    mb = os.path.getsize(files[0]) / 1e6
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    pats = {k: re.compile(rf"\b{k}\b") for k in TRACED}
+    counts = dict.fromkeys(TRACED, 0)
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for k, pat in pats.items():
+                if pat.search(ev.get("name", "")):
+                    counts[k] += 1
+    names = {ev.get("name") for ev in events
+             if ev.get("cat") in ("user_annotation", "gpu_user_annotation")}
+    return mb, counts, names, sum(ev.get("cat") == "kernel" for ev in events)
+
+
+def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
+    """Phase 19, the command line and the tools on the card: (a) the pilot
+    and the m = 16384 LP through ``main([...])`` from MPS files, the latter
+    with ``--report``, and afiro through a real ``python -m`` process; (b)
+    ``diag.profile_trace`` around afiro's pdas_dd and one factorization and
+    solve on phase 8's engine, its kernel events against the counters; (c)
+    ``device_memory_report``, ``live_buffer_report``, a checkpoint round
+    trip and warm start, ``nan_debug`` and ``checked_solve_kkt_newton``.
+    Returns the launches of each path."""
+    import gc
+    import tempfile
+
+    from cholesky_is_magic_tpu_torch.__main__ import main as cli_main
+    from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
+    from cholesky_is_magic_tpu_torch.kkt import dense_kkt_operator, kkt_residuals
+    from cholesky_is_magic_tpu_torch.ops import cuda_build
+    from cholesky_is_magic_tpu_torch.solvers.pdas import (
+        PDASConfig,
+        make_pdas,
+        make_pdas_sparse,
+        pdas,
+    )
+    from cholesky_is_magic_tpu_torch.utils import checkpoint, diag, lanes
+    from cholesky_is_magic_tpu_torch.utils.testing import constructed_optimum_lp
+
+    t_phase = time.perf_counter()
+    paths = {}
+    sf5, info5 = constructed_optimum_lp("pilot", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI at full width.
+        pilot_mps, scale_mps = os.path.join(tmp, "pilot.mps"), os.path.join(tmp, "m16384.mps")
+        t = time.perf_counter()
+        _write_mps(sf5, pilot_mps)
+        _write_mps(sf8, scale_mps)
+        say(f"[cli] MPS files written and read back bit-equal in "
+            f"{time.perf_counter() - t:.3f} s: pilot {os.path.getsize(pilot_mps) / 1e6:.1f} MB,"
+            f" m = 16384 {os.path.getsize(scale_mps) / 1e6:.1f} MB")
+        _, out, launches, took = _cli(cli_main, counters, [
+            pilot_mps, "--solver", "pdas_dd", "--json", "--pad", "128"])
+        ref = info5["objective"]
+        err = abs(out["objective"] - ref) / (1.0 + abs(ref))
+        _cli_line("pilot pdas_dd", out, err, took, launches,
+                  f"phase 5: {pilot_counts[0]} + {pilot_counts[1]}")
+        if not (out["gap"] <= 1e-8 and err <= 1e-7 and launches["mv"] > 0
+                and launches["rmv"] > 0):
+            raise AssertionError(f"cli pilot: {out}, {launches}")
+        paths["cli pilot pdas_dd"] = launches
+
+        live = [diag.live_buffer_report()]
+        lines, out, launches, took = _cli(cli_main, counters, [
+            scale_mps, "--solver", "pdas_dd", "--sparse", "--block", "128", "--mehrotra",
+            "--entry-repair-tol", "1e-6", "--json", "--report"])
+        live.append(diag.live_buffer_report())
+        ref = info8["objective"]
+        err = abs(out["objective"] - ref) / abs(ref)
+        _cli_line("m = 16384 pdas_dd", out, err, took, launches,
+                  f"phase 8: {rep8.summary['phase1_iterations']} + "
+                  f"{rep8.summary['iterations']}")
+        if not (out["gap"] <= 1e-6 and err <= 1e-5 and launches["potrf_tile"] > 0
+                and launches["assemble_pairs"] > 0):
+            raise AssertionError(f"cli at scale: {out}, {launches}")
+        paths["cli at scale pdas_dd"] = launches
+        report, direct = "\n".join(lines[:-1]), diag.factor_report(eng8.plan)
+        say("[cli] --report: " + report.replace("\n", " | "))
+        if report != direct:
+            raise AssertionError(f"--report differs from factor_report on phase 8's plan:"
+                                 f"\n{report}\n{direct}")
+        mem = diag.device_memory_report()
+        mib = {k: mem[k] / 2**20 for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")}
+        say(f"[memory] after the m = 16384 CLI run: in use {mib['bytes_in_use']:.1f} MiB,"
+            f" peak {mib['peak_bytes_in_use']:.1f} MiB, limit {mib['bytes_limit']:.1f} MiB")
+        if not 0 < mem["peak_bytes_in_use"] <= mem["bytes_limit"]:
+            raise AssertionError(f"device_memory_report: {mib}")
+        del lines, out
+        gc.collect()
+        live.append(diag.live_buffer_report())
+        say("[memory] live tensors before / after the run / after del and gc: "
+            + " / ".join(f"{r['count']} storages {r['bytes'] / 2**20:.1f} MiB" for r in live))
+
+        lib = cuda_build.library_path()
+        built = (lib.stat().st_mtime_ns, sorted(os.listdir(lib.parent)))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cholesky_is_magic_tpu_torch", AFIRO, "--solver",
+             "pdas_dd", "--json"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        took = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        err = abs(out["objective"] - AFIRO_OPTIMUM) / abs(AFIRO_OPTIMUM)
+        same_lib = (lib.stat().st_mtime_ns, sorted(os.listdir(lib.parent))) == built
+        say(f"[cli] python -m cholesky_is_magic_tpu_torch afiro.mps --solver pdas_dd --json:"
+            f" exit 0 in {took:.3f} s (process start, import, CUDA context, solve);"
+            f" status {out['status']}  {out['phase1_iterations']} + {out['iterations']}"
+            f"  gap {out['gap']:.3e}  objective error {err:.3e}  wall_seconds"
+            f" {out['wall_seconds']}; kernel library loaded from {lib.name}, not rebuilt:"
+            f" {same_lib}")
+        if not (out["gap"] <= 1e-8 and err <= 1e-7 and same_lib):
+            raise AssertionError(f"python -m afiro: {out}, library unchanged {same_lib}")
+
+    # (b) profile_trace on the card.
+    st8, _ = make_pdas_sparse(sf8, engine=eng8, device="cuda")
+    x = rep8.result.x
+    s = torch.sqrt(torch.clamp_min(torch.minimum(x - st8.lp.l, st8.lp.u - x), 1e-6))
+    boost = torch.zeros(st8.lp.m, device="cuda")
+    rhs = torch.ones(eng8.B * eng8.b, device="cuda")
+    with tempfile.TemporaryDirectory() as logdir:
+        before = _counted(counters)
+        t = time.perf_counter()
+        with diag.profile_trace(logdir):
+            with diag.annotate("pdas_dd"):
+                rep = cimt.solve(AFIRO, "pdas_dd", device="cuda", dtype=torch.float32)
+            torch.cuda.synchronize()
+            mid = _counted(counters)
+            with diag.annotate("engine"):
+                L, invd, ok = eng8.factorize(eng8.assemble_pairs(s, boost))
+                y = eng8.solve(L, invd, rhs)
+        took = time.perf_counter() - t
+        after = _counted(counters)
+        mb, counts, names, n_kernels = _trace_kernels(logdir)
+    paths["trace afiro pdas_dd"] = {k: mid[k] - before[k] for k in after}
+    paths["trace engine"] = {k: after[k] - mid[k] for k in after}
+    deltas = {f: sum(after[k] - before[k] for k in ks) for f, ks in TRACED.items()}
+    say(f"[trace] profile_trace around afiro pdas_dd ({rep.summary['phase1_iterations']} +"
+        f" {rep.summary['iterations']}, gap {rep.summary['gap']:.3e}) and one factorization"
+        f" + solve on phase 8's engine (ok {bool(ok)}, y finite"
+        f" {bool(torch.isfinite(y).all())}): {took:.3f} s, trace {mb:.1f} MB,"
+        f" {n_kernels} kernel events; hand-written kernels in the trace {counts},"
+        f" counter deltas {deltas}; annotations {sorted(n for n in names if n in ('pdas_dd', 'engine'))}")
+    if counts != deltas or not {"pdas_dd", "engine"} <= names or not all(deltas.values()):
+        raise AssertionError(f"trace: kernels {counts} vs counters {deltas}, annotations {names}")
+    if not (bool(ok) and bool(torch.isfinite(y).all()) and rep.summary["gap"] <= 1e-8):
+        raise AssertionError("trace: the traced solve or factorization failed")
+
+    # (c) checkpoint, checked mode.
+    lp = to_device_lp(sf5, pad_multiple=128, dtype=torch.float32, device="cuda")
+    st = make_pdas(lp)
+    r5 = pdas(st, PDASConfig(max_iters=5))
+    mid_st = dataclasses.replace(st, x=r5.x, y=r5.extra["y"], w=r5.extra["w"], z=r5.extra["z"])
+    with tempfile.TemporaryDirectory() as ck:
+        checkpoint.save(ck, mid_st)
+        size = os.path.getsize(os.path.join(ck, "state.pt")) / 2**20
+        restored = checkpoint.load(ck, make_pdas(lp))
+    got, want = lanes.flatten(restored)[0], lanes.flatten(mid_st)[0]
+    equal = len(got) == len(want) and all(
+        a.is_cuda and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+    cold = pdas(make_pdas(lp), PDASConfig())
+    warm = pdas(make_pdas(lp, warm=restored), PDASConfig())
+    say(f"[checkpoint] pilot pdas state after 5 iterations ({len(want)} tensors,"
+        f" {size:.1f} MiB): loaded onto cuda bit-equal {equal}; cold pdas"
+        f" {int(cold.iterations)} iterations ({cold.status_name}), warm from the checkpoint"
+        f" {int(warm.iterations)} ({warm.status_name})")
+    if not (equal and int(warm.iterations) <= int(cold.iterations)):
+        raise AssertionError("checkpoint: round trip or warm start")
+    try:
+        with diag.nan_debug():
+            zero = torch.zeros(4, device="cuda")
+            zero / zero
+    except FloatingPointError as e:
+        say(f"[nan_debug] CUDA 0/0 raised FloatingPointError: {e}")
+    else:
+        raise AssertionError("nan_debug: a CUDA 0/0 did not raise")
+    rng = np.random.default_rng(1)
+    m, n = 64, 128
+    put = lambda v: torch.as_tensor(v, dtype=torch.float32, device="cuda")  # noqa: E731
+    pos = lambda k: put(0.1 + rng.random(k))  # noqa: E731
+    A = put(rng.normal(size=(m, n)))
+    sl, su, w, z, e, f = (pos(n) for _ in range(6))
+    g, h = put(rng.random(m)), pos(n)
+    op = dense_kkt_operator(A)
+    deltas = diag.checked_solve_kkt_newton(sl, su, w, z, op, e, f, g, h)
+    res = kkt_residuals(sl, su, w, z, op, e, f, g, h, deltas)
+    try:
+        diag.checked_solve_kkt_newton(sl, su, w, z, dense_kkt_operator(torch.zeros_like(A)),
+                                      e, f, g, h)
+    except diag.KKTCheckError as err:
+        raised = str(err)
+    else:
+        raise AssertionError("checked_solve_kkt_newton: a zero A did not raise")
+    say(f"[checked] f32 CUDA KKT system {m} x {n}: passed, residuals "
+        f"{[f'{float(r):.2e}' for r in res]}; zero A raised: {raised}")
+    say(f"[cli] phase 19 took {time.perf_counter() - t_phase:.3f} s")
+    return paths
+
+
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
@@ -2535,7 +2848,7 @@ def main() -> int:
     stats = phase_kernels(ddm, dd_cuda)
     phase_afiro(cimt)
     phase_afiro_f64(cimt, counters)
-    launches, pilot_s = phase_pilot(cimt, dd_cuda, card)
+    launches, pilot_s, pilot_counts = phase_pilot(cimt, dd_cuda, card)
     chol_launches = phase_chol(chol, chol_cuda, dense, stats)
     launches.update(potrf_panel=chol_launches["potrf_panel"],
                     potrf_schur=chol_launches["potrf_schur"])
@@ -2561,6 +2874,7 @@ def main() -> int:
                                       same_sfs, same_highs))
     by_path.update(phase_dense_engines(cimt, counters, card, pilot_s))
     by_path.update(phase_mesh(cimt, counters, card, pilot_s, sf, info))
+    by_path.update(phase_cli(cimt, counters, card, sf, info, eng, rep, pilot_counts))
     say(card_line())  # name, power limit: exactly as nvidia-smi prints them
     # Every kernel's max_abs_err, ms, plain_ms, bound_ms, bound_by and
     # library_ms; the panel kernel's ms_with_copy and the assembly kernel's
