@@ -19,7 +19,10 @@ script then exits non-zero and never prints its last line):
    that do not start on a 16-byte boundary (A and x at a 4-byte storage
    offset, each and both), and kernel vs plain median times by CUDA events
    at (1536, 5120), (1536, 1536) and (4096, 8192), the L2 cache flushed before each run
-   and the card held asleep until the host has queued the launches;
+   and the card held asleep until the host has queued the launches; dd A·x
+   bit for bit against its summation order (``dd_cuda.mv_order_plain``) on
+   long rows (1536, 5120) and on short rows at afiro's pad-128 shape
+   (128, 128), timed there;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum; then in f64,
    dense and fully sparse (block 16), which takes the plain PyTorch forms on
@@ -117,7 +120,7 @@ script then exits non-zero and never prints its last line):
    batched pdas's N, (256, 64, 128) and (256, 64, 192), the finisher's AD
    of the same-shape and the mixed batch, and (8, 1536, 5120), each lane
    bit for bit against the single kernel (A at a 4-byte storage offset
-   too), within 64·eps32² of Σ|a_ij x_j| of the plain batched form, dd A·x
+   too) and dd A·x against its summation order, within 64·eps32² of Σ|a_ij x_j| of the plain batched form, dd A·x
    against the f64 truth, and CUDA-event medians of the batched launch,
    of a Python loop of B single launches and of the plain batched form;
    (b) 1024 LPs of random_lp(s, 24, 8, 48, density 0.3) in one (64, 128)
@@ -534,6 +537,28 @@ def phase_kernels(ddm, dd_cuda):
                 normal.update(ms=k, plain_ms=p, library_ms=None, **bound)
         del A, x, y
         torch.cuda.empty_cache()
+    # Both dd A·x kernels bit for bit against their summation order: the
+    # block per row at the pilot's rows, the short-row kernel at afiro's
+    # pad-128 shape (128, 128), which the dense f32 afiro solve takes and
+    # whose count follows that order; the short one timed there.
+    for m, n in ((1536, 5120), (128, 128)):
+        A, x, _ = _inputs(m, n, 9)
+        got, want = dd_cuda.dd_mv(A, x), dd_cuda.mv_order_plain(A, x)
+        same = torch.equal(got[0], want.hi) and torch.equal(got[1], want.lo)
+        route = "short rows" if n <= dd_cuda.MV_SHORT_MAX else "a block per row"
+        say(f"[kernels] mv ({m}, {n}) ({route}): bit-equal to its summation order"
+            f" (dd_cuda.mv_order_plain) {same}")
+        if not same:
+            raise AssertionError(f"dd A·x at ({m}, {n}) leaves its summation order")
+    p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=0.2) for f in (
+        lambda: ddm._dd_matvec_plain(A, x), lambda: ddm.dd_matvec(A, x),
+        lambda: ddm.dd_matvec(A, x), lambda: ddm._dd_matvec_plain(A, x)))
+    bound = _bound(_nbytes(A, x) + 8 * m, 14 * m * n)
+    say(f"[kernels] mv ({m}, {n}), afiro's pad-128 shape, median ms: kernel {k1:.4f} {k2:.4f}"
+        f"  plain {p1:.4f} {p2:.4f}  bound {bound['bound_ms']:.5f} ({bound['bound_by']})")
+    err = (_f64(ddm.DD(*got)) - _f64(ddm._dd_matvec_plain(A, x))).abs().max().item()
+    stats["mv"]["at_128x128"] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                                     max_abs_err=err, **bound)
     del flush
     stats["mv"]["at_1536x1536"] = normal
     return stats
@@ -664,18 +689,21 @@ def phase_chol(chol, chol_cuda, dense, stats):
             tile = lambda: (work.copy_(N), chol.factor_tile_(work, inv))  # noqa: E731
             plain = lambda: chol._factor_tile_plain(N)  # noqa: E731
             p1, k1, k2, p2 = (_median_ms(f) for f in (plain, tile, tile, plain))
+            # Reads the lower triangle, writes L and L⁻¹; b³/3 flops for the
+            # factor and b³/3 for the inverse.
+            bound = _bound(4 * (b * (b + 1) // 2 + 2 * b * b), 2 * b**3 / 3)
             say(f"[chol] tile b={b} median ms (with the tile copy): "
                 f"factor_tile_ {k1:.4f} {k2:.4f}  plain (cholesky_ex + "
                 f"solve_triangular) {p1:.4f} {p2:.4f} ({-(-b // chol_cuda.BLOCK)}"
-                f" tile-kernel launches per tile)")
+                f" tile-kernel launches per tile; bound of the factor alone"
+                f" {bound['bound_ms']:.6f}, {bound['bound_by']})")
         if b == 128:
+            alone = _tile_kernel_ms(chol_cuda, N)
             say(f"[chol] tile kernel alone at b=128, back-to-back launches: "
-                f"{_tile_kernel_ms(chol_cuda, N):.4f} ms each")
-            # Reads the lower triangle, writes L and L⁻¹; b³/3 flops for the
-            # factor and b³/3 for the inverse.
+                f"{alone:.4f} ms each (bound {bound['bound_ms']:.6f}, {bound['bound_by']})")
             stats["potrf_tile"] = dict(
                 max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
-                **_bound(4 * (b * (b + 1) // 2 + 2 * b * b), 2 * b**3 / 3))
+                alone_ms=alone, **bound)
     for b, pivot in ((64, 30), (256, 200)):
         bad = _spd(b, 5)
         bad[pivot, pivot] = -1.0
@@ -1576,8 +1604,10 @@ def _batch_kernels(ddm, dd_cuda, stats):
             mv, rmv = dd_cuda.dd_mv_batched(A, x), dd_cuda.dd_rmv_batched(A, y)
             one = [dd_cuda.dd_mv(A[k], x[k]) for k in range(B)]
             rone = [dd_cuda.dd_rmv(A[k], y[k]) for k in range(B)]
+            order = dd_cuda.mv_order_plain(A, x)
             same = (torch.equal(mv[0], torch.stack([o[0] for o in one]))
                     and torch.equal(mv[1], torch.stack([o[1] for o in one]))
+                    and torch.equal(mv[0], order.hi) and torch.equal(mv[1], order.lo)
                     and torch.equal(rmv[0], torch.stack([o[0] for o in rone]))
                     and torch.equal(rmv[1], torch.stack([o[1] for o in rone])))
             errs = {}
@@ -1593,7 +1623,8 @@ def _batch_kernels(ddm, dd_cuda, stats):
             t_ratio = ((_f64(ddm.DD(*mv)) - true).abs()
                        / (1e-11 + 1e-11 * true.abs())).max().item()
             say(f"[batch kernels] ({B}, {m}, {n}){' A at a 4-byte offset' if off else ''}:"
-                f" each lane bit-equal to the single kernel {same}; vs plain max err /"
+                f" each lane bit-equal to the single kernel (mv also to its summation order)"
+                f" {same}; vs plain max err /"
                 f" (eps32^2 sum|ax|) mv {errs['mv'][1]:.3f} rmv {errs['rmv'][1]:.3f}"
                 f" (limit {PLAIN_TOL}); mv vs f64 truth worst err/tol {t_ratio:.3e}")
             if not (same and errs["mv"][1] <= PLAIN_TOL and errs["rmv"][1] <= PLAIN_TOL
@@ -2541,10 +2572,11 @@ def phase_mesh(cimt, counters, card, pilot_s, sf8, info8):
 
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# Phase 19 (b): the kernels' functions in the profiler's trace, and the
-# counters whose deltas they must equal (a batched launch runs the same
-# function).
-TRACED = {"dd_mv_kernel": ("mv", "mv_batched"),
+# Phase 19 (b): the kernels' functions in the profiler's trace (a pattern of
+# names: dd A·x is either kernel, rows of at most dd_cuda.MV_SHORT_MAX
+# columns taking the short-row one), and the counters whose deltas they must
+# equal (a batched launch runs the same functions).
+TRACED = {"dd_mv_kernel|dd_mv_short_kernel": ("mv", "mv_batched"),
           "dd_rmv_kernel": ("rmv", "rmv_batched"),
           "potrf_tile_kernel": ("potrf_tile", "potrf_tile_batched"),
           "assemble_chunks_kernel": ("assemble_pairs", "assemble_pairs_batched")}
@@ -2635,7 +2667,7 @@ def _trace_kernels(logdir):
     mb = os.path.getsize(files[0]) / 1e6
     with open(files[0]) as fh:
         events = json.load(fh)["traceEvents"]
-    pats = {k: re.compile(rf"\b{k}\b") for k in TRACED}
+    pats = {k: re.compile(rf"\b(?:{k})\b") for k in TRACED}
     counts = dict.fromkeys(TRACED, 0)
     for ev in events:
         if ev.get("cat") == "kernel":

@@ -19,10 +19,23 @@
 // What bounds them on the H100: each element of A is read once (4 bytes) and
 // costs ~10 flops, so both kernels are bound by device-memory bandwidth.
 // The design keeps A's reads coalesced and reads A exactly once:
-//   mv:  one block of 128 threads per row, threads striding over the columns
-//        (neighbouring threads read neighbouring addresses), a warp-shuffle
-//        dd_add tree and a shared-memory step across the block's 4 warps;
-//        no partials array.
+//   mv:  the order of the sums is fixed by one block of 128 threads per row,
+//        threads striding over the columns (neighbouring threads read
+//        neighbouring addresses), a warp-shuffle dd_add tree and the block's
+//        4 warp sums added in order; dd_mv_kernel is that block, no partials
+//        array.  Rows of at most kMvShortMax columns take
+//        dd_mv_short_kernel instead, the same sums in the same order (the
+//        same bits): a warp per group of rows, each lane playing four of the
+//        block's threads, and one butterfly of dd_adds reducing the group's
+//        warp trees together.  A 128-thread block on a 64-column row (the
+//        batched pdas shape) left half its threads idle and paid a block's
+//        latency, a tree and a barrier per row; by
+//        tools/probe_mv_kernel.py on an NVIDIA H100 80GB HBM3 at 700.00 W the
+//        warp kernel takes (1024, 64, 64) from 0.0567 to 0.0201 ms (bound
+//        0.0052, bytes) and (256, 64, 128) from 0.0211 to 0.0119 (bound
+//        0.0026); the block kernel stays ahead on single launches from 512
+//        columns on (with the short kernel, 1536 rows leave the card too few
+//        warps), hence kMvShortMax = 384.
 //   rmv: row slabs on the grid's second dimension so that enough blocks
 //        fill the card in one wave; a thread owns kRmvCols neighbouring
 //        columns (one load per row where the rows are aligned to that many
@@ -49,9 +62,8 @@
 // (rmv), each lane at its own strides for A and x (a stride of 0 shares one
 // operand across the lanes).  A lane's arithmetic and order are those of
 // the single launch, so each lane is bit-equal to the single call on it;
-// the single call is the batch of one.  A lane of a batched N at the batched
-// pdas shape (64 x 64) leaves most of a block's threads idle: simple and
-// right first.
+// the single call is the batch of one; the short-row kernel runs the rows of
+// all lanes one after another.
 
 #include <cuda_runtime.h>
 
@@ -109,8 +121,26 @@ __device__ __forceinline__ dd warp_dd_sum(dd v) {
   return v;
 }
 
+// m ? a : b for a mask m of all ones or all zeros, by bit operations, which
+// the compiler cannot turn into an index into an array of registers (and so
+// into local memory) as it may a ?: between two of its elements.
+__device__ __forceinline__ float select(unsigned m, float a, float b) {
+  return __uint_as_float((__float_as_uint(a) & m) | (__float_as_uint(b) & ~m));
+}
+
+__device__ __forceinline__ dd select(unsigned m, dd a, dd b) {
+  return {select(m, a.hi, b.hi), select(m, a.lo, b.lo)};
+}
+
 constexpr int kMvThreads = 128;
 constexpr int kMvWarps = kMvThreads / 32;
+// Short rows: rows of at most kMvShortMax columns take dd_mv_short_kernel,
+// kShortWarps warps a block.
+constexpr int kMvShortMax = 384;
+constexpr int kShortWarps = 4;
+constexpr int kShortThreads = 32 * kShortWarps;
+constexpr int kShortFill = 132 * 16;  // warps the launch aims for: 16 an SM
+constexpr int kShortTrees = 8;        // rows times virtual warps a warp reduces at once
 
 // Aᵀ·x: threads per block, neighbouring columns per thread (one rmv_vec
 // load per row), rows per load chunk, slabs per load batch of the combine.
@@ -152,6 +182,120 @@ dd_mv_kernel(const float* __restrict__ A, const float* __restrict__ x,
     for (int w = 1; w < kMvWarps; ++w) t = dd_add(t, dd{warp_hi[w], warp_lo[w]});
     hi[row] = t.hi;
     lo[row] = t.lo;
+  }
+}
+
+// The short-row kernel's butterfly on the HALF * 2 trees each lane holds:
+// the lanes with bit H keep the upper half, trade the lower half with lane
+// i ^ H and add the pair of positions (lower first) into acc[0 .. HALF); then
+// the same with HALF / 2 at offset H / 2, down to one tree a lane.
+template <int HALF, int H, int N>
+__device__ __forceinline__ void butterfly(dd (&acc)[N], int i) {
+  if constexpr (HALF > 0) {
+    const unsigned up = (i & H) ? ~0u : 0u;  // keeps the upper half
+#pragma unroll
+    for (int u = 0; u < HALF; ++u) {
+      const dd keep = select(up, acc[HALF + u], acc[u]);
+      const dd send = select(up, acc[u], acc[HALF + u]);
+      dd got;
+      got.hi = __shfl_xor_sync(0xffffffffu, send.hi, H);
+      got.lo = __shfl_xor_sync(0xffffffffu, send.lo, H);
+      acc[u] = dd_add(select(up, got, keep), select(up, keep, got));
+    }
+    butterfly<HALF / 2, H / 2>(acc, i);
+  }
+}
+
+// dd_mv_kernel's sums for short rows: a warp per R rows, rows of all lanes
+// one after another (row g of lane g / m at g % m), kShortWarps warps a
+// block.  Lane i plays the threads i, i + 32, i + 64 and i + 96 of
+// dd_mv_kernel's block for each of its rows (that block's warps 0 to 3,
+// here virtual warps), each with its own accumulator over the columns
+// j = t, t + kMvThreads, ... in ascending order, loaded as those threads load
+// them, every row's loads of a chunk of kMvThreads columns issued before any
+// is added; V is the number of virtual warps with a column (1 for n <= 32,
+// 2 for n <= 64, else 4), the rest sum zeros to {+0, +0}.  The warp then
+// holds T = R V trees (row q, virtual warp v: tree q V + v), one value per
+// position, and reduces all of them at once: at offsets h = 16, 8, ... while
+// a lane holds more than one tree (a butterfly), each lane keeps half of its
+// trees, trades the other half with lane i ^ h and adds the pair of
+// positions p and p + h with dd_add, the lower position first; the
+// remaining offsets add position p + h into p as a shuffle tree does.  Each
+// tree's sum is dd_mv_kernel's shuffle tree for its lane 0, for T - 1 +
+// log2(32 / T) dd_adds a lane where a tree at a time would take 5 T.  The
+// lane holding row q's virtual warp 0 adds the row's four sums in order 0,
+// 1, 2, 3, the all-zero ones included, and stores it: the single kernel's
+// arithmetic in its order, so the same bits.
+template <int V, int R>
+__global__ void __launch_bounds__(kShortThreads)
+dd_mv_short_kernel(const float* __restrict__ A, const float* __restrict__ x,
+                   float* __restrict__ hi, float* __restrict__ lo, int m, int n,
+                   long long lda, int lanes, long long lane_a, long long lane_x) {
+  constexpr int T = R * V;                             // trees: 1 to 32
+  constexpr int TB = T >= 32 ? 5 : T >= 16 ? 4 : T >= 8 ? 3 : T >= 4 ? 2 : T >= 2 ? 1 : 0;
+  static_assert((1 << TB) == T, "a power of two of trees");
+  constexpr int S = 32 >> TB;  // lanes per tree once the butterfly is done
+  const int i = threadIdx.x & 31;
+  const long long g0 =
+      (static_cast<long long>(blockIdx.x) * kShortWarps + (threadIdx.x >> 5)) * R;
+  const long long rows = static_cast<long long>(lanes) * m;
+  if (g0 >= rows) return;
+  // g0's lane and row (rows < 2^31: the launcher's condition).
+  const int k0 = static_cast<int>(g0) / m, r0 = static_cast<int>(g0) % m;
+  dd acc[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) acc[t] = {0.0f, 0.0f};
+  for (int j0 = i; j0 < n; j0 += kMvThreads) {
+    float av[R][V], xv[R][V];
+    int k = k0, r = r0;
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const bool in = g0 + q < rows;
+      const float* a = A + k * lane_a + static_cast<long long>(r) * lda;
+      const float* xk = x + k * lane_x;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int j = j0 + 32 * v;
+        av[q][v] = in && j < n ? __ldg(a + j) : 0.0f;
+        xv[q][v] = in && j < n ? __ldg(xk + j) : 0.0f;
+      }
+      if (++r == m) {
+        r = 0;
+        ++k;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (j0 + 32 * v < n) dd_accumulate(acc[q * V + v], av[q][v], xv[q][v]);
+      }
+    }
+  }
+  butterfly<T / 2, 16>(acc, i);
+  // Lane i now holds tree i >> (5 - TB) at position i mod S.
+#pragma unroll
+  for (int h = S / 2; h > 0; h >>= 1) {
+    dd o;
+    o.hi = __shfl_down_sync(0xffffffffu, acc[0].hi, h);
+    o.lo = __shfl_down_sync(0xffffffffu, acc[0].lo, h);
+    acc[0] = dd_add(acc[0], o);
+  }
+  // Tree t's sum is in lane t S; a row's virtual warps are V trees apart.
+  dd t = acc[0];
+#pragma unroll
+  for (int v = 1; v < kMvWarps; ++v) {
+    dd y = {0.0f, 0.0f};
+    if (v < V) {
+      y.hi = __shfl_down_sync(0xffffffffu, acc[0].hi, v * S);
+      y.lo = __shfl_down_sync(0xffffffffu, acc[0].lo, v * S);
+    }
+    t = dd_add(t, y);
+  }
+  const int q = i / (S * V);
+  if (i % (S * V) == 0 && g0 + q < rows) {
+    hi[g0 + q] = t.hi;
+    lo[g0 + q] = t.lo;
   }
 }
 
@@ -346,8 +490,28 @@ namespace {
 int launch_mv(const float* A, const float* x, float* hi, float* lo, int m,
               int n, long long lda, int lanes, long long lane_a,
               long long lane_x, cudaStream_t s) {
-  dd_mv_kernel<<<dim3(m, lanes), kMvThreads, 0, s>>>(A, x, hi, lo, m, n, lda,
-                                                     lane_a, lane_x);
+  const long long rows = static_cast<long long>(m) * lanes;
+  if (n <= kMvShortMax && rows < (1ll << 31)) {
+    // Rows per warp: the most, up to 32 / V, that still gives every SM
+    // kShortFill warps to run.
+    const int V = n <= 32 ? 1 : (n <= 64 ? 2 : kMvWarps);
+    int R = kShortTrees / V;
+    while (R > 1 && (rows + R - 1) / R < kShortFill) R >>= 1;
+    const dim3 grid(static_cast<unsigned>((rows + R * kShortWarps - 1) / (R * kShortWarps)));
+    switch (V * 64 + R) {
+#define CIM_SHORT(v, r)                                                               \
+  case v * 64 + r:                                                                   \
+    dd_mv_short_kernel<v, r><<<grid, kShortThreads, 0, s>>>(A, x, hi, lo, m, n, lda, \
+                                                             lanes, lane_a, lane_x); \
+    break;
+      CIM_SHORT(1, 8) CIM_SHORT(1, 4) CIM_SHORT(1, 2) CIM_SHORT(1, 1)
+      CIM_SHORT(2, 4) CIM_SHORT(2, 2) CIM_SHORT(2, 1) CIM_SHORT(4, 2) CIM_SHORT(4, 1)
+#undef CIM_SHORT
+    }
+  } else {
+    dd_mv_kernel<<<dim3(m, lanes), kMvThreads, 0, s>>>(A, x, hi, lo, m, n, lda, lane_a,
+                                                       lane_x);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

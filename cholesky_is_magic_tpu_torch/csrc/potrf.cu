@@ -14,7 +14,8 @@
 //                         diagonal tile (ops/chol.py splits wider tiles);
 //                         the batched solvers once per panel on every
 //                         lane's diagonal tile, a CTA per lane, in one
-//                         launch (cim_potrf_tile_f32_batched).
+//                         launch (cim_potrf_tile_f32_batched), which lasts
+//                         one tile's latency while lanes <= SMs.
 //   potrf_panel_kernel <- P = A_panel . Minv^T, written in place, and the
 //                         zeroing of the panel's upper strip.
 //   potrf_schur_kernel <- the trailing update S -= P . P^T, lower triangle.
@@ -38,24 +39,51 @@
 //          CTA barriers each, rank-1 updates read from and written back to
 //          shared memory) spends ~2 us per step waiting on barriers and
 //          shared-memory latency.
-//          The kernel is right-looking over 32-column sub-panels instead:
-//          one warp factors and inverts the 32 x 32 diagonal block in
-//          registers (lane i holds row i of the block and column i of its
-//          inverse; the pivot column travels by __shfl_sync, no barrier);
-//          then all warps run register-tiled 4 x 4 products out of shared
-//          memory: the sub-panel below (L21 = A21 . X11^T), the block row of
-//          the inverse (X_pq = X_pp . Y_pq) and one fused trailing update
-//          that lowers A22 by L21 . L21^T and the running sums
-//          Y = -sum L . X of the inverse's later block rows by L21 . X_p.
-//          Three barriers per sub-panel (13 at b = 128 instead of 256).
-//          The tile, its inverse and one 32-row staging panel stay in
-//          shared memory (157 KB at b = 128; rows padded by 4 floats so that
-//          neighbouring rows fall in different banks), loaded by cp.async.
-//          Measured with clock64() probes on an H100
-//          (tools/probe_tile_kernel.py): the four diagonal blocks are half of
-//          the kernel's cycles, ~430 cycles (0.2 us) per column step; only
-//          the lanes that need a quotient divide, since __fdiv_rn of a zero
-//          or stale entry takes its slow path.
+//          The kernel is right-looking over 32-column sub-panels instead,
+//          with a look-ahead of one sub-panel, so that the chain of pivots
+//          is the critical path and the products run beside it.  Per
+//          sub-panel p, two phases between CTA barriers:
+//          B: warp 0 factors the 32 x 32 diagonal block in registers (lane i
+//             holds row i; the next pivot goes out by one __shfl_sync ahead
+//             of the step's updates; each column of L goes to shared memory
+//             and back as broadcast loads); warp 1 inverts it one column
+//             step behind, reading each step's column once warp 0's step
+//             count (a release store, an acquire load) has reached it; the
+//             product warps finish the previous sub-panel's fused trailing
+//             update (A22 lowered by L21 . L21^T, the running sums
+//             Y = -sum L . X of the inverse's later block rows by L21 . X_p)
+//             on all of the tile but the diagonal block, and the store warps
+//             write the previous block column of L and block row of the
+//             inverse to global memory;
+//          C: all warps run register-tiled products out of shared memory: the
+//             sub-panel below (L21 = A21 . X_pp^T) and the inverse's block
+//             row (X_pq = X_pp . Y_pq), four warps taking the next diagonal
+//             block's rows first and then, behind a barrier of their own,
+//             this sub-panel's update of that block, which is all the next
+//             factor needs.
+//          Every element takes the same operations in the same order as in
+//          the kernel without look-ahead, where all warps ran the factor,
+//          the products and the update one after another (warp 0 inverting
+//          too): tools/probe_tile_kernel.py --against holds L and the
+//          inverse bit for bit on SPD and non-PD tiles, so the callers'
+//          iterations do not move.  The product warps keep off the SM
+//          sub-partitions of warps 0 and 1 (warp w issues from w % 4); the
+//          store warps share warp 0's.  The tile, its inverse, two 32-row
+//          staging panels and the pivot columns stay in shared memory (174
+//          KB at b = 128; rows padded by 4 floats), loaded by cp.async
+//          (16-byte copies where aligned), the first diagonal block's rows
+//          first and the rest beside its factor.  The whole tile is in
+//          shared memory before the first store, so the in-place single
+//          launch is safe.  Measured with clock64() stamps and back-to-back
+//          launches on an NVIDIA H100 80GB HBM3 at 700.00 W
+//          (tools/probe_tile_kernel.py): 11.0-11.6 k cycles for each
+//          diagonal block's factor after the first (~350 a column step; the
+//          product and store warps take 9-11.5 k beside it), ~4.8 k for each
+//          C phase (half of it the next block's rows, half its update),
+//          0.0378 ms a launch at b = 128 against 0.0493 without look-ahead;
+//          the chain of pivots sets the time.  Only the lanes that need a
+//          quotient divide, since __fdiv_rn of a zero or stale entry takes
+//          its slow path.
 //   panel: (rows x b) . (b x b)^T, b(b+1)/2 FMAs per row: at n = 1536 the
 //          first step moves ~1.5 MB (0.0007 ms at 3.35 TB/s), so it is bound
 //          by how fast its CTAs stage their operands, not by the card's
@@ -129,6 +157,20 @@ constexpr int kTileMax = 128;
 constexpr int kSub = 32;          // sub-panel width: one warp's diagonal block
 constexpr int kXtLd = kSub + 4;   // row stride of the transposed diagonal inverse
 constexpr unsigned kFull = 0xffffffffu;
+// The tile kernel's product warps beside the pivot warp (0) and the inverse
+// warp (1): every other warp but those whose index modulo 4 is below
+// kQuietSmsps (warp w issues from the SM sub-partition w % 4, so 1 leaves
+// the pivot warp's sub-partition to it alone, 2 the inverse warp's too).
+constexpr int kQuietSmsps = 2;
+constexpr int kProdWarps = 2 + (kTileWarps / 4 - 1) * (4 - kQuietSmsps);
+// The warps that store a finished block beside the next factor: warps
+// 4 + kStoreSmsp, 8 + kStoreSmsp, ..., which do no update.
+constexpr int kStoreSmsp = 0;
+constexpr int kStoreWarps = kTileWarps / 4 - 1;
+static_assert(kStoreSmsp < kQuietSmsps, "the store warps do no update");
+// The warps that compute the next diagonal block's rows of L21 and then this
+// update's tiles on that block, behind a barrier of their own.
+constexpr int kDiagWarps = 4;
 constexpr int kPanelMaxRows = 32;               // rows per CTA: 4, 8, 16 or 32
 constexpr int kPanelMaxThreads = 16 * kPanelMaxRows;  // two warps per 4 rows
 constexpr int kPanelLd = kTileMax + 4;          // staged row stride: 33 float4s
@@ -151,6 +193,35 @@ using SchurSmall = SchurShape<32, 4, 2>;  // where a launch lasts one tile's lat
 // 4 (rows stay 16-byte aligned for float4 loads) plus 4 (neighbouring rows
 // start in different banks).
 __host__ __device__ inline int tile_ld(int b) { return ((b + 3) & ~3) + 4; }
+
+// Rank of warp w among the tile kernel's product warps, or -1.
+__device__ __forceinline__ int prod_rank(int w) {
+  if (w < 2) return -1;
+  if (w < 4) return w - 2;
+  if ((w & 3) < kQuietSmsps) return -1;
+  return 2 + ((w >> 2) - 1) * (4 - kQuietSmsps) + (w & 3) - kQuietSmsps;
+}
+
+// Rank of warp w among the tile kernel's store warps, or -1.
+__device__ __forceinline__ int store_rank(int w) {
+  return (w >= 4 && (w & 3) == kStoreSmsp) ? (w >> 2) - 1 : -1;
+}
+
+// clock64() stamps of the tile kernel's phases in its first CTA, for
+// tools/probe_tile_kernel.py, which builds this file with -DCIM_TILE_PROBE
+// (the latest stamp of a slot wins); nothing otherwise.
+#ifdef CIM_TILE_PROBE
+__device__ unsigned long long cim_tile_stamps[64];
+#define TILE_STAMP(slot)                                                      \
+  do {                                                                        \
+    if (blockIdx.x == 0)                                                      \
+      atomicMax(&cim_tile_stamps[slot], static_cast<unsigned long long>(clock64())); \
+  } while (0)
+#else
+#define TILE_STAMP(slot) \
+  do {                   \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -184,208 +255,23 @@ __device__ __forceinline__ void mma4x4_rows(float (&acc)[4][4], const float* a,
   }
 }
 
-// One warp factors the w x w diagonal block at (c0, c0) of Ls (lower
-// triangle read) and inverts the factor, in registers: lane i holds row i of
-// the block in a[] and column i of its inverse in x[]; rows and columns past
-// w are padded with the identity.  Column step j broadcasts the pivot and
-// the pivot column with __shfl_sync; the same square root, division, FMA
-// order and !(d > 0) test as the unblocked recurrence.  Writes L_pp (upper
-// zeros) into Ls, X_pp into Xs and into the staging rows Bs[k][c0 + i], and
-// X_pp^T into XT; raises *bad on a non-positive or NaN pivot.
-__device__ __forceinline__ void factor_diag_block(float* Ls, float* Xs, float* Bs,
-                                                  float* XT, int ld, int c0, int w,
-                                                  int* bad) {
-  const int i = threadIdx.x & 31;
-  float a[kSub], x[kSub];
+// mma4x4_rows on a 4 x 2 tile: acc[p][q] += sum_{k < 4 nk4} A[p][k] . B[k][q]
+// for the two columns of B at bm, bm + 1 (8-byte aligned); k ascending.
+__device__ __forceinline__ void mma4x2_rows(float (&acc)[4][2], const float* a, int lda,
+                                            const float* bm, int ldb, int nk4) {
+  for (int k4 = 0; k4 < nk4; ++k4) {
+    float4 ra[4];
 #pragma unroll
-  for (int k = 0; k < kSub; ++k) {
-    a[k] = (i < w && k <= i) ? Ls[(c0 + i) * ld + c0 + k] : (k == i ? 1.0f : 0.0f);
-    x[k] = (k == i) ? 1.0f : 0.0f;
-  }
-  bool fail = false;
+    for (int p = 0; p < 4; ++p) ra[p] = lds4(a + p * lda + 4 * k4);
 #pragma unroll
-  for (int j = 0; j < kSub; ++j) {
-    const float d = __shfl_sync(kFull, a[j], j);
-    fail |= !(d > 0.0f);
-    const float s = __fsqrt_rn(d);
-    // Only the lanes that need a quotient divide: the others hold exact
-    // zeros or stale upper entries, which send __fdiv_rn down its slow path.
-    float lij;
-    if (i > j) {
-      lij = __fdiv_rn(a[j], s);
-    } else {
-      lij = (i == j) ? s : 0.0f;
-      x[j] = __fdiv_rn(x[j], s);  // row j of the inverse is final
-    }
-    a[j] = lij;
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 rb = *reinterpret_cast<const float2*>(bm + (4 * k4 + kk) * ldb);
 #pragma unroll
-    for (int k = j + 1; k < kSub; ++k) {
-      const float lkj = __shfl_sync(kFull, lij, k);
-      a[k] = __fmaf_rn(-lij, lkj, a[k]);  // A[i][k] -= L[i][j] L[k][j]
-      x[k] = __fmaf_rn(-lkj, x[j], x[k]);  // X[k][i] -= L[k][j] X[j][i]
-    }
-  }
-  if (i < w) {
-#pragma unroll
-    for (int k = 0; k < kSub; ++k) {
-      if (k < w) {
-        Ls[(c0 + i) * ld + c0 + k] = (k <= i) ? a[k] : 0.0f;
-        Xs[(c0 + k) * ld + c0 + i] = x[k];  // X_pp[k][i]
-        Bs[k * ld + c0 + i] = x[k];
+      for (int p = 0; p < 4; ++p) {
+        const float av = lane_of(ra[p], kk);
+        acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
+        acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
       }
-      XT[i * kXtLd + k] = x[k];  // XT[i][k] = X_pp[k][i]
-    }
-  }
-  if (i == 0 && fail) *bad = 1;
-}
-
-// Lane blockIdx.x factors the tile at A + lane * lane_a (its lower triangle
-// read) into L + lane * lane_l and inv + lane * lane_i.  A and L may be the
-// same tile (in place): every read of A is done before the first write.
-__global__ void __launch_bounds__(kTileThreads, 1)
-potrf_tile_kernel(const float* A, long long lda, float* L, long long ldl,
-                  float* __restrict__ inv, long long ldi, int b, long long lane_a,
-                  long long lane_l, long long lane_i) {
-  const long long tile = blockIdx.x;
-  A += tile * lane_a;
-  L += tile * lane_l;
-  inv += tile * lane_i;
-  extern __shared__ float4 smem4[];
-  const int ld = tile_ld(b);
-  const int b4 = (b + 3) & ~3;
-  float* Ls = reinterpret_cast<float*>(smem4);  // b4 x ld: the tile, then L
-  float* Xs = Ls + b4 * ld;   // b4 x ld: the inverse; below the current block
-                              // row, the running sums Y = -sum_r L_ir X_rq
-  float* Bs = Xs + b4 * ld;   // kSub x ld: the current block row's operands
-  float* XT = Bs + kSub * ld; // kSub x kXtLd: X_pp^T
-  __shared__ int bad;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) bad = 0;
-  // The lower triangle by asynchronous 4-byte copies (all of a thread's
-  // loads in flight at once), zeros everywhere else: the padding rows and
-  // columns must read as zeros.
-  for (int r = warp; r < b4; r += kTileWarps) {
-    for (int c = lane; c < ld; c += 32) {
-      if (r < b && c <= r) {
-        const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(Ls + r * ld + c));
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                     "l"(A + r * lda + c));
-      } else {
-        Ls[r * ld + c] = 0.0f;
-      }
-      Xs[r * ld + c] = 0.0f;
-    }
-  }
-  for (int e = tid; e < kSub * ld + kSub * kXtLd; e += kTileThreads) Bs[e] = 0.0f;
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-
-  for (int c0 = 0; c0 < b; c0 += kSub) {
-    const int w = min(kSub, b - c0);
-    const int R0 = c0 + w;  // first row below the block; R0 < b only if w == kSub
-    // D: the diagonal block, one warp.
-    if (warp == 0) factor_diag_block(Ls, Xs, Bs, XT, ld, c0, w, &bad);
-    __syncthreads();
-
-    // S: (a) L21 = A21 . X_pp^T, stored transposed in Bs[c][r] (r >= R0);
-    //    (b) X_pq = X_pp . Y_pq for the columns c < c0, stored in Bs[i][c].
-    // X_pp is lower-triangular, so (a) stops at depth c and (b) at depth i.
-    const int na = R0 < b ? ((b - R0 + 3) / 4) * (kSub / 4) : 0;
-    const int nbc = c0 / 4;
-    const int nb = ((w + 3) / 4) * nbc;
-    for (int t = tid; t < na + nb; t += kTileThreads) {
-      float acc[4][4] = {};
-      if (t < na) {
-        const int I = t / (kSub / 4), J = t % (kSub / 4);
-        const int r0 = R0 + 4 * I, cc = 4 * J;
-        mma4x4_rows(acc, Ls + r0 * ld + c0, ld, XT + cc, kXtLd, J + 1);
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          if (r0 + p < b) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) Bs[(cc + q) * ld + r0 + p] = acc[p][q];
-          }
-        }
-      } else {
-        const int u = t - na;
-        const int I = u / nbc, J = u % nbc;
-        const int i0 = 4 * I, cc = 4 * J;
-        mma4x4_rows(acc, Xs + (c0 + i0) * ld + c0, ld, Xs + c0 * ld + cc, ld, I + 1);
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          if (i0 + p < w) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) Bs[(i0 + p) * ld + cc + q] = acc[p][q];
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // U: for the rows r >= R0, one product of depth kSub with the staged
-    // block row B = [X_p,<R0 | L21^T]: Y[r][c] -= L21[r] . B[:, c] for
-    // c < R0, A22[r][c] -= L21[r] . L21[c] for R0 <= c <= r.  4 x 4 tiles of
-    // the lower region; row block I holds R0 / 4 + 1 + I of them.
-    if (R0 < b) {
-      const int base = R0 / 4 + 1;
-      const int nI = (b - R0 + 3) / 4;
-      const int nU = nI * base + nI * (nI - 1) / 2;
-      for (int t = tid; t < nU; t += kTileThreads) {
-        int I = 0, u = t;
-        while (u >= base + I) {
-          u -= base + I;
-          ++I;
-        }
-        const int r0 = R0 + 4 * I, cc = 4 * u;
-        float acc[4][4] = {};
-#pragma unroll 8
-        for (int k = 0; k < kSub; ++k) {
-          const float4 ra = lds4(Bs + k * ld + r0);
-          const float4 rb = lds4(Bs + k * ld + cc);
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const float av = lane_of(ra, p);
-            acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
-            acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
-            acc[p][2] = __fmaf_rn(av, rb.z, acc[p][2]);
-            acc[p][3] = __fmaf_rn(av, rb.w, acc[p][3]);
-          }
-        }
-        float* dst = cc < R0 ? Xs : Ls;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int r = r0 + p;
-          if (r >= b) continue;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int c = cc + q;
-            if (c <= r) dst[r * ld + c] = __fsub_rn(dst[r * ld + c], acc[p][q]);
-          }
-        }
-      }
-      // L21 to its place (U reads it only from Bs).
-      for (int r = R0 + warp; r < b; r += kTileWarps) Ls[r * ld + c0 + lane] = Bs[lane * ld + r];
-    }
-    // The block row X_p,<c0 to its place (U reads it only from Bs).
-    for (int k = warp; k < w; k += kTileWarps) {
-      for (int c = lane; c < c0; c += 32) Xs[(c0 + k) * ld + c] = Bs[k * ld + c];
-    }
-    __syncthreads();
-  }
-
-  const bool fail = bad != 0;
-  const float nan = __int_as_float(0x7fc00000);
-  for (int r = warp; r < b; r += kTileWarps) {
-    for (int c = lane; c < b; c += 32) {
-      float lv = (c <= r) ? Ls[r * ld + c] : 0.0f;
-      float xv = (c <= r) ? Xs[r * ld + c] : 0.0f;
-      if (fail) {
-        lv = nan;
-        xv = nan;
-      }
-      L[r * ldl + c] = lv;
-      inv[r * ldi + c] = xv;
     }
   }
 }
@@ -409,6 +295,453 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src, int va
       dst[i] = 0.0f;
     }
   }
+}
+
+// The pivot warp's step counter in shared memory, which the inverse warp
+// reads: a release store after the step's column is written, an acquire load
+// before it is read.
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(p))),
+               "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p)))
+               : "memory");
+  return v;
+}
+
+// D, the pivot warp: factors the w x w diagonal block at (c0, c0) of Ls
+// (lower triangle read) in registers, lane i holding row i in a[] (rows and
+// columns past w padded with the identity): the same square root, division,
+// FMA order and !(d > 0) test as the unblocked recurrence.  Column step j
+// sends the next pivot first, by one __shfl_sync of lane j + 1's own update
+// of its diagonal entry (the FMA that the step's update gives that entry).
+// The step's column of L (L[k][j] at col[j][k], the pivot's square root on
+// the diagonal, zeros above) goes to shared memory, where the inverse warp
+// reads it once the step count in *step has reached it, to L_pp's place in Ls
+// (upper zeros), and back to every lane as broadcast loads of four entries,
+// which keep the pivot's shuffle from queueing behind 31 - j others.  Raises
+// *bad on a non-positive or NaN pivot.
+__device__ __forceinline__ void pivot_block(float* Ls, float* col, int* step, int ld,
+                                            int c0, int w, int step0, int* bad) {
+  const int i = threadIdx.x & 31;
+  float a[kSub];
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) {
+    a[k] = (i < w && k <= i) ? Ls[(c0 + i) * ld + c0 + k] : (k == i ? 1.0f : 0.0f);
+  }
+  bool fail = false;
+  float d = __shfl_sync(kFull, a[0], 0);
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    fail |= !(d > 0.0f);
+    const float s = __fsqrt_rn(d);
+    // Only the lanes that need a quotient divide: the others hold exact
+    // zeros or stale upper entries, which send __fdiv_rn down its slow path.
+    float lij;
+    if (i > j) {
+      lij = __fdiv_rn(a[j], s);
+    } else {
+      lij = (i == j) ? s : 0.0f;
+    }
+    if (j + 1 < kSub) d = __shfl_sync(kFull, __fmaf_rn(-lij, lij, a[j + 1]), j + 1);
+    col[j * kSub + i] = lij;
+    __syncwarp();
+    if (i == 0) st_release(step, step0 + j + 1);
+    if (i < w && j < w) Ls[(c0 + i) * ld + c0 + j] = lij;  // L_pp[i][j], final
+    // The pivot column back from shared memory, four entries a load.
+    float lk[kSub];
+#pragma unroll
+    for (int q = (j + 1) / 4; q < kSub / 4; ++q) {
+      const float4 v = lds4(col + j * kSub + 4 * q);
+      lk[4 * q] = v.x;
+      lk[4 * q + 1] = v.y;
+      lk[4 * q + 2] = v.z;
+      lk[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = j + 1; k < kSub; ++k) {
+      a[k] = __fmaf_rn(-lij, lk[k], a[k]);  // A[i][k] -= L[i][j] L[k][j]
+    }
+  }
+  if (i == 0 && fail) *bad = 1;
+}
+
+// X, the inverse warp: inverts L_pp one column step behind the pivot warp,
+// lane i holding column i of the inverse in x[] (the identity to start),
+// each step's pivot and column of L read from col once *step has reached
+// it: the same divisions and FMAs, in the same order, as when one warp did
+// both.  Writes each row of X_pp, once final, into Xs, into the staging rows
+// Bp[k][c0 + i] and, as X_pp^T, into XT.
+__device__ __forceinline__ void invert_block(float* Xs, float* Bp, float* XT,
+                                             const float* col, const int* step, int ld,
+                                             int c0, int w, int step0) {
+  const int i = threadIdx.x & 31;
+  float x[kSub];
+#pragma unroll
+  for (int k = 0; k < kSub; ++k) x[k] = (k == i) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    while (ld_acquire(step) <= step0 + j) {
+    }
+    float cj[kSub];
+#pragma unroll
+    for (int q = j / 4; q < kSub / 4; ++q) {
+      const float4 v = lds4(col + j * kSub + 4 * q);
+      cj[4 * q] = v.x;
+      cj[4 * q + 1] = v.y;
+      cj[4 * q + 2] = v.z;
+      cj[4 * q + 3] = v.w;
+    }
+    if (i <= j) x[j] = __fdiv_rn(x[j], cj[j]);  // row j of the inverse is final
+    if (i < w) {
+      if (j < w) {
+        Xs[(c0 + j) * ld + c0 + i] = x[j];  // X_pp[j][i]
+        Bp[j * ld + c0 + i] = x[j];
+      }
+      XT[i * kXtLd + j] = x[j];  // XT[i][j] = X_pp[j][i]
+    }
+#pragma unroll
+    for (int k = j + 1; k < kSub; ++k) {
+      x[k] = __fmaf_rn(-cj[k], x[j], x[k]);  // X[k][i] -= L[k][j] X[j][i]
+    }
+  }
+}
+
+// One 4 x 4 tile of the trailing update of depth kSub with the staged block
+// row B = [X_p,<R0 | L21^T]: Y[r][c] -= L21[r] . B[:, c] for c < R0,
+// A22[r][c] -= L21[r] . L21[c] for R0 <= c <= r; rows r0 .. r0 + 3 (< b),
+// columns cc .. cc + 3.
+__device__ __forceinline__ void update_tile(const float* B, float* Ls, float* Xs, int ld,
+                                            int b, int R0, int r0, int cc) {
+  float acc[4][4] = {};
+#pragma unroll 8
+  for (int k = 0; k < kSub; ++k) {
+    const float4 ra = lds4(B + k * ld + r0);
+    const float4 rb = lds4(B + k * ld + cc);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float av = lane_of(ra, p);
+      acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
+      acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
+      acc[p][2] = __fmaf_rn(av, rb.z, acc[p][2]);
+      acc[p][3] = __fmaf_rn(av, rb.w, acc[p][3]);
+    }
+  }
+  float* dst = cc < R0 ? Xs : Ls;
+  if (cc + 3 <= r0 && r0 + 3 < b) {  // all 16 entries: a row of four a load
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float4* row = reinterpret_cast<float4*>(dst + (r0 + p) * ld + cc);
+      float4 v = *row;
+      v.x = __fsub_rn(v.x, acc[p][0]);
+      v.y = __fsub_rn(v.y, acc[p][1]);
+      v.z = __fsub_rn(v.z, acc[p][2]);
+      v.w = __fsub_rn(v.w, acc[p][3]);
+      *row = v;
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int r = r0 + p;
+    if (r >= b) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cc + q;
+      if (c <= r) dst[r * ld + c] = __fsub_rn(dst[r * ld + c], acc[p][q]);
+    }
+  }
+}
+
+// update_tile's arithmetic on a 2 x 4 tile of the next diagonal block
+// (rows r0, r0 + 1 < b, columns cc .. cc + 3 >= R0, those with c <= r).
+__device__ __forceinline__ void update_tile24(const float* B, float* Ls, int ld, int b,
+                                              int r0, int cc) {
+  float acc[2][4] = {};
+#pragma unroll 8
+  for (int k = 0; k < kSub; ++k) {
+    const float2 ra = *reinterpret_cast<const float2*>(B + k * ld + r0);
+    const float4 rb = lds4(B + k * ld + cc);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float av = p == 0 ? ra.x : ra.y;
+      acc[p][0] = __fmaf_rn(av, rb.x, acc[p][0]);
+      acc[p][1] = __fmaf_rn(av, rb.y, acc[p][1]);
+      acc[p][2] = __fmaf_rn(av, rb.z, acc[p][2]);
+      acc[p][3] = __fmaf_rn(av, rb.w, acc[p][3]);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int r = r0 + p;
+    if (r >= b) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = cc + q;
+      if (c <= r) Ls[r * ld + c] = __fsub_rn(Ls[r * ld + c], acc[p][q]);
+    }
+  }
+}
+
+// Block column q of L (all b rows) and block row q of the inverse (all b
+// columns) to global memory, once they are final: L_qq and X_qq from Ls and
+// Xs, L21 and X_q,<c0 from the block's staged operands Bq, zeros above the
+// diagonals.  Warps pw, pw + np, ... of the CTA take the rows (beside the
+// next factor, which sets the time; 16-byte stores did not shorten it).
+__device__ __forceinline__ void store_block(float* L, long long ldl, float* inv,
+                                            long long ldi, const float* Ls,
+                                            const float* Xs, const float* Bq, int ld,
+                                            int b, int q, int pw, int np) {
+  const int lane = threadIdx.x & 31;
+  const int c0 = q * kSub, w = min(kSub, b - c0);
+  if (lane < w) {
+    const int c = c0 + lane;
+    for (int r = pw; r < b; r += np) {
+      float v = 0.0f;
+      if (r >= c0 + w) {
+        v = Bq[lane * ld + r];
+      } else if (r >= c) {
+        v = Ls[r * ld + c];
+      }
+      L[r * ldl + c] = v;
+    }
+  }
+  for (int k = pw; k < w; k += np) {
+    const int r = c0 + k;
+    for (int c = lane; c < b; c += 32) {
+      float v = 0.0f;
+      if (c < c0) {
+        v = Bq[k * ld + c];
+      } else if (c <= r) {
+        v = Xs[r * ld + c];
+      }
+      inv[r * ldi + c] = v;
+    }
+  }
+}
+
+// Lane blockIdx.x factors the tile at A + lane * lane_a (its lower triangle
+// read) into L + lane * lane_l and inv + lane * lane_i.  A and L may be the
+// same tile (in place): the whole tile is in shared memory before the first
+// write to L (every thread waits for all of its copies before the barrier
+// that ends the first sub-panel's factor, and the first store comes after
+// it).  vec: A's rows start on 16-byte boundaries in every lane.
+//
+// Per 32-column sub-panel p, two phases between CTA barriers:
+//   B  warp 0 factors the diagonal block (D), warp 1 inverts it one column
+//      step behind (X), the product warps finish the previous sub-panel's
+//      update on the rest of the tile (U) and the store warps write block
+//      column p - 1 of L and block row p - 1 of the inverse (at p = 0 the
+//      other warps stage the rows below the first block instead);
+//   C  L21 = A21 . X_pp^T, stored transposed in Bp[c][r] (r >= R0), and
+//      X_pq = X_pp . Y_pq for the columns c < c0, in Bp[i][c]; kDiagWarps
+//      warps take the rows of the next diagonal block first and, behind a
+//      barrier of their own, this update's tiles on that block (the next D
+//      needs nothing else), while the other warps take the rest.
+// The operands of the update of sub-panel p stay in Bp (of two buffers by
+// the parity of p) while sub-panel p + 1 stages its own in the other.
+__global__ void __launch_bounds__(kTileThreads, 1)
+potrf_tile_kernel(const float* A, long long lda, float* L, long long ldl,
+                  float* __restrict__ inv, long long ldi, int b, long long lane_a,
+                  long long lane_l, long long lane_i, int vec) {
+  const long long tile = blockIdx.x;
+  A += tile * lane_a;
+  L += tile * lane_l;
+  inv += tile * lane_i;
+  extern __shared__ float4 smem4[];
+  const int ld = tile_ld(b);
+  const int b4 = (b + 3) & ~3;
+  float* Ls = reinterpret_cast<float*>(smem4);  // b4 x ld: the tile, then L
+  float* Xs = Ls + b4 * ld;   // b4 x ld: the inverse; below the current block
+                              // row, the running sums Y = -sum_r L_ir X_rq
+  float* Bs = Xs + b4 * ld;   // 2 x kSub x ld: the block rows' operands
+  float* XT = Bs + 2 * kSub * ld;  // kSub x kXtLd: X_pp^T
+  float* col = XT + kSub * kXtLd;  // kSub x kSub: the pivot warp's columns of L_pp
+  __shared__ int bad, step;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    TILE_STAMP(0);
+    bad = 0;
+    step = 0;
+  }
+  // The lower triangle by cp.async (16-byte copies where vec allows), zeros
+  // everywhere else (the padding rows and columns must read as zeros): the
+  // rows of the first diagonal block here, the rest beside its factor.
+  const int first = min(kSub, b);
+  for (int r = warp; r < first; r += kTileWarps) {
+    for (int c4 = lane; c4 < ld / 4; c4 += 32) {
+      const int valid = max(0, min(4, r + 1 - 4 * c4));
+      stage_chunk(Ls + r * ld + 4 * c4, A + r * lda + 4 * c4, valid, vec);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (tid == 0) TILE_STAMP(2);
+  {
+    float4* z = reinterpret_cast<float4*>(Xs);
+    const float4 zero = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int e = tid; e < (b4 * ld + 2 * kSub * ld + kSub * kXtLd) / 4; e += kTileThreads)
+      z[e] = zero;
+  }
+  if (tid == 0) TILE_STAMP(3);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (tid == 0) TILE_STAMP(1);
+
+  const int pr = prod_rank(warp), sr = store_rank(warp);
+  const int panels = (b + kSub - 1) / kSub;
+  for (int p = 0; p < panels; ++p) {
+    const int c0 = p * kSub;
+    const int w = min(kSub, b - c0);
+    const int R0 = c0 + w;  // first row below the block; R0 < b only if w == kSub
+    float* Bp = Bs + (p & 1) * kSub * ld;        // this sub-panel's operands
+    float* Bq = Bs + ((p + 1) & 1) * kSub * ld;  // the previous sub-panel's
+
+    // B: D, X, and beside them the rest of the previous update and the
+    // previous block's store.
+    if (warp == 0) {
+      pivot_block(Ls, col, &step, ld, c0, w, p * kSub, &bad);
+      if (lane == 0) TILE_STAMP(8 + 10 * p);
+    } else if (warp == 1) {
+      invert_block(Xs, Bp, XT, col, &step, ld, c0, w, p * kSub);
+      if (lane == 0) TILE_STAMP(9 + 10 * p);
+    } else if (p == 0) {
+      // The product warps stage the rest (the other warps' sub-partitions
+      // belong to D and X).
+      for (int r = first + (pr < 0 ? b4 : pr); r < b4; r += kProdWarps) {
+        for (int c4 = lane; c4 < ld / 4; c4 += 32) {
+          const int valid = r < b ? max(0, min(4, r + 1 - 4 * c4)) : 0;
+          stage_chunk(Ls + r * ld + 4 * c4, A + r * lda + 4 * c4, valid, vec);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      if (lane == 0) TILE_STAMP(4);
+    } else {
+      if (pr >= 0) {
+        // The previous sub-panel's update on rows r >= c0 (its R0): 4 x 4
+        // tiles of the lower region, row block I holding c0 / 4 + 1 + I of
+        // them, less those on this diagonal block, done in its phase C.
+        const int base = c0 / 4 + 1;
+        const int nI = (b - c0 + 3) / 4;
+        const int nU = nI * base + nI * (nI - 1) / 2;
+        for (int t = 32 * pr + lane; t < nU; t += 32 * kProdWarps) {
+          int I = 0, u = t;
+          while (u >= base + I) {
+            u -= base + I;
+            ++I;
+          }
+          if (I < kSub / 4 && 4 * u >= c0) continue;
+          update_tile(Bq, Ls, Xs, ld, b, c0, c0 + 4 * I, 4 * u);
+        }
+        if (lane == 0) TILE_STAMP(10 + 10 * p);
+      }
+      if (sr >= 0) {
+        store_block(L, ldl, inv, ldi, Ls, Xs, Bq, ld, b, p - 1, sr, kStoreWarps);
+        if (lane == 0) TILE_STAMP(11 + 10 * p);
+      }
+    }
+    __syncthreads();
+    if (tid == 0) TILE_STAMP(12 + 10 * p);
+
+    // C: the sub-panel below the block and the inverse's block row.  X_pp is
+    // lower-triangular, so (a) stops at depth c (in chunks of 4) and (b) at
+    // depth i.  Warps 0 to kDiagWarps - 1 take (a) on the rows of the next
+    // diagonal block (its first n0 4 x 4 tiles, as 4 x 2 tiles) and then this
+    // update's tiles on that block.
+    constexpr int kDiagThreads = 32 * kDiagWarps;
+    const int na = R0 < b ? ((b - R0 + 3) / 4) * (kSub / 4) : 0;
+    const int n0 = min(na, 8 * (kSub / 4));
+    const int nbc = c0 / 4;
+    const int nb = ((w + 3) / 4) * nbc;
+    const bool diag = tid < kDiagThreads;
+    if (diag) {
+      // (a) on the next diagonal block's rows, in 4 x 2 tiles.
+      for (int t = tid; t < 2 * n0; t += kDiagThreads) {
+        const int I = t / (kSub / 2), J = t % (kSub / 2);
+        const int r0 = R0 + 4 * I, cc = 2 * J;
+        float acc[4][2] = {};
+        mma4x2_rows(acc, Ls + r0 * ld + c0, ld, XT + cc, kXtLd, cc / 4 + 1);
+#pragma unroll
+        for (int p4 = 0; p4 < 4; ++p4) {
+          if (r0 + p4 < b) {
+            Bp[cc * ld + r0 + p4] = acc[p4][0];
+            Bp[(cc + 1) * ld + r0 + p4] = acc[p4][1];
+          }
+        }
+      }
+    }
+    for (int t = n0 + tid - kDiagThreads; !diag && t < na + nb; t += kTileThreads - kDiagThreads) {
+      float acc[4][4] = {};
+      if (t < na) {
+        const int I = t / (kSub / 4), J = t % (kSub / 4);
+        const int r0 = R0 + 4 * I, cc = 4 * J;
+        mma4x4_rows(acc, Ls + r0 * ld + c0, ld, XT + cc, kXtLd, J + 1);
+#pragma unroll
+        for (int p4 = 0; p4 < 4; ++p4) {
+          if (r0 + p4 < b) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) Bp[(cc + q) * ld + r0 + p4] = acc[p4][q];
+          }
+        }
+      } else {
+        const int u = t - na;
+        const int I = u / nbc, J = u % nbc;
+        const int i0 = 4 * I, cc = 4 * J;
+        mma4x4_rows(acc, Xs + (c0 + i0) * ld + c0, ld, Xs + c0 * ld + cc, ld, I + 1);
+#pragma unroll
+        for (int p4 = 0; p4 < 4; ++p4) {
+          if (i0 + p4 < w) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) Bp[(i0 + p4) * ld + cc + q] = acc[p4][q];
+          }
+        }
+      }
+    }
+    if (lane == 0) TILE_STAMP((diag ? 13 : 15) + 10 * p);
+    if (diag && n0 > 0) {
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kDiagThreads) : "memory");
+      // This update's tiles on the next diagonal block: 2 x 4 tiles of its
+      // lower triangle, (2 I + 1) / 4 + 1 of them in row pair I.
+      const int nI = min(kSub / 2, (b - R0 + 1) / 2);
+      int nT = 0;
+      for (int I = 0; I < nI; ++I) nT += (2 * I + 1) / 4 + 1;
+      for (int t = tid; t < nT; t += kDiagThreads) {
+        int I = 0, u = t;
+        while (u > (2 * I + 1) / 4) {
+          u -= (2 * I + 1) / 4 + 1;
+          ++I;
+        }
+        update_tile24(Bp, Ls, ld, b, R0 + 2 * I, R0 + 4 * u);
+      }
+      if (lane == 0) TILE_STAMP(14 + 10 * p);
+    }
+    __syncthreads();
+    if (tid == 0) TILE_STAMP(16 + 10 * p);
+  }
+
+  // The last block column and block row, or NaN everywhere on a non-positive
+  // pivot (over the blocks already stored).
+  if (bad != 0) {
+    const float nan = __int_as_float(0x7fc00000);
+    for (int r = warp; r < b; r += kTileWarps) {
+      for (int c = lane; c < b; c += 32) {
+        L[r * ldl + c] = nan;
+        inv[r * ldi + c] = nan;
+      }
+    }
+  } else {
+    store_block(L, ldl, inv, ldi, Ls, Xs, Bs + ((panels - 1) & 1) * kSub * ld, ld, b,
+                panels - 1, warp, kTileWarps);
+  }
+  if (tid == 0) TILE_STAMP(5);
 }
 
 // acc[p][j] += sum_k R[p][k] . I_j[k] over the chunks [k4_begin, k4_end),
@@ -655,7 +988,7 @@ potrf_schur_kernel(float* __restrict__ S, long long lds,
 
 size_t tile_smem(int b) {
   const size_t b4 = (b + 3) & ~3;
-  return ((2 * b4 + kSub) * tile_ld(b) + kSub * kXtLd) * sizeof(float);
+  return ((2 * b4 + 2 * kSub) * tile_ld(b) + kSub * kXtLd + kSub * kSub) * sizeof(float);
 }
 size_t panel_smem(int rpc) {
   return static_cast<size_t>(kTileMax + rpc) * kPanelLd * sizeof(float);
@@ -706,8 +1039,10 @@ extern "C" int cim_potrf_tile_f32_batched(const float* A, long long lda,
     configured = true;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = reinterpret_cast<unsigned long long>(A) % 16 == 0 && lda % 4 == 0 &&
+                  (lanes == 1 || lane_a % 4 == 0);
   potrf_tile_kernel<<<lanes, kTileThreads, tile_smem(b), s>>>(
-      A, lda, L, ldl, inv, ldi, b, lane_a, lane_l, lane_i);
+      A, lda, L, ldl, inv, ldi, b, lane_a, lane_l, lane_i, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,8 +4,10 @@ The kernels (``csrc/dd_matvec.cu``, CUDA C++ for ``sm_90a``) replace the
 Pallas TPU kernels of ``cholesky_is_magic_tpu/ops/dd_pallas.py``:
 
 - :func:`dd_mv`  (``cim_dd_mv_f32``)  replaces ``_mv_kernel``, launched there
-  by ``_dd_mv_partials``: A·x in double-word, one block per row, the row's
-  sum finished inside the kernel;
+  by ``_dd_mv_partials``: A·x in double-word, the row's sum finished inside
+  the kernel, its order that of a block of MV_THREADS threads per row; rows
+  of at most MV_SHORT_MAX columns take a warp per group of rows that keeps
+  that order (the same bits) and reduces the group's warp trees together;
 - :func:`dd_rmv` (``cim_dd_rmv_f32``) replaces ``_rmv_kernel``, launched
   there by ``_dd_rmv_partials``: Aᵀ·x in double-word, reading row-major A
   without a transpose copy, in one launch; a thread accumulates two
@@ -23,7 +25,9 @@ The plain version of both is ``ops.dd._dd_matvec_plain`` (on ``A.T`` for
 Aᵀ·x).  The results agree with it to a few f32-eps² of Σ|aᵢⱼxⱼ| per row,
 not bit for bit: the summation order differs.  :func:`rmv_slab_plain` is
 Aᵀ·x in plain PyTorch in the kernel's own order (rows ascending inside a
-slab, slabs ascending), which the kernel matches bit for bit.
+slab, slabs ascending), and :func:`mv_order_plain` A·x in its kernels'
+(threads striding over the columns, each warp's shuffle tree, the warps in
+order), which the kernels match bit for bit.
 
 Batches: :func:`dd_mv_batched` / :func:`dd_rmv_batched`
 (``cim_dd_mv_f32_batched`` / ``cim_dd_rmv_f32_batched``) run B lanes of the
@@ -303,4 +307,46 @@ def rmv_slab_plain(A: torch.Tensor, x: torch.Tensor, slabs: int,
             lo = low - (hi - s.hi)
         part = ddm.DD(hi, lo)
         total = part if total is None else ddm.dd_add(total, part)
+    return total
+
+
+# Threads of dd_mv_kernel's block (kMvThreads of csrc/dd_matvec.cu): each
+# sums the columns t, t + MV_THREADS, ..., which fixes the order of A·x's
+# sums, on either of its kernels.
+MV_THREADS = 128
+# Rows of at most this many columns take the short-row kernel (kMvShortMax).
+MV_SHORT_MAX = 384
+
+
+def mv_order_plain(A: torch.Tensor, x: torch.Tensor) -> ddm.DD:
+    """A·x for float32 A (..., m, n) and x (..., n) in plain PyTorch, in
+    :func:`dd_mv`'s own order (either kernel, single or batched): thread t
+    of MV_THREADS adds the columns j = t, t + MV_THREADS, ... in ascending
+    order into a double-word (the kernel's ``dd_accumulate``), each warp of
+    32 threads sums its threads with ``dd_add`` at the offsets 16, 8, 4, 2,
+    1, and the warps' sums are added in order 0 to 3.  The product error is
+    the kernel's fma(a, x, -p), exact here by way of float64.  For checks,
+    not for speed."""
+    *lead, m, n = A.shape
+    hi = torch.zeros(*lead, m, MV_THREADS, dtype=A.dtype, device=A.device)
+    lo = torch.zeros_like(hi)
+    for j0 in range(0, n, MV_THREADS):
+        cols = min(MV_THREADS, n - j0)
+        a = A[..., j0:j0 + cols]
+        xv = x[..., None, j0:j0 + cols]
+        p = a * xv
+        e = (a.double() * xv.double() - p.double()).to(A.dtype)
+        s = ddm.two_sum(hi[..., :cols], p)
+        low = lo[..., :cols] + (s.lo + e)
+        h = s.hi + low
+        lo[..., :cols] = low - (h - s.hi)
+        hi[..., :cols] = h
+    warps = ddm.DD(hi.unflatten(-1, (MV_THREADS // 32, 32)),
+                   lo.unflatten(-1, (MV_THREADS // 32, 32)))
+    for off in (16, 8, 4, 2, 1):
+        warps = ddm.dd_add(ddm.DD(warps.hi[..., :off], warps.lo[..., :off]),
+                           ddm.DD(warps.hi[..., off:2 * off], warps.lo[..., off:2 * off]))
+    total = ddm.DD(warps.hi[..., 0, 0], warps.lo[..., 0, 0])
+    for w in range(1, MV_THREADS // 32):
+        total = ddm.dd_add(total, ddm.DD(warps.hi[..., w, 0], warps.lo[..., w, 0]))
     return total

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card: the double-word matvecs (also
-on rows that do not start on a 16-byte boundary; Aᵀ·x bit for bit against
-its summation order in plain PyTorch), the blocked Cholesky (tile, panel,
+on rows that do not start on a 16-byte boundary; Aᵀ·x and both A·x kernels,
+short rows and long, bit for bit against their summation orders in plain
+PyTorch), the blocked Cholesky (tile, panel,
 Schur; tiles wider than 128 split around the tile kernel) and the
 pair-schedule assembly, each against its plain PyTorch version, the dense
 and sparse solves (afiro; block 256), crossover on both paths (its dd
@@ -838,6 +839,27 @@ def test_batched_kernels_equal_the_single_kernels_per_lane(dev, B, m, n, offset)
         assert np.all(err <= 64 * EPS32**2 * scale.double().cpu().numpy())
 
 
+@pytest.mark.parametrize("shared_x", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("B,m,n", [(3, 5, 1), (1024, 64, 64), (9, 37, 91),
+                                   (4, 64, dd_cuda.MV_SHORT_MAX),
+                                   (4, 64, dd_cuda.MV_SHORT_MAX + 1), (2, 300, 2000)])
+def test_dd_mv_kernels_equal_their_summation_order(dev, B, m, n, offset, shared_x):
+    """Both dd A·x kernels (short rows up to MV_SHORT_MAX columns, a block
+    per row beyond) equal ``dd_cuda.mv_order_plain`` bit for bit, batched
+    and single, with A's lanes and rows off a 16-byte boundary and x shared
+    by every lane at lane stride 0."""
+    A, x, _ = _lane_inputs(np.random.default_rng(B + m + n), B, m, n, offset, dev)
+    if shared_x:
+        x = x[0].expand(B, n)
+    want = dd_cuda.mv_order_plain(A, x)
+    got = dd_cuda.dd_mv_batched(A, x)
+    assert torch.equal(got[0], want.hi) and torch.equal(got[1], want.lo)
+    for k in range(min(B, 4)):
+        one = dd_cuda.dd_mv(A[k], x[k].contiguous())
+        assert torch.equal(one[0], want.hi[k]) and torch.equal(one[1], want.lo[k])
+
+
 def test_batched_kernels_under_vmap_and_at_the_lane_limit(dev):
     """torch.func.vmap of the dispatchers takes one batched launch each
     (an unbatched A shared by every lane too); more than 65535 lanes
@@ -924,12 +946,14 @@ def test_batched_two_phase_in_float32_launches_the_batched_kernels(dev):
     assert dd_cuda.LAUNCHES["mv"] == before["mv"]
 
 
-@pytest.mark.parametrize("B,b", [(8, 128), (3, 33), (5, 16)])
+@pytest.mark.parametrize("B,b", [(B, b) for B in (1, 8, 32, 140) for b in (16, 33, 100, 128)]
+                         + [(3, 33), (5, 16)])
 def test_batched_tile_kernel_equals_single_launches(dev, B, b):
     """Every lane of one batched tile-kernel launch is the single launch on
     that tile, bit for bit (a tile read at a lane stride inside a larger
-    array too), under vmap of the operator as well; a non-PD lane is all
-    NaN alone; one count per batched launch."""
+    array too; more lanes than the card has SMs), and the single launch in
+    place too, under vmap of the operator as well; a non-PD lane is all NaN
+    alone; one count per batched launch."""
     rng = np.random.default_rng(B * b)
     M = rng.normal(size=(B, b, b))
     N = torch.tensor(M @ np.swapaxes(M, 1, 2) / b + np.eye(b), dtype=torch.float32,
@@ -947,10 +971,16 @@ def test_batched_tile_kernel_equals_single_launches(dev, B, b):
             for got, want in ((L[k], Lk), (inv[k], Ik)):
                 torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
         assert bool(torch.isnan(L[B - 1]).all()) and bool(torch.isfinite(L[:B - 1]).all())
+    for k in range(min(B, 8)):
+        T, Ik = N[k].clone(), torch.empty_like(N[k])
+        chol_cuda.potrf_tile_(T, Ik)
+        torch.testing.assert_close(T, L[k], rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(Ik, inv[k], rtol=0, atol=0, equal_nan=True)
     vm = torch.func.vmap(chol.factor_tile_op)(N)
     torch.testing.assert_close(vm[0], L, rtol=0, atol=0, equal_nan=True)
-    Lp, _ = chol._factor_tile_plain(N[:B - 1])
-    assert float((L[:B - 1] - Lp).abs().max()) <= 64 * EPS32 * float(Lp.abs().max())
+    if B > 1:
+        Lp, _ = chol._factor_tile_plain(N[:B - 1])
+        assert float((L[:B - 1] - Lp).abs().max()) <= 64 * EPS32 * float(Lp.abs().max())
 
 
 def _at_scale_engine(dev):

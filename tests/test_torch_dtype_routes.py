@@ -10,8 +10,9 @@ host-side schedules hold.
   and fully sparse, against the same call of the JAX package: its iteration
   counts, gap and objective, inside the bars the card's f64 solves are held
   to (gap <= 1e-8, objective within 1e-7 of the published optimum).
-- ``dd_cuda.rmv_slab_plain`` (Aᵀ·x in the CUDA kernel's own summation
-  order) against the JAX package's compensated Aᵀ·x and the f64 truth.
+- ``dd_cuda.rmv_slab_plain`` and ``dd_cuda.mv_order_plain`` (Aᵀ·x and A·x
+  in the CUDA kernels' own summation orders) against the JAX package's
+  compensated products and the f64 truth.
 - ``tiled_cuda.kernel_schedule`` (the assembly kernel's 32-bit schedule)
   walked as the kernel walks it, against the JAX engine's tiles.
 """
@@ -113,6 +114,30 @@ def test_rmv_slab_plain_matches_jax_and_the_truth(m, n, sms):
     assert np.all(np.abs(got - ref) <= 64 * EPS32**2 * scale)
     np.testing.assert_allclose(got, A.astype(np.float64).T @ x.astype(np.float64),
                                rtol=1e-11, atol=1e-11)
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (64, 64), (37, 91), (5, 300), (300, 7),
+                                 (3, 700)])
+def test_mv_order_plain_matches_jax_and_the_truth(m, n):
+    """dd A·x in the CUDA kernels' summation order (128 threads over the
+    columns, each warp's shuffle tree, the warps in order) on f32 inputs:
+    within 64·eps32² of Σ|a_ij x_j| of the JAX package's compensated A·x
+    (another order), and 1e-11 of the f64 truth; a batch is its lanes."""
+    rng = np.random.default_rng(m + n)
+    A = rng.normal(size=(2, m, n)).astype(np.float32)
+    x = rng.normal(size=(2, n)).astype(np.float32)
+    got = dd_cuda.mv_order_plain(torch.from_numpy(A), torch.from_numpy(x))
+    assert got.hi.dtype == torch.float32 and got.hi.shape == (2, m)
+    one = dd_cuda.mv_order_plain(torch.from_numpy(A[1]), torch.from_numpy(x[1]))
+    assert torch.equal(got.hi[1], one.hi) and torch.equal(got.lo[1], one.lo)
+    got = got.hi.double().numpy() + got.lo.double().numpy()
+    for k in range(2):
+        ref = jdd._dd_matvec_xla(jnp.asarray(A[k]), jnp.asarray(x[k]))
+        ref = np.asarray(ref.hi, np.float64) + np.asarray(ref.lo, np.float64)
+        scale = np.abs(A[k]).astype(np.float64) @ np.abs(x[k]).astype(np.float64)
+        assert np.all(np.abs(got[k] - ref) <= 64 * EPS32**2 * scale)
+        np.testing.assert_allclose(got[k], A[k].astype(np.float64) @ x[k].astype(np.float64),
+                                   rtol=1e-11, atol=1e-11)
 
 
 def test_rmv_slabs_keeps_its_partition():
