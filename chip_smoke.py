@@ -22,7 +22,8 @@ script then exits non-zero and never prints its last line):
    and the card held asleep until the host has queued the launches; dd A·x
    bit for bit against its summation order (``dd_cuda.mv_order_plain``) on
    long rows (1536, 5120) and on short rows at afiro's pad-128 shape
-   (128, 128), timed there;
+   (128, 128), timed there; dd Aᵀ·x at (128, 128) (4 slabs, the short-lane
+   kernel) as at the pilot's shapes, timed there;
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum; then in f64,
    dense and fully sparse (block 16), which takes the plain PyTorch forms on
@@ -120,9 +121,12 @@ script then exits non-zero and never prints its last line):
    batched pdas's N, (256, 64, 128) and (256, 64, 192), the finisher's AD
    of the same-shape and the mixed batch, and (8, 1536, 5120), each lane
    bit for bit against the single kernel (A at a 4-byte storage offset
-   too) and dd A·x against its summation order, within 64·eps32² of Σ|a_ij x_j| of the plain batched form, dd A·x
-   against the f64 truth, and CUDA-event medians of the batched launch,
-   of a Python loop of B single launches and of the plain batched form;
+   too) and both against their summation orders (``mv_order_plain``,
+   ``rmv_slab_plain`` batched), within 64·eps32² of Σ|a_ij x_j| of the
+   plain batched form, dd A·x against the f64 truth, and CUDA-event medians
+   of the batched launch, of a Python loop of B single launches and of the
+   plain batched form, beside the bound (dd Aᵀ·x on lanes of at most
+   ``dd_cuda.RMV_SHORT_SLABS`` slabs takes the short-lane kernel);
    (b) 1024 LPs of random_lp(s, 24, 8, 48, density 0.3) in one (64, 128)
    box, f32, batched_pdas (60 iterations, Mehrotra, "inverse"), counters
    reset before and read after: batched dd A·x must have launched; every
@@ -559,6 +563,17 @@ def phase_kernels(ddm, dd_cuda):
     err = (_f64(ddm.DD(*got)) - _f64(ddm._dd_matvec_plain(A, x))).abs().max().item()
     stats["mv"]["at_128x128"] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
                                      max_abs_err=err, **bound)
+    # dd Aᵀ·x at that shape: 4 slabs of 32 rows, the short-lane kernel.
+    A, _, y = _inputs(m, n, 9)
+    err = _check_rmv(ddm, dd_cuda, A, y, f"({m}, {n}), afiro's pad-128 shape")
+    p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=0.2) for f in (
+        lambda: ddm._dd_matvec_plain(A.T, y), lambda: ddm.dd_rmatvec(A, y),
+        lambda: ddm.dd_rmatvec(A, y), lambda: ddm._dd_matvec_plain(A.T, y)))
+    bound = _bound(_nbytes(A, y) + 8 * n, 14 * m * n)
+    say(f"[kernels] rmv ({m}, {n}), afiro's pad-128 shape, median ms: kernel {k1:.4f} {k2:.4f}"
+        f"  plain {p1:.4f} {p2:.4f}  bound {bound['bound_ms']:.5f} ({bound['bound_by']})")
+    stats["rmv"]["at_128x128"] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                                      max_abs_err=err, **bound)
     del flush
     stats["mv"]["at_1536x1536"] = normal
     return stats
@@ -1590,11 +1605,13 @@ def _sf_of(cimt, ineq):
 
 def _batch_kernels(ddm, dd_cuda, stats):
     """(a): both batched kernels at phase 15's shapes against the single
-    kernel (bit for bit per lane), the plain batched form and the f64
-    truth, with times; the headline entries at batched pdas's N (dd A·x)
-    and the same-shape finisher's AD (dd Aᵀ·x)."""
+    kernel (bit for bit per lane) and their summation orders (bit for bit),
+    the plain batched form and the f64 truth, with times; the headline
+    entries at batched pdas's N (dd A·x) and the same-shape finisher's AD
+    (dd Aᵀ·x)."""
     flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(15)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, m, n in BATCH_KERNEL_SHAPES:
         buf = torch.randn(B * m * n + 1, generator=g, device="cuda")
         x = torch.randn(B, n, generator=g, device="cuda")
@@ -1605,11 +1622,13 @@ def _batch_kernels(ddm, dd_cuda, stats):
             one = [dd_cuda.dd_mv(A[k], x[k]) for k in range(B)]
             rone = [dd_cuda.dd_rmv(A[k], y[k]) for k in range(B)]
             order = dd_cuda.mv_order_plain(A, x)
+            rorder = dd_cuda.rmv_slab_plain(A, y, *dd_cuda.rmv_slabs(m, n, sms))
             same = (torch.equal(mv[0], torch.stack([o[0] for o in one]))
                     and torch.equal(mv[1], torch.stack([o[1] for o in one]))
                     and torch.equal(mv[0], order.hi) and torch.equal(mv[1], order.lo)
                     and torch.equal(rmv[0], torch.stack([o[0] for o in rone]))
-                    and torch.equal(rmv[1], torch.stack([o[1] for o in rone])))
+                    and torch.equal(rmv[1], torch.stack([o[1] for o in rone]))
+                    and torch.equal(rmv[0], rorder.hi) and torch.equal(rmv[1], rorder.lo))
             errs = {}
             for which, got, plain, scale in (
                     ("mv", mv, ddm._dd_matvec_plain(A, x),
@@ -1623,7 +1642,7 @@ def _batch_kernels(ddm, dd_cuda, stats):
             t_ratio = ((_f64(ddm.DD(*mv)) - true).abs()
                        / (1e-11 + 1e-11 * true.abs())).max().item()
             say(f"[batch kernels] ({B}, {m}, {n}){' A at a 4-byte offset' if off else ''}:"
-                f" each lane bit-equal to the single kernel (mv also to its summation order)"
+                f" each lane bit-equal to the single kernel, both to their summation orders"
                 f" {same}; vs plain max err /"
                 f" (eps32^2 sum|ax|) mv {errs['mv'][1]:.3f} rmv {errs['rmv'][1]:.3f}"
                 f" (limit {PLAIN_TOL}); mv vs f64 truth worst err/tol {t_ratio:.3e}")
@@ -1643,9 +1662,14 @@ def _batch_kernels(ddm, dd_cuda, stats):
             loop = _median_ms(single, reps=5, flush=flush)
             nin = n if which == "mv" else m
             bound = _bound(_nbytes(A) + 4 * B * nin + 8 * B * nout, 14 * B * m * n)
-            say(f"[batch kernels] {which} ({B}, {m}, {n}) median ms: batched {k1:.4f}"
+            route = ""
+            if which == "rmv":
+                short = dd_cuda.rmv_slabs(m, n, sms)[0] <= dd_cuda.RMV_SHORT_SLABS
+                route = " (short-lane kernel)" if short else " (long kernel)"
+            say(f"[batch kernels] {which} ({B}, {m}, {n}){route} median ms: batched {k1:.4f}"
                 f" {k2:.4f}  loop of {B} single launches {loop:.4f}  plain {p1:.4f}"
-                f" {p2:.4f}  bound {bound['bound_ms']:.4f} ({bound['bound_by']})")
+                f" {p2:.4f}  bound {bound['bound_ms']:.4f} ({bound['bound_by']},"
+                f" {100 * bound['bound_ms'] / min(k1, k2):.0f}% of it)")
             entry = dict(ms=min(k1, k2), plain_ms=min(p1, p2), loop_ms=loop,
                          library_ms=None, max_abs_err=errs[which][0], **bound)
             key = which + "_batched"
@@ -2574,10 +2598,11 @@ def phase_mesh(cimt, counters, card, pilot_s, sf8, info8):
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # Phase 19 (b): the kernels' functions in the profiler's trace (a pattern of
 # names: dd A·x is either kernel, rows of at most dd_cuda.MV_SHORT_MAX
-# columns taking the short-row one), and the counters whose deltas they must
-# equal (a batched launch runs the same functions).
+# columns taking the short-row one; dd Aᵀ·x either, lanes of at most
+# dd_cuda.RMV_SHORT_SLABS slabs taking the short-lane one), and the counters
+# whose deltas they must equal (a batched launch runs the same functions).
 TRACED = {"dd_mv_kernel|dd_mv_short_kernel": ("mv", "mv_batched"),
-          "dd_rmv_kernel": ("rmv", "rmv_batched"),
+          "dd_rmv_kernel|dd_rmv_short_kernel": ("rmv", "rmv_batched"),
           "potrf_tile_kernel": ("potrf_tile", "potrf_tile_batched"),
           "assemble_chunks_kernel": ("assemble_pairs", "assemble_pairs_batched")}
 

@@ -36,17 +36,21 @@
 //        0.0026); the block kernel stays ahead on single launches from 512
 //        columns on (with the short kernel, 1536 rows leave the card too few
 //        warps), hence kMvShortMax = 384.
-//   rmv: row slabs on the grid's second dimension so that enough blocks
-//        fill the card in one wave; a thread owns kRmvCols neighbouring
-//        columns (one load per row where the rows are aligned to that many
-//        floats, 4-byte loads otherwise), each with its own accumulator
-//        chain, and loads kRmvRows rows at a time, the next rows' loads
-//        started before the current ones are accumulated.  Every column still
-//        adds its slab's rows in ascending order.  The (slabs, n) partials
-//        go through L2: the last block to arrive for a column block (an
-//        integer ticket per column block, __threadfence + atomicAdd, set
-//        back to 0 by that same block) adds that block's partials in slab
-//        order 0..S-1 with dd_add, so one launch does it all and the sums do
+//   rmv: row slabs so that enough threads fill the card; a thread owns a
+//        few neighbouring columns of one slab (one load per row where the
+//        rows are aligned to that many floats, 4-byte loads otherwise), each
+//        with its own accumulator chain, and loads a chunk of rows at a time,
+//        the next chunk's loads started before the current one is
+//        accumulated.  Every column adds its slab's rows in ascending order,
+//        and the slabs' partials are added in slab order 0..S-1 with dd_add,
+//        starting from slab 0's: the order, and so the bits, whichever of
+//        the two kernels runs.
+//        dd_rmv_kernel (more than kRmvShortSlabs slabs, the pilot's 27):
+//        slabs on the grid's second dimension, kRmvCols columns a thread.
+//        The (slabs, n) partials go through L2: the last block to arrive
+//        for a column block (an integer ticket per column block,
+//        __threadfence + atomicAdd, set back to 0 by that same block) adds
+//        that block's partials, so one launch does it all and the sums do
 //        not depend on which block came last.  No float atomics.
 //        On an NVIDIA H100 80GB HBM3 at 700.00 W (tools/probe_rmv_kernel.py)
 //        the kernel up to the tickets runs at the rate of a plain read of A
@@ -54,6 +58,28 @@
 //        rows; what is left is the last block's combine (~2.6 us for 27
 //        slabs: a batch's L2 latency and its chain of dd_adds, four times).
 //        The registers decide the rest: all blocks must be resident at once.
+//        dd_rmv_short_kernel (at most kRmvShortSlabs slabs: a 64-row lane's
+//        2, afiro's (128, 128) 4; up to 512 rows on lanes narrower than
+//        kRmvCtaCols): a block holds every slab of its column groups,
+//        threads flattened over (slab, lane, column group) so that no
+//        thread idles on a 64- or 128-column lane; each slab's partial goes
+//        to shared memory and, after one barrier, slab 0's thread adds the
+//        others in order.  No partials in device memory, no tickets, where
+//        the long kernel would leave half or three quarters of its threads
+//        without a column on such lanes and pay the tickets' fence, atomics
+//        and L2 round trip to add two partials.  On an NVIDIA H100 80GB HBM3
+//        at 700.00 W (tools/probe_rmv_kernel.py --short): threads 128 or
+//        256, columns 1, 2 or 4 and rows 8 or 16 a chunk come within ~5% of
+//        each other at the batch shapes (128 x 2 x 16 taken); the short
+//        kernel beats the long one from 2 to 16 slabs ((256, 64, 128) 0.0101
+//        against 0.0113 ms, (64, 512, 128) 0.0138 against 0.0175) but not at
+//        (4096, 8192)'s 17 (0.0700 against 0.0526 ms), hence
+//        kRmvShortSlabs = 16.  Its stamps at (256, 64, 128): a block's
+//        first rows land ~2.2 us after it starts (the batch's 8 MB
+//        streaming in), its chains end ~2.0 us later and the combine takes
+//        ~0.3 us: ~5.1 us from the first block's start to the last one's
+//        end, where CUDA events read ~10 us around a launch that a
+//        one-element fill takes ~5.2 us by.
 // Both kernels mask the ragged edge themselves: any m, n >= 1.
 //
 // Batches (the batched LP solves, where the JAX package vmaps the Pallas
@@ -62,8 +88,8 @@
 // (rmv), each lane at its own strides for A and x (a stride of 0 shares one
 // operand across the lanes).  A lane's arithmetic and order are those of
 // the single launch, so each lane is bit-equal to the single call on it;
-// the single call is the batch of one; the short-row kernel runs the rows of
-// all lanes one after another.
+// the single call is the batch of one; the short-row kernel runs the rows,
+// the short-lane kernel the column groups, of all lanes one after another.
 
 #include <cuda_runtime.h>
 
@@ -142,17 +168,46 @@ constexpr int kShortThreads = 32 * kShortWarps;
 constexpr int kShortFill = 132 * 16;  // warps the launch aims for: 16 an SM
 constexpr int kShortTrees = 8;        // rows times virtual warps a warp reduces at once
 
-// Aᵀ·x: threads per block, neighbouring columns per thread (one rmv_vec
-// load per row), rows per load chunk, slabs per load batch of the combine.
+// Aᵀ·x: threads per block, neighbouring columns per thread (one load per
+// row), rows per load chunk, slabs per load batch of the combine.
 // The fastest of tools/probe_rmv_kernel.py's sweep that keeps seven blocks
 // resident on an SM (72 registers).
 constexpr int kRmvThreads = 128;
 constexpr int kRmvCols = 2;
-using rmv_vec = float2;  // kRmvCols floats
 constexpr int kRmvRows = 8;
 constexpr int kRmvBatch = 8;
 constexpr int kRmvCtaCols = kRmvThreads * kRmvCols;  // dd_cuda.RMV_CTA_COLS
-static_assert(sizeof(rmv_vec) == kRmvCols * sizeof(float), "rmv_vec holds kRmvCols floats");
+// Short lanes: at most kRmvShortSlabs slabs (dd_cuda.RMV_SHORT_SLABS) take
+// dd_rmv_short_kernel, kRmvShortThreads threads a block, kRmvShortCols
+// columns a thread, kRmvShortRows rows per load chunk.
+constexpr int kRmvShortSlabs = 16;
+constexpr int kRmvShortThreads = 128;
+constexpr int kRmvShortCols = 2;
+constexpr int kRmvShortRows = 16;
+static_assert(kRmvShortSlabs <= kRmvShortThreads, "a thread per slab at least");
+
+// %globaltimer stamps of dd_rmv_short_kernel for tools/probe_rmv_kernel.py,
+// which builds this file with -DCIM_RMV_PROBE: per block, thread 0 stamps
+// its entry (slot 0), the arrival of its first chunk of rows (1), the end of
+// its chain (2) and of the combine (3), each after the value it names
+// (``dep``) is there; nothing otherwise.
+#ifdef CIM_RMV_PROBE
+constexpr int kRmvStampBlocks = 16384;
+__device__ unsigned long long cim_rmv_stamps[4 * kRmvStampBlocks];
+#define RMV_STAMP(slot, dep)                                                   \
+  do {                                                                         \
+    if (threadIdx.x == 0 && blockIdx.x < kRmvStampBlocks &&                    \
+        __float_as_uint(dep) != 0xffffffffu) {                                 \
+      unsigned long long t;                                                    \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                   \
+      cim_rmv_stamps[4 * blockIdx.x + (slot)] = t;                             \
+    }                                                                          \
+  } while (0)
+#else
+#define RMV_STAMP(slot, dep) \
+  do {                       \
+  } while (0)
+#endif
 
 __global__ void __launch_bounds__(kMvThreads)
 dd_mv_kernel(const float* __restrict__ A, const float* __restrict__ x,
@@ -299,40 +354,120 @@ dd_mv_short_kernel(const float* __restrict__ A, const float* __restrict__ x,
   }
 }
 
-// kRmvCols neighbouring floats at ``p`` in one load (p aligned to their
-// size): through the read-only path, or from L2 past L1 (``kFromL2``).
-union rmv_pack {
-  rmv_vec vec;
-  float f[kRmvCols];
+// C neighbouring floats as one load.
+template <int C>
+struct floats;
+template <>
+struct floats<1> {
+  using type = float;
+};
+template <>
+struct floats<2> {
+  using type = float2;
+};
+template <>
+struct floats<4> {
+  using type = float4;
 };
 
-template <bool kFromL2>
-__device__ __forceinline__ void rmv_load_vec(const float* p, float (&v)[kRmvCols]) {
-  const rmv_vec* q = reinterpret_cast<const rmv_vec*>(p);
-  rmv_pack t;
-  t.vec = kFromL2 ? __ldcg(q) : __ldg(q);
+// C neighbouring floats at ``p`` in one load (p aligned to their size):
+// through the read-only path, or from L2 past L1 (``kFromL2``).
+template <bool kFromL2, int C>
+__device__ __forceinline__ void rmv_load_vec(const float* p, float (&v)[C]) {
+  using vec = typename floats<C>::type;
+  union {
+    vec v;
+    float f[C];
+  } t;
+  const vec* q = reinterpret_cast<const vec*>(p);
+  t.v = kFromL2 ? __ldcg(q) : __ldg(q);
 #pragma unroll
-  for (int j = 0; j < kRmvCols; ++j) v[j] = t.f[j];
+  for (int j = 0; j < C; ++j) v[j] = t.f[j];
 }
 
-__device__ __forceinline__ void rmv_store_vec(float* p, const float (&v)[kRmvCols]) {
-  rmv_pack t;
+template <int C>
+__device__ __forceinline__ void rmv_store_vec(float* p, const float (&v)[C]) {
+  using vec = typename floats<C>::type;
+  union {
+    vec v;
+    float f[C];
+  } t;
 #pragma unroll
-  for (int j = 0; j < kRmvCols; ++j) t.f[j] = v[j];
-  *reinterpret_cast<rmv_vec*>(p) = t.vec;
+  for (int j = 0; j < C; ++j) t.f[j] = v[j];
+  *reinterpret_cast<vec*>(p) = t.v;
 }
 
 // One row's columns of a thread from ``a`` (already at its first column):
 // one load, or 4-byte loads with the ``left`` columns inside A and zeros
 // past them.
-template <bool kVec>
+template <bool kVec, int C>
 __device__ __forceinline__ void rmv_load(const float* __restrict__ a, int left,
-                                         float (&v)[kRmvCols]) {
+                                         float (&v)[C]) {
   if constexpr (kVec) {
     rmv_load_vec<false>(a, v);
   } else {
 #pragma unroll
-    for (int j = 0; j < kRmvCols; ++j) v[j] = j < left ? __ldg(a + j) : 0.0f;
+    for (int j = 0; j < C; ++j) v[j] = j < left ? __ldg(a + j) : 0.0f;
+  }
+}
+
+// acc[j] += a[i][j] * x[i] for the rows r0 <= i < r1 (``a`` at row r0 and
+// the thread's first column), rows ascending: rows in chunks of R, the next
+// chunk's loads started before the current chunk is accumulated.  With
+// kStamp, stamp 1 once the first chunk (or row) has landed, the next
+// chunk's loads already issued.
+template <bool kVec, int C, int R, bool kStamp = false>
+__device__ __forceinline__ void rmv_chain(const float* __restrict__ a,
+                                          const float* __restrict__ x, int r0, int r1,
+                                          long long lda, int left, dd (&acc)[C]) {
+  const int chunks = (r1 - r0) / R;
+  float cur[R][C], nxt[R][C];
+  float xc[R], xn[R];
+  int i = r0;
+  if (chunks > 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      rmv_load<kVec>(a + r * lda, left, cur[r]);
+      xc[r] = __ldg(x + i + r);
+    }
+  }
+  for (int c = 0; c < chunks; ++c) {
+    a += R * lda;
+    i += R;
+    const bool more = c + 1 < chunks;
+    if (more) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        rmv_load<kVec>(a + r * lda, left, nxt[r]);
+        xn[r] = __ldg(x + i + r);
+      }
+    }
+    if constexpr (kStamp) {
+      if (c == 0) RMV_STAMP(1, cur[R - 1][C - 1] + xc[R - 1]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) dd_accumulate(acc[j], cur[r][j], xc[r]);
+    }
+    if (more) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        xc[r] = xn[r];
+#pragma unroll
+        for (int j = 0; j < C; ++j) cur[r][j] = nxt[r][j];
+      }
+    }
+  }
+  for (; i < r1; ++i, a += lda) {
+    float v[C];
+    rmv_load<kVec>(a, left, v);
+    const float xi = __ldg(x + i);
+    if constexpr (kStamp) {
+      if (chunks == 0 && i == r0) RMV_STAMP(1, v[C - 1] + xi);
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) dd_accumulate(acc[j], v[j], xi);
   }
 }
 
@@ -367,52 +502,8 @@ dd_rmv_kernel(const float* __restrict__ A, const float* __restrict__ x,
   for (int j = 0; j < kRmvCols; ++j) acc[j] = {0.0f, 0.0f};
 
   if (left > 0) {
-    // Rows in chunks of kRmvRows: the next chunk's loads are started before
-    // the current chunk is accumulated, rows ascending.
-    const float* a = A + static_cast<long long>(r0) * lda + col;
-    const int chunks = (r1 - r0) / kRmvRows;
-    float cur[kRmvRows][kRmvCols], nxt[kRmvRows][kRmvCols];
-    float xc[kRmvRows], xn[kRmvRows];
-    int i = r0;
-    if (chunks > 0) {
-#pragma unroll
-      for (int r = 0; r < kRmvRows; ++r) {
-        rmv_load<kVec>(a + r * lda, left, cur[r]);
-        xc[r] = __ldg(x + i + r);
-      }
-    }
-    for (int c = 0; c < chunks; ++c) {
-      a += kRmvRows * lda;
-      i += kRmvRows;
-      const bool more = c + 1 < chunks;
-      if (more) {
-#pragma unroll
-        for (int r = 0; r < kRmvRows; ++r) {
-          rmv_load<kVec>(a + r * lda, left, nxt[r]);
-          xn[r] = __ldg(x + i + r);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRmvRows; ++r) {
-#pragma unroll
-        for (int j = 0; j < kRmvCols; ++j) dd_accumulate(acc[j], cur[r][j], xc[r]);
-      }
-      if (more) {
-#pragma unroll
-        for (int r = 0; r < kRmvRows; ++r) {
-          xc[r] = xn[r];
-#pragma unroll
-          for (int j = 0; j < kRmvCols; ++j) cur[r][j] = nxt[r][j];
-        }
-      }
-    }
-    for (; i < r1; ++i, a += lda) {
-      float v[kRmvCols];
-      rmv_load<kVec>(a, left, v);
-      const float xi = __ldg(x + i);
-#pragma unroll
-      for (int j = 0; j < kRmvCols; ++j) dd_accumulate(acc[j], v[j], xi);
-    }
+    rmv_chain<kVec, kRmvCols, kRmvRows>(A + static_cast<long long>(r0) * lda + col, x, r0,
+                                        r1, lda, left, acc);
   }
 
   if (slabs > 1) {
@@ -477,6 +568,76 @@ dd_rmv_kernel(const float* __restrict__ A, const float* __restrict__ x,
   }
 }
 
+// Aᵀ·x on short lanes, the sums of dd_rmv_kernel in its order: every slab
+// of a column group in one block.  A unit is (lane, group of kRmvShortCols
+// columns), units numbered lane after lane; a block takes U = T / slabs
+// units (T = kRmvShortThreads) and thread t works on slab t / U of unit
+// t % U, so neighbouring threads read neighbouring columns of one row and
+// only T mod slabs threads idle.  Each slab's partial goes to shared memory;
+// after one barrier, slab 0's thread adds slabs 1..S-1 into its own in
+// order (dd_add, starting from slab 0's partial, never from zero: dd_add(v,
+// 0) is not v when v.hi is -0) and stores the sum.  kVec as for
+// dd_rmv_kernel, with kRmvShortCols floats.
+template <bool kVec>
+__global__ void __launch_bounds__(kRmvShortThreads)
+dd_rmv_short_kernel(const float* __restrict__ A, const float* __restrict__ x,
+                    float* __restrict__ hi, float* __restrict__ lo, int m, int n,
+                    long long lda, int slabs, int rows_per_slab, int lanes,
+                    long long lane_a, long long lane_x) {
+  constexpr int C = kRmvShortCols;
+  __shared__ float part_hi[C][kRmvShortThreads], part_lo[C][kRmvShortThreads];
+  RMV_STAMP(0, 0.0f);
+  const int units = kRmvShortThreads / slabs;
+  const long long groups = (n + C - 1) / C;  // units of a lane
+  const int slab = threadIdx.x / units;
+  const int unit = threadIdx.x - slab * units;
+  const long long u = static_cast<long long>(blockIdx.x) * units + unit;
+  const bool live = slab < slabs && u < lanes * groups;
+  const long long lane = live ? u / groups : 0;
+  const int col = live ? static_cast<int>(u - lane * groups) * C : 0;
+  const int left = n - col;  // columns of this thread inside A
+  dd acc[C];
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = {0.0f, 0.0f};
+  if (live) {
+    const int r0 = slab * rows_per_slab;
+    const int r1 = min(m, r0 + rows_per_slab);
+    rmv_chain<kVec, C, kRmvShortRows, true>(
+        A + lane * lane_a + static_cast<long long>(r0) * lda + col, x + lane * lane_x, r0,
+        r1, lda, left, acc);
+  }
+  RMV_STAMP(2, acc[0].hi);
+  if (slabs > 1) {
+    if (live && slab > 0) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        part_hi[j][threadIdx.x] = acc[j].hi;
+        part_lo[j][threadIdx.x] = acc[j].lo;
+      }
+    }
+    __syncthreads();
+    if (live && slab == 0) {
+      for (int s = 1; s < slabs; ++s) {
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          acc[j] = dd_add(acc[j], dd{part_hi[j][s * units + unit], part_lo[j][s * units + unit]});
+        }
+      }
+    }
+  }
+  RMV_STAMP(3, acc[0].hi);
+  if (!live || slab > 0) return;
+  hi += lane * n;
+  lo += lane * n;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (j < left) {
+      hi[col + j] = acc[j].hi;
+      lo[col + j] = acc[j].lo;
+    }
+  }
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Each entry point launches on the given
@@ -519,9 +680,27 @@ int launch_rmv(const float* A, const float* x, float* hi, float* lo,
                float* part_hi, float* part_lo, int* tickets, int m, int n,
                long long lda, long long ldp, int slabs, int rows_per_slab,
                int lanes, long long lane_a, long long lane_x, cudaStream_t s) {
+  const unsigned long long a_at = reinterpret_cast<unsigned long long>(A);
+  if (slabs <= kRmvShortSlabs) {
+    constexpr int C = kRmvShortCols;
+    const long long units = static_cast<long long>(lanes) * ((n + C - 1) / C);
+    const long long blocks = (units + kRmvShortThreads / slabs - 1) / (kRmvShortThreads / slabs);
+    if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const bool vec = a_at % (4 * C) == 0 && lda % C == 0 && n % C == 0 && lane_a % C == 0;
+    if (vec) {
+      dd_rmv_short_kernel<true><<<static_cast<unsigned>(blocks), kRmvShortThreads, 0, s>>>(
+          A, x, hi, lo, m, n, lda, slabs, rows_per_slab, lanes, lane_a, lane_x);
+    } else {
+      dd_rmv_short_kernel<false><<<static_cast<unsigned>(blocks), kRmvShortThreads, 0, s>>>(
+          A, x, hi, lo, m, n, lda, slabs, rows_per_slab, lanes, lane_a, lane_x);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (part_hi == nullptr || part_lo == nullptr || tickets == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((n + kRmvCtaCols - 1) / kRmvCtaCols, slabs, lanes);
-  const bool vec = reinterpret_cast<unsigned long long>(A) % (4 * kRmvCols) == 0 &&
-                   lda % kRmvCols == 0 && n % kRmvCols == 0 &&
+  const bool vec = a_at % (4 * kRmvCols) == 0 && lda % kRmvCols == 0 && n % kRmvCols == 0 &&
                    lane_a % kRmvCols == 0;
   if (vec) {
     dd_rmv_kernel<true><<<grid, kRmvThreads, 0, s>>>(
@@ -555,6 +734,9 @@ extern "C" int cim_dd_mv_f32_batched(const float* A, const float* x, float* hi,
 // part_hi / part_lo: (slabs, ldp) scratch per lane, lane after lane, ldp a
 // multiple of 4 >= n, both 16-byte aligned; tickets: one int per block of
 // kRmvCtaCols columns per lane, all zero (the kernel leaves them zero).
+// Neither is touched, and both may be null, when slabs <= kRmvShortSlabs
+// (the short-lane kernel); a long launch without them is refused
+// (cudaErrorInvalidValue).
 extern "C" int cim_dd_rmv_f32(const float* A, const float* x, float* hi,
                               float* lo, float* part_hi, float* part_lo,
                               int* tickets, int m, int n, long long lda,

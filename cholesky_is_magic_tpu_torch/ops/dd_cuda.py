@@ -11,10 +11,13 @@ Pallas TPU kernels of ``cholesky_is_magic_tpu/ops/dd_pallas.py``:
 - :func:`dd_rmv` (``cim_dd_rmv_f32``) replaces ``_rmv_kernel``, launched
   there by ``_dd_rmv_partials``: Aᵀ·x in double-word, reading row-major A
   without a transpose copy, in one launch; a thread accumulates two
-  neighbouring columns over its row slab, eight rows' loads at a time; the
-  slabs leave (slabs, n) partials in L2, and the last block to arrive for a
-  column block (an integer ticket) combines them in slab order with
-  ``dd_add``.
+  neighbouring columns over its row slab, a chunk of rows' loads at a time,
+  and the slabs' partials are added in slab order with ``dd_add``.  Lanes of
+  at most RMV_SHORT_SLABS slabs (512 rows on a narrow lane) take a kernel
+  whose block holds every slab of its columns and adds the partials in
+  shared memory; longer ones leave (slabs, n) partials in L2, and the last
+  block to arrive for a column block (an integer ticket) adds them.  Either
+  way the same sums in the same order.
 
 What bounds them on the H100: every 4-byte element of A costs ~10 flops
 (error-free product + compensated accumulation), far below the card's
@@ -76,6 +79,10 @@ MAX_LANES = 65535
 # fixes the slab partition and with it the order of the sums.
 RMV_CTA_COLS = 256
 
+# Lanes of at most this many slabs take the short-lane Aᵀ·x kernel
+# (kRmvShortSlabs), which needs neither partials nor tickets.
+RMV_SHORT_SLABS = 16
+
 # Per (device, stream): the zeroed tickets of dd_rmv's column blocks.  Each
 # launch leaves them zero again, and launches on one stream run in turn, so
 # no call pays for a memset.  A ticket that was not zero on entry makes the
@@ -118,6 +125,19 @@ def _tickets(device, stream, count: int) -> torch.Tensor:
     return tickets
 
 
+def _scratch(device, stream, lanes: int, n: int, slabs: int):
+    """The long Aᵀ·x kernel's scratch: (ldp, partials (2, lanes, slabs,
+    ldp), the partials' and tickets' addresses) with ldp a multiple of 4 >=
+    n; on the short path, which takes neither, (0, None, nulls).  The caller
+    holds the partials until its launch is queued."""
+    if slabs <= RMV_SHORT_SLABS:
+        return 0, None, (0, 0, 0)
+    ldp = -(-n // 4) * 4
+    part = torch.empty((2, lanes, slabs, ldp), dtype=torch.float32, device=device)
+    tickets = _tickets(device, stream, lanes * -(-n // RMV_CTA_COLS))
+    return ldp, part, (part[0].data_ptr(), part[1].data_ptr(), tickets.data_ptr())
+
+
 def dd_mv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """A·x in double-word on the card: (hi, lo), each (m,) f32."""
     _check(A, x, 1, "dd_mv")
@@ -146,18 +166,15 @@ def dd_rmv(A: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor
         return zero, zero.clone()
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     slabs, rows = rmv_slabs(m, n, sms)
-    ldp = -(-n // 4) * 4
     hi = torch.empty(n, dtype=torch.float32, device=A.device)
     lo = torch.empty(n, dtype=torch.float32, device=A.device)
-    part = torch.empty((2, slabs, ldp), dtype=torch.float32, device=A.device)
     lib = cuda_build.load(_SIGNATURES)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    tickets = _tickets(A.device, stream, -(-n // RMV_CTA_COLS))
+    ldp, part, scratch = _scratch(A.device, stream, 1, n, slabs)
     LAUNCHES["rmv"] += 1
     cuda_build.raise_on(
         lib.cim_dd_rmv_f32(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
-                           lo.data_ptr(), part[0].data_ptr(),
-                           part[1].data_ptr(), tickets.data_ptr(), m, n,
+                           lo.data_ptr(), *scratch, m, n,
                            A.stride(0), ldp, slabs, rows, stream),
         "dd_rmv")
     return hi, lo
@@ -211,7 +228,8 @@ def dd_rmv_batched(A: torch.Tensor, x: torch.Tensor
     """A[k]ᵀ·x[k] in double-word for every lane k in one launch: (hi, lo),
     each (B, n) f32.  The slab partition is the single call's
     (:func:`rmv_slabs` of one lane), so lane k is bit-equal to
-    ``dd_rmv(A[k], x[k])``; one ticket per (lane, column block)."""
+    ``dd_rmv(A[k], x[k])``; on long lanes one ticket per (lane, column
+    block)."""
     _check_batched(A, x, 0, "dd_rmv_batched")
     lanes, m, n = A.shape
     if m == 0 or n == 0:
@@ -219,19 +237,15 @@ def dd_rmv_batched(A: torch.Tensor, x: torch.Tensor
         return zero, zero.clone()
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     slabs, rows = rmv_slabs(m, n, sms)
-    ldp = -(-n // 4) * 4
     hi = torch.empty(lanes, n, dtype=torch.float32, device=A.device)
     lo = torch.empty(lanes, n, dtype=torch.float32, device=A.device)
-    part = torch.empty((2, lanes, slabs, ldp), dtype=torch.float32,
-                       device=A.device)
     lib = cuda_build.load(_SIGNATURES)
     stream = torch.cuda.current_stream(A.device).cuda_stream
-    tickets = _tickets(A.device, stream, lanes * -(-n // RMV_CTA_COLS))
+    ldp, part, scratch = _scratch(A.device, stream, lanes, n, slabs)
     LAUNCHES["rmv_batched"] += 1
     cuda_build.raise_on(
         lib.cim_dd_rmv_f32_batched(A.data_ptr(), x.data_ptr(), hi.data_ptr(),
-                                   lo.data_ptr(), part[0].data_ptr(),
-                                   part[1].data_ptr(), tickets.data_ptr(), m,
+                                   lo.data_ptr(), *scratch, m,
                                    n, A.stride(1), ldp, slabs, rows, lanes,
                                    A.stride(0), x.stride(0), stream),
         "dd_rmv_batched")
@@ -285,22 +299,24 @@ def _(info, in_dims, A, x):
 
 def rmv_slab_plain(A: torch.Tensor, x: torch.Tensor, slabs: int,
                    rows: int) -> ddm.DD:
-    """Aᵀ·x for float32 A and x in plain PyTorch, in :func:`dd_rmv`'s own
-    order: each column adds its slab's rows in ascending order into a
-    double-word (the kernel's ``dd_accumulate``), and the slabs' partials
-    are added in ascending order with ``dd_add``.  The product error is the
-    kernel's fma(a, x, -p), exact here by way of float64.  One small
+    """Aᵀ·x for float32 A (..., m, n) and x (..., m) in plain PyTorch, in
+    :func:`dd_rmv`'s own order (either kernel, single or batched): each
+    column adds its slab's rows in ascending order into a double-word (the
+    kernel's ``dd_accumulate``), and the slabs' partials are added in
+    ascending order with ``dd_add``, from slab 0's.  The product error is
+    the kernel's fma(a, x, -p), exact here by way of float64.  One small
     operation per row: for checks, not for speed."""
-    m, n = A.shape
+    *lead, m, n = A.shape
     if m and -(-m // rows) != slabs:
         raise ValueError(f"{slabs} slabs of {rows} rows do not cover {m} rows")
     total = None
     for r0 in range(0, max(m, 1), rows):
-        hi = torch.zeros(n, dtype=A.dtype, device=A.device)
+        hi = torch.zeros(*lead, n, dtype=A.dtype, device=A.device)
         lo = torch.zeros_like(hi)
         for i in range(r0, min(m, r0 + rows)):
-            p = A[i] * x[i]
-            e = (A[i].double() * x[i].double() - p.double()).to(A.dtype)
+            a, xi = A[..., i, :], x[..., i, None]
+            p = a * xi
+            e = (a.double() * xi.double() - p.double()).to(A.dtype)
             s = ddm.two_sum(hi, p)
             low = lo + (s.lo + e)
             hi = s.hi + low

@@ -109,19 +109,26 @@ def test_dd_mv_on_misaligned_views(dev, view):
                                rtol=1e-11, atol=1e-11)
 
 
-RMV_SHAPES = [(1, 1), (7, 300), (300, 7), (129, 257), (1441, 5093), (1536, 5120)]
+# Both sides of the short-lane kernel's switch (dd_cuda.RMV_SHORT_SLABS = 16
+# slabs): (64, 64), (64, 128) 2 slabs, (128, 128) 4, (256, 300) 8, (257, 128)
+# 9, (512, 128) 16 on the short kernel; (544, 128) 17 and the pilot's 27 on
+# the long one.
+RMV_SHAPES = [(1, 1), (7, 300), (300, 7), (129, 257), (1441, 5093), (1536, 5120),
+              (64, 64), (64, 128), (128, 128), (256, 300), (257, 128), (512, 128),
+              (544, 128)]
 
 
 def _rmv_slab_order(A, y):
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
-    return dd_cuda.rmv_slab_plain(A, y, *dd_cuda.rmv_slabs(*A.shape, sms))
+    return dd_cuda.rmv_slab_plain(A, y, *dd_cuda.rmv_slabs(*A.shape[-2:], sms))
 
 
 @pytest.mark.parametrize("m,n", RMV_SHAPES)
 def test_dd_rmv_is_bit_equal_to_its_slab_order(dev, m, n):
     """Aᵀ·x against the same sums in plain PyTorch (rows ascending inside a
     slab, slabs ascending): equal bit for bit, hi and lo, and again on a
-    second call (the column blocks' tickets are back at zero)."""
+    second call (the column blocks' tickets are back at zero, short and long
+    calls on one stream)."""
     A, _x, y = _inputs(np.random.default_rng(m + n), m, n, dev)
     want = _rmv_slab_order(A, y)
     for _ in range(2):
@@ -814,13 +821,24 @@ def _lane_inputs(rng, B, m, n, offset, dev):
 
 
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("B,m,n", [(1, 64, 64), (5, 37, 91), (64, 64, 128),
-                                   (3, 1441, 5093)])
-def test_batched_kernels_equal_the_single_kernels_per_lane(dev, B, m, n, offset):
+@pytest.mark.parametrize("B,m,n,shared", [
+    pytest.param(B, m, n, shared,
+                 id="-".join(map(str, (B, m, n))) + (f"-{shared}" if shared else ""))
+    for B, m, n, shared in [(1, 64, 64, None), (5, 37, 91, None), (64, 64, 128, None),
+                            (3, 1441, 5093, None), (1024, 64, 64, None), (256, 64, 192, None),
+                            (256, 64, 128, "shared A"), (9, 37, 91, "shared x and y"),
+                            (4, 544, 128, "shared A")]])
+def test_batched_kernels_equal_the_single_kernels_per_lane(dev, B, m, n, shared, offset):
     """Each lane of one batched launch is the single launch on that lane, bit
     for bit, and within 64·eps32² of Σ|a_ij x_j| of the plain batched form;
-    one count per batched launch, none on the single counters."""
+    the batched Aᵀ·x also bit for bit its order (the batched
+    ``rmv_slab_plain``); A, or x and y, shared by every lane at lane stride 0
+    too; one count per batched launch, none on the single counters."""
     A, x, y = _lane_inputs(np.random.default_rng(B + m + n), B, m, n, offset, dev)
+    if shared == "shared A":
+        A = A[0].expand(B, m, n)
+    elif shared:
+        x, y = x[0].expand(B, n), y[0].expand(B, m)
     before = dict(dd_cuda.LAUNCHES)
     mv, rmv = dd_cuda.dd_mv_batched(A, x), dd_cuda.dd_rmv_batched(A, y)
     assert dd_cuda.LAUNCHES["mv_batched"] == before["mv_batched"] + 1
@@ -830,6 +848,8 @@ def test_batched_kernels_equal_the_single_kernels_per_lane(dev, B, m, n, offset)
         one, rone = dd_cuda.dd_mv(A[k], x[k]), dd_cuda.dd_rmv(A[k], y[k])
         assert torch.equal(mv[0][k], one[0]) and torch.equal(mv[1][k], one[1])
         assert torch.equal(rmv[0][k], rone[0]) and torch.equal(rmv[1][k], rone[1])
+    order = _rmv_slab_order(A, y)
+    assert torch.equal(rmv[0], order.hi) and torch.equal(rmv[1], order.lo)
     for got, plain, scale in (
         (mv, ddm._dd_matvec_plain(A, x), (A.abs() @ x.abs().unsqueeze(-1))[..., 0]),
         (rmv, ddm._dd_matvec_plain(A.mT, y),

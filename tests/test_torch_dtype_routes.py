@@ -93,27 +93,40 @@ def test_afiro_f64_counts_gap_and_objective(kw):
     assert abs(rep.objective - OPTIMUM) <= 1e-7 * abs(OPTIMUM)
 
 
-@pytest.mark.parametrize("m,n,sms", [(1, 1, 132), (7, 300, 132), (300, 7, 132),
-                                     (129, 257, 132), (200, 520, 8)])
-def test_rmv_slab_plain_matches_jax_and_the_truth(m, n, sms):
+@pytest.mark.parametrize("m,n,sms,lanes", [
+    pytest.param(m, n, sms, lanes, id="-".join(map(str, (m, n, sms)))
+                 + (f"-{lanes}lanes" if lanes > 1 else ""))
+    for m, n, sms, lanes in [(1, 1, 132, 1), (7, 300, 132, 1), (300, 7, 132, 1),
+                             (129, 257, 132, 1), (200, 520, 8, 1), (64, 64, 132, 1),
+                             (64, 128, 132, 1), (64, 64, 132, 2), (64, 128, 132, 2)]])
+def test_rmv_slab_plain_matches_jax_and_the_truth(m, n, sms, lanes):
     """The kernel's summation order (rows ascending per slab, slabs
     ascending) on f32 inputs: within 64·eps32² of Σ|a_ij x_i| of the JAX
-    package's compensated Aᵀ·x (another order), and 1e-11 of the f64 truth."""
+    package's compensated Aᵀ·x (another order), and 1e-11 of the f64 truth;
+    a batch is its lanes, each bit-equal to the single call on it."""
     rng = np.random.default_rng(m * n)
-    A = rng.normal(size=(m, n)).astype(np.float32)
-    x = rng.normal(size=m).astype(np.float32)
+    A = rng.normal(size=(lanes, m, n)).astype(np.float32)
+    x = rng.normal(size=(lanes, m)).astype(np.float32)
     slabs, rows = dd_cuda.rmv_slabs(m, n, sms)
     assert slabs == -(-m // rows) and (slabs - 1) * rows < m <= slabs * rows
-    got = dd_cuda.rmv_slab_plain(torch.from_numpy(A), torch.from_numpy(x),
-                                 slabs, rows)
-    assert got.hi.dtype == torch.float32
+    if lanes == 1:
+        got = dd_cuda.rmv_slab_plain(torch.from_numpy(A[0]), torch.from_numpy(x[0]),
+                                     slabs, rows)
+        got = ddm.DD(got.hi[None], got.lo[None])
+    else:
+        got = dd_cuda.rmv_slab_plain(torch.from_numpy(A), torch.from_numpy(x), slabs, rows)
+        one = dd_cuda.rmv_slab_plain(torch.from_numpy(A[1]), torch.from_numpy(x[1]),
+                                     slabs, rows)
+        assert torch.equal(got.hi[1], one.hi) and torch.equal(got.lo[1], one.lo)
+    assert got.hi.dtype == torch.float32 and got.hi.shape == (lanes, n)
     got = got.hi.double().numpy() + got.lo.double().numpy()
-    ref = jdd._dd_matvec_xla(jnp.asarray(A).T, jnp.asarray(x))
-    ref = np.asarray(ref.hi, np.float64) + np.asarray(ref.lo, np.float64)
-    scale = np.abs(A).astype(np.float64).T @ np.abs(x).astype(np.float64)
-    assert np.all(np.abs(got - ref) <= 64 * EPS32**2 * scale)
-    np.testing.assert_allclose(got, A.astype(np.float64).T @ x.astype(np.float64),
-                               rtol=1e-11, atol=1e-11)
+    for k in range(lanes):
+        ref = jdd._dd_matvec_xla(jnp.asarray(A[k]).T, jnp.asarray(x[k]))
+        ref = np.asarray(ref.hi, np.float64) + np.asarray(ref.lo, np.float64)
+        scale = np.abs(A[k]).astype(np.float64).T @ np.abs(x[k]).astype(np.float64)
+        assert np.all(np.abs(got[k] - ref) <= 64 * EPS32**2 * scale)
+        np.testing.assert_allclose(got[k], A[k].astype(np.float64).T @ x[k].astype(np.float64),
+                                   rtol=1e-11, atol=1e-11)
 
 
 @pytest.mark.parametrize("m,n", [(1, 1), (64, 64), (37, 91), (5, 300), (300, 7),
@@ -146,6 +159,12 @@ def test_rmv_slabs_keeps_its_partition():
     assert dd_cuda.rmv_slabs(1536, 5120, 132) == (27, 57)
     assert dd_cuda.rmv_slabs(4096, 8192, 132) == (17, 241)
     assert dd_cuda.rmv_slabs(1, 1, 132) == (1, 1)
+    # The batched finishers' and afiro's shapes, on the short-lane kernel.
+    assert dd_cuda.rmv_slabs(64, 64, 132) == (2, 32)
+    assert dd_cuda.rmv_slabs(64, 128, 132) == (2, 32)
+    assert dd_cuda.rmv_slabs(128, 128, 132) == (4, 32)
+    assert dd_cuda.rmv_slabs(512, 128, 132)[0] == dd_cuda.RMV_SHORT_SLABS == 16
+    assert dd_cuda.rmv_slabs(544, 128, 132) == (17, 32)
 
 
 def _walk_schedule(eng, sched, d, boost):
