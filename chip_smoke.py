@@ -86,7 +86,7 @@ script then exits non-zero and never prints its last line):
    reset before and read after (the tile and assembly kernels must have
    launched), optimal, objective error <= 1e-3; a second, timed solve with
    its repair steps and its objective error by iteration, and a third with
-   the stage timers of phase 8;
+   phase 8's stages from the program's spans;
 12. presolve — solve(afiro, "pdas_dd", presolve=True) in f32: the presolve
    report, counters reset before and read after, gap <= 1e-8, objective
    within 1e-7, x and y restored to the original space;
@@ -1020,69 +1020,60 @@ def phase_at_scale(cimt, sf, info, counters, card, kw=AT_SCALE_KW):
 
 
 def _attribute(cimt, sf, kw, solver="pdas_dd"):
-    """One more at-scale solve with host timers (synchronize on entry and
-    exit) wrapped around the stages; returns seconds and calls by stage.
-    Stages nest: the tile kernel runs inside the panel loop, raw solves
-    and block-ELL products inside the refined solves."""
-    from cholesky_is_magic_tpu_torch.ops import bell, chol, sparse_ops
-    from cholesky_is_magic_tpu_torch.sparse.tiled import TiledCholesky
+    """One more at-scale solve under ``diag.recording()``: per stage (a span
+    of the program's) its host self time and calls, no synchronize; the
+    tile kernel, run once per panel step where no span is opened, by its
+    launches alone (None seconds).  Returns the solve's seconds, the
+    stages and the report."""
+    from cholesky_is_magic_tpu_torch.utils import diag
 
-    # The set-up's module (the package re-exports a function of its name).
-    mod, setup = (("affine", "make_affine_state_sparse") if solver == "affine"
-                  else ("pdas", "make_pdas_sparse"))
-    setup_mod = importlib.import_module(f"cholesky_is_magic_tpu_torch.solvers.{mod}")
-
-    acc = {}
-    stages = [(f"setup: {setup} (analysis, schedules, ELL/BELL)",
-               setup_mod, setup),
-              ("assembly (kernel)", TiledCholesky, "assemble_pairs"),
-              ("panel loop (factorize)", TiledCholesky, "factorize"),
-              ("  of which tile kernel", chol, "factor_tile_"),
-              ("raw tile solves", TiledCholesky, "solve"),
-              ("block-ELL dd products", bell, "dd_matvec"),
-              ("block-ELL f32 products", bell, "matvec"),
-              ("ELL dd products", sparse_ops, "dd_matvec"),
-              ("ELL f32 products", sparse_ops, "matvec")]
-    saved = [(obj, name, getattr(obj, name)) for _, obj, name in stages]
-
-    def timed(label, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            s_, n_ = acc.get(label, (0.0, 0))
-            acc[label] = (s_ + time.perf_counter() - t, n_ + 1)
-            return out
-        return wrapper
-
-    try:
-        for (label, obj, name), (_, _, fn) in zip(stages, saved):
-            setattr(obj, name, timed(label, fn))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
+    setup = "make_affine_state_sparse" if solver == "affine" else "make_pdas_sparse"
+    stages = [(f"setup: {setup} (analysis, schedules, ELL/BELL)", "setup.lane_state"),
+              ("assembly (kernel)", "normal.assemble"),
+              ("panel loop (factorize)", "normal.factorize"),
+              ("  of which tile kernel", None),
+              ("raw tile solves", "normal.solve"),
+              ("block-ELL dd products", "ops.bell.dd_matvec"),
+              ("block-ELL f32 products", "ops.bell.matvec"),
+              ("ELL dd products", "ops.ell.dd_matvec"),
+              ("ELL f32 products", "ops.ell.matvec")]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with diag.recording() as rec:
         rep = cimt.solve(sf, solver, **kw)
         torch.cuda.synchronize()
-        total = time.perf_counter() - t
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+    total = time.perf_counter() - t
+    totals = rec.totals()
+    acc = {}
+    for label, name in stages:
+        if name is None:
+            acc[label] = (None, rec.launches["potrf_tile"] + rec.launches["potrf_tile_batched"])
+        elif name in totals:
+            calls, _, own = totals[name]
+            acc[label] = (own, calls)
     return total, acc, rep
 
 
+def _say_stages(tag, acc, total):
+    for label, (sec, calls) in acc.items():
+        if sec is None:
+            say(f"[{tag}]   {label}: {calls} launches (no span per panel step)")
+        else:
+            say(f"[{tag}]   {label}: {sec:.3f} s in {calls} calls "
+                f"({100 * sec / total:.1f}%)")
+
+
 def phase_breakdown(cimt, sf, eng, rep, chol):
-    """Where an at-scale solve's time goes: a solve with stage timers, then
-    device-busy share and CUDA-event times of one factorization and one
+    """Where an at-scale solve's time goes: a solve under the program's
+    recorder (each stage's host self time), then device-busy share and CUDA-event times of one factorization and one
     raw solve at the final iterate's scaling."""
     from cholesky_is_magic_tpu_torch.solvers.pdas import make_pdas_sparse
 
     total, acc, rep3 = _attribute(cimt, sf, AT_SCALE_KW)
     its = rep3.summary["phase1_iterations"] + rep3.summary["iterations"]
     say(f"[breakdown] timed solve {total:.3f} s, {its} iterations "
-        f"(host clock, synchronize around every stage):")
-    for label, (sec, calls) in acc.items():
-        say(f"[breakdown]   {label}: {sec:.3f} s in {calls} calls "
-            f"({100 * sec / total:.1f}%)")
+        f"(host clock; each stage's host self time, no synchronize):")
+    _say_stages("breakdown", acc, total)
 
     st, _ = make_pdas_sparse(sf, engine=eng, device="cuda")
     x = rep.result.x
@@ -1287,10 +1278,8 @@ def phase_affine_at_scale(cimt, sf, info, counters, card):
         f"{abs(o - info['objective']) / abs(info['objective']):.1e}" for o in tr["objective"]))
     total, acc, rep3 = _attribute(cimt, sf, kw, solver="affine")
     say(f"[affine breakdown] timed solve {total:.3f} s, {rep3.summary['iterations']} "
-        f"iterations (host clock, synchronize around every stage):")
-    for label, (sec, calls) in acc.items():
-        say(f"[affine breakdown]   {label}: {sec:.3f} s in {calls} calls "
-            f"({100 * sec / total:.1f}%)")
+        f"iterations (host clock; each stage's host self time, no synchronize):")
+    _say_stages("affine breakdown", acc, total)
     return launches
 
 

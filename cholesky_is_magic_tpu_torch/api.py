@@ -29,6 +29,8 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
+from cholesky_is_magic_tpu_torch.utils.spans import span
+
 
 @dataclasses.dataclass
 class SolveReport:
@@ -64,6 +66,7 @@ def _check_device(device, name: str) -> None:
                            "solve on the CPU")
 
 
+@span("setup.embed")
 def embed_batch(problems, *, pad_multiple: int = 64, dtype=None,
                 rescale: bool = False, device="cuda") -> BatchEmbed:
     """Embed (possibly heterogeneous) LPs into one padded batch on

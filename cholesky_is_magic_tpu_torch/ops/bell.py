@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.utils.spans import span
 
 BR = 8  # block rows
 BC = 128  # block cols
@@ -122,12 +123,14 @@ def _gather_x(B: BellMatrix, x: torch.Tensor) -> torch.Tensor:
     return xp[B.bcols]
 
 
+@span("ops.bell.matvec")
 def matvec(B: BellMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x via whole-tile gathers + per-tile dense products."""
     y = torch.einsum("rkij,rkj->ri", B.blocks, _gather_x(B, x))
     return y.reshape(-1)[: B.n_rows]
 
 
+@span("ops.bell.dd_matvec")
 def dd_matvec(B: BellMatrix, x: torch.Tensor) -> ddm.DD:
     """A @ x in double-word: error-free per-element tile products and
     compensated tree reductions over the lane axis, then the tile axis."""

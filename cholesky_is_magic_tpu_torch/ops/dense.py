@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
 
 class CholFactors(NamedTuple):
@@ -35,13 +36,14 @@ class CholFactors(NamedTuple):
 
 
 def _scaled_normal(A, d, row_boost):
-    AD = A * d[None, :]
-    N = AD @ AD.T
-    # Symmetrize: the f32 product is not exactly symmetric.
-    N = 0.5 * (N + N.T)
-    if row_boost is not None:
-        N = N + torch.diag(row_boost.to(N.dtype))
-    return AD, N
+    with span("normal.assemble"):
+        AD = A * d[None, :]
+        N = AD @ AD.T
+        # Symmetrize: the f32 product is not exactly symmetric.
+        N = 0.5 * (N + N.T)
+        if row_boost is not None:
+            N = N + torch.diag(row_boost.to(N.dtype))
+        return AD, N
 
 
 def normal_matrix(
@@ -74,17 +76,19 @@ def factorize(N: torch.Tensor, use_pallas: bool = False,
     matmul-rich factorization, on any device, as in the JAX package
     (``use_pallas`` wins when both are set, as there).
     """
-    if use_pallas or blocked:
-        from cholesky_is_magic_tpu_torch.ops import chol
+    count("normal.factorizations")
+    with span("normal.factorize"):
+        if use_pallas or blocked:
+            from cholesky_is_magic_tpu_torch.ops import chol
 
-        L = chol.cholesky(N) if use_pallas else chol.blocked_cholesky(N)
-        info = torch.zeros((), dtype=torch.int32, device=N.device)
-    else:
-        L, info = torch.linalg.cholesky_ex(N)
-    diag = torch.diagonal(L)
-    ok = (info == 0) & torch.all(torch.isfinite(L)) & torch.all(diag > 0)
-    eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-    return CholFactors(L=torch.where(ok, L, eye), ok=ok)
+            L = chol.cholesky(N) if use_pallas else chol.blocked_cholesky(N)
+            info = torch.zeros((), dtype=torch.int32, device=N.device)
+        else:
+            L, info = torch.linalg.cholesky_ex(N)
+        diag = torch.diagonal(L)
+        ok = (info == 0) & torch.all(torch.isfinite(L)) & torch.all(diag > 0)
+        eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
+        return CholFactors(L=torch.where(ok, L, eye), ok=ok)
 
 
 def rcond_estimate(L: torch.Tensor) -> torch.Tensor:
@@ -95,8 +99,10 @@ def rcond_estimate(L: torch.Tensor) -> torch.Tensor:
 
 def chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve (L·Lᵀ) x = b by two triangular solves."""
-    y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
-    return torch.linalg.solve_triangular(L.T, y, upper=True).squeeze(-1)
+    count("normal.solves")
+    with span("normal.solve"):
+        y = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
+        return torch.linalg.solve_triangular(L.T, y, upper=True).squeeze(-1)
 
 
 def solve_spd(
@@ -110,7 +116,8 @@ def solve_spd(
     f = factorize(N) if factors is None else factors
     x = chol_solve(f.L, b)
     for _ in range(refine_steps):
-        r = ddm.dd_residual(b, N, x)
+        with span("normal.refine"):
+            r = ddm.dd_residual(b, N, x)
         x = x + chol_solve(f.L, r)
     return torch.where(f.ok, x, torch.zeros_like(x)), f.ok
 
@@ -145,7 +152,9 @@ def unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps: int,
     def richardson_fn(g):
         y = raw_solve(g)
         for _ in range(refine_steps):
-            y = y + raw_solve(operator_residual(AD, y, g, row_boost))
+            with span("normal.refine"):
+                r = operator_residual(AD, y, g, row_boost)
+            y = y + raw_solve(r)
         return torch.where(ok, y, torch.zeros_like(y))
 
     if krylov_steps == 0:
@@ -203,7 +212,7 @@ def prepare_normal(
     AD, N = _scaled_normal(A, d, row_boost)
     blocked = method == "inverse"
     f = factorize(N, blocked=blocked)
-    if dbound > 0.0 and (per_lane or not bool(f.ok)):
+    if dbound > 0.0 and (per_lane or not host_bool(f.ok)):
         jitter = dbound * torch.max(torch.diagonal(N))
         eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
         retry = factorize(N + jitter * eye, blocked=blocked)
@@ -212,11 +221,14 @@ def prepare_normal(
             ok=torch.where(f.ok, f.ok, retry.ok))
 
     if blocked:
-        eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-        W = torch.linalg.solve_triangular(f.L, eye, upper=False)
+        with span("normal.factorize"):
+            eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
+            W = torch.linalg.solve_triangular(f.L, eye, upper=False)
 
         def solve1(g):
-            return W.T @ (W @ g)
+            count("normal.solves")
+            with span("normal.solve"):
+                return W.T @ (W @ g)
     else:
         def solve1(g):
             return chol_solve(f.L, g)
@@ -224,10 +236,11 @@ def prepare_normal(
     def richardson_fn(g):
         y = solve1(g)
         for _ in range(refine_steps):
-            if true_residual:
-                r = operator_residual(AD, y, g, row_boost)
-            else:
-                r = ddm.dd_residual(g, N, y)
+            with span("normal.refine"):
+                if true_residual:
+                    r = operator_residual(AD, y, g, row_boost)
+                else:
+                    r = ddm.dd_residual(g, N, y)
             y = y + solve1(r)
         return torch.where(f.ok, y, torch.zeros_like(y))
 

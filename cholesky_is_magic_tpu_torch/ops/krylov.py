@@ -21,6 +21,7 @@ import torch
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
+from cholesky_is_magic_tpu_torch.utils.spans import host_bool, span
 
 
 def gated(pcg_fn, cheap_fn, gate, per_lane: bool = False):
@@ -35,7 +36,7 @@ def gated(pcg_fn, cheap_fn, gate, per_lane: bool = False):
     def solve_fn(g):
         if per_lane:
             return torch.where(gate, pcg_fn(g), cheap_fn(g))
-        return pcg_fn(g) if bool(gate) else cheap_fn(g)
+        return pcg_fn(g) if host_bool(gate) else cheap_fn(g)
 
     return solve_fn
 
@@ -58,18 +59,21 @@ def pcg_refine(
     """
     x_hi = precond(b) if x0 is None else x0
     x = ddm.dd_from(x_hi)
-    r = residual_dd(x)
+    with span("normal.refine"):
+        r = residual_dd(x)
     z = precond(r)
     p = z
     rz = torch.dot(r, z)
     best_x, best_rnorm = x, torch.dot(r, r)
     for _ in range(iters):
-        q = apply_n(p)
+        with span("normal.refine"):
+            q = apply_n(p)
         pq = torch.dot(p, q)
         # Non-positive curvature: freeze this step (alpha = 0).
         alpha = torch.where(pq > 0.0, rz / torch.where(pq > 0.0, pq, 1.0), 0.0)
         x = ddm.dd_add(x, ddm.two_prod(p, alpha))
-        r = residual_dd(x)
+        with span("normal.refine"):
+            r = residual_dd(x)
         z = precond(r)
         rz_new = torch.dot(r, z)
         beta = torch.where(rz > 0.0, rz_new / torch.where(rz > 0.0, rz, 1.0), 0.0)

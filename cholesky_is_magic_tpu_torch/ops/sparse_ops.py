@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +74,7 @@ def from_dense(A: np.ndarray, dtype=torch.float32, device="cuda") -> ELLMatrix:
                     dtype=dtype, device=device)
 
 
+@span("ops.ell.matvec")
 def matvec(E: ELLMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x: gather + row reduction (sparse-m*, no transpose)."""
     return torch.sum(E.values * x[E.indices], dim=1)
@@ -107,6 +109,7 @@ def sdmult(
     return out
 
 
+@span("ops.ell.dd_matvec")
 def dd_matvec(E: ELLMatrix, x: torch.Tensor) -> ddm.DD:
     """A @ x in double-word: error-free slot products + compensated row
     reduction (the ELL twin of ops.dd.dd_matvec).  Padded slots hold exact

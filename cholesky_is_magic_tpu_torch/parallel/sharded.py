@@ -41,6 +41,7 @@ from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 from cholesky_is_magic_tpu_torch.ops.dd import DD
+from cholesky_is_magic_tpu_torch.utils.spans import host_bool, span
 
 
 def check_mesh(mesh) -> None:
@@ -194,13 +195,14 @@ def sharded_prepare_normal(
     and dd residuals sharded the same way, per call when ``krylov_gate``
     (a 0-dim bool tensor) is given (ops.krylov.gated)."""
     sh = _shard(mesh, A)
-    AD = sh.A * d[sh.lo:sh.hi][None, :]
-    N = sh.sum(AD @ AD.T)
-    N = 0.5 * (N + N.T)
-    if row_boost is not None:
-        N = N + torch.diag(row_boost.to(N.dtype))
+    with span("normal.assemble"):
+        AD = sh.A * d[sh.lo:sh.hi][None, :]
+        N = sh.sum(AD @ AD.T)
+        N = 0.5 * (N + N.T)
+        if row_boost is not None:
+            N = N + torch.diag(row_boost.to(N.dtype))
     f = dense_ops.factorize(N)
-    if dbound > 0.0 and not bool(f.ok):
+    if dbound > 0.0 and not host_bool(f.ok):
         jitter = dbound * torch.max(torch.diagonal(N))
         eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
         f = dense_ops.factorize(N + jitter * eye)
@@ -219,7 +221,9 @@ def sharded_prepare_normal(
     def richardson_fn(g):
         y = dense_ops.chol_solve(L, g)
         for _ in range(refine_steps):
-            y = y + dense_ops.chol_solve(L, residual(y, g))
+            with span("normal.refine"):
+                r = residual(y, g)
+            y = y + dense_ops.chol_solve(L, r)
         return torch.where(ok, y, torch.zeros_like(y))
 
     if krylov_steps == 0:

@@ -58,6 +58,7 @@ from cholesky_is_magic_tpu_torch.solvers.backend import (
 )
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
+from cholesky_is_magic_tpu_torch.utils.spans import host_bool, span
 
 BIG_BOUND = 1e10  # "effectively infinite" bound threshold (affine-scaling.lisp:67-75)
 
@@ -126,6 +127,7 @@ def make_affine_state(lp, x0: Optional[torch.Tensor] = None) -> AffineState:
     return AffineState(x=x, lp=lp)
 
 
+@span("setup.lane_state")
 def make_affine_state_sparse(
     sf,
     block: int = 128,
@@ -263,7 +265,7 @@ def _scaling_step(state: AffineState, centering, cfg: AffineConfig,
     slack = _slack(lp.l, x, lp.u, cfg.max_slack, lp.col_mask)
     dg, ok = _project(lp, slack, c_dir, cfg.refine_steps, engine, per_lane,
                       mesh)
-    if per_lane or not bool(ok):
+    if per_lane or not host_bool(ok):
         slack2 = _slack(lp.l, x, lp.u, math.sqrt(cfg.max_slack), lp.col_mask)
         dg2, ok2 = _project(lp, slack2, c_dir, cfg.refine_steps, engine,
                             per_lane, mesh)

@@ -57,6 +57,7 @@ from cholesky_is_magic_tpu_torch.solvers.backend import (
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils import lanes
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
+from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +209,7 @@ def make_pdas(
     return PDASState(x=x, y=torch.zeros_like(b), w=w, z=z, lp=new_lp)
 
 
+@span("setup.lane_state")
 def make_pdas_sparse(
     sf,
     block: int = 128,
@@ -674,17 +676,19 @@ def _pdas_loop(state: PDASState, cfg: PDASConfig, engine,
     lp = state.lp
     trace = _new_trace(cfg, state.x.shape[0], state.x.dtype, state.x.device, 1)
     st, c, i = state, _start(state), 0
-    while i < cfg.max_iters and bool(_keep_going(cfg, c)):
-        new_st, gap_i, pviol, step, ok = _one_iteration(st, c.repair_flag, cfg,
-                                                        engine, mesh=mesh)
-        if cfg.record_trace or cfg.record_iterates:
-            vals = [gap_i, torch.dot(st.x, lp.c), step]
-            if cfg.record_iterates:
-                vals.append(st.x)
-            for buf, v in zip(trace, vals):
-                buf[i] = v
-        c = _advance(cfg, c, st, gap_i, pviol, step, ok)
-        st, i = new_st, i + 1
+    while i < cfg.max_iters and host_bool(_keep_going(cfg, c)):
+        with span("loop.iteration"):
+            count("loop.iterations")
+            new_st, gap_i, pviol, step, ok = _one_iteration(st, c.repair_flag, cfg,
+                                                            engine, mesh=mesh)
+            if cfg.record_trace or cfg.record_iterates:
+                vals = [gap_i, torch.dot(st.x, lp.c), step]
+                if cfg.record_iterates:
+                    vals.append(st.x)
+                for buf, v in zip(trace, vals):
+                    buf[i] = v
+            c = _advance(cfg, c, st, gap_i, pviol, step, ok)
+            st, i = new_st, i + 1
     return _result(_finish(cfg, st, c), torch.tensor(i, dtype=torch.int32),
                    trace, cfg)
 
@@ -726,16 +730,18 @@ def _lane_loop(cfg, st, c, step, finish, trace, iterates=None,
         return (i < cfg.max_iters) & lanes.vmap(keep_going, c)
 
     active = active_lanes()
-    while bool(active.any()):
-        new_fields, new_c, vals = lanes.vmap(step, st, c)
-        if record:
-            vals = list(vals) + (iterates(st) if iterates else [])
-            trace = _write_trace(trace, i, active, vals)
-        old = {k: getattr(st, k) for k in new_fields}
-        st = dataclasses.replace(st, **lanes.select(active, new_fields, old))
-        c = lanes.select(active, new_c, c)
-        i = i + active.to(torch.int32)
-        active = active_lanes()
+    while host_bool(active.any()):
+        with span("loop.iteration"):
+            count("loop.iterations")
+            new_fields, new_c, vals = lanes.vmap(step, st, c)
+            if record:
+                vals = list(vals) + (iterates(st) if iterates else [])
+                trace = _write_trace(trace, i, active, vals)
+            old = {k: getattr(st, k) for k in new_fields}
+            st = dataclasses.replace(st, **lanes.select(active, new_fields, old))
+            c = lanes.select(active, new_c, c)
+            i = i + active.to(torch.int32)
+            active = active_lanes()
     return lanes.vmap(finish, st, c), i, trace
 
 

@@ -55,6 +55,7 @@ from cholesky_is_magic_tpu_torch.solvers.pdas import (
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils import lanes
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
+from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,7 +230,7 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
     bscale = 1.0 + torch.max(torch.abs(lp.b))
     pv0 = torch.max(torch.abs(r0.to_working())) / bscale
     go = pv0 > cfg.entry_repair_tol
-    if not per_lane and not bool(go):
+    if not per_lane and not host_bool(go):
         return state, pv0, pv0
 
     x = state.x
@@ -421,10 +422,11 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg, gap):
         rhs_dd = ddm.dd_sub(g_dd, mv_dd(alpha_dd))
         dy1 = solve_fn(rhs_dd.to_working())
         # Outer dd refinement against the EXACT dd-beta system.
-        ty = rmv32(dy1)
-        u = ddm.dd_mul(beta_dd, ty)
-        Mu = ddm.dd_add_w(mv_dd(u), boost * dy1)
-        r = ddm.dd_sub(rhs_dd, Mu).to_working()
+        with span("normal.refine"):
+            ty = rmv32(dy1)
+            u = ddm.dd_mul(beta_dd, ty)
+            Mu = ddm.dd_add_w(mv_dd(u), boost * dy1)
+            r = ddm.dd_sub(rhs_dd, Mu).to_working()
         dy2 = solve_fn(r)
         dy_dd = ddm.dd_add_w(DD(dy1, torch.zeros_like(dy1)), dy2)
 
@@ -687,17 +689,19 @@ def _pdas_dd_loop(state: PDASDDState, cfg: PDASConfig, engine,
     trace = _new_trace(cfg, state.x.hi.shape[0], torch.float32,
                        state.x.hi.device, 2)
     st, c, i = state, _start(state), 0
-    while i < cfg.max_iters and bool(_keep_going(cfg, c)):
-        new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine, mesh=mesh)
-        if cfg.record_trace or cfg.record_iterates:
-            vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
-                    step]
-            if cfg.record_iterates:
-                vals += [st.x.hi, st.x.lo]
-            for buf, v in zip(trace, vals):
-                buf[i] = v
-        c = _advance(c, st, gap, pviol, ok)
-        st, i = new_st, i + 1
+    while i < cfg.max_iters and host_bool(_keep_going(cfg, c)):
+        with span("loop.iteration"):
+            count("loop.iterations")
+            new_st, gap, pviol, step, ok = _one_iteration(st, cfg, engine, mesh=mesh)
+            if cfg.record_trace or cfg.record_iterates:
+                vals = [gap, torch.dot(st.x.hi, lp.c) + torch.dot(st.x.lo, lp.c),
+                        step]
+                if cfg.record_iterates:
+                    vals += [st.x.hi, st.x.lo]
+                for buf, v in zip(trace, vals):
+                    buf[i] = v
+            c = _advance(c, st, gap, pviol, ok)
+            st, i = new_st, i + 1
     return _result(_finish(cfg, st, c), torch.tensor(i, dtype=torch.int32),
                    trace, cfg, repair_info)
 

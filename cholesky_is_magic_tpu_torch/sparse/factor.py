@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from cholesky_is_magic_tpu_torch.ops import chol
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
+from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
 
 class BlockSparseCholesky:
@@ -77,10 +78,12 @@ class BlockSparseCholesky:
 
     # ---- factorization -------------------------------------------------
 
+    @span("normal.factorize")
     def factorize(self, N_perm: torch.Tensor, per_lane: bool = False) -> torch.Tensor:
         """L·Lᵀ of the (padded, permuted) normal matrix by the tile
         schedule; ``N_perm`` is left as it is.  ``per_lane``: a lane under
         ``torch.func.vmap`` (see the module docstring)."""
+        count("normal.factorizations")
         b = self.plan.block
         S = N_perm.clone()
         L = torch.zeros_like(N_perm)
@@ -107,6 +110,7 @@ class BlockSparseCholesky:
                 S[sl(i), sl(j)] -= cols[i] @ cols[j].T
         return L
 
+    @span("normal.assemble")
     def assemble_normal(
         self,
         A: torch.Tensor,
@@ -185,7 +189,7 @@ class BlockSparseCholesky:
         N = self.assemble_normal(A, d, row_boost)
         L = self.factorize(N, per_lane)
         ok = self._check(L)
-        if dbound > 0.0 and (per_lane or not bool(ok)):
+        if dbound > 0.0 and (per_lane or not host_bool(ok)):
             jitter = dbound * torch.max(torch.diagonal(N))
             eye = torch.eye(n_pad, dtype=N.dtype, device=N.device)
             L2 = self.factorize(N + jitter * eye, per_lane)
@@ -195,10 +199,12 @@ class BlockSparseCholesky:
         rows = self.slot_of[:m]
 
         def raw_solve(r):
-            rp = F.pad(r, (0, n_pad - m))[self.pperm]
-            t = torch.linalg.solve_triangular(L, rp[:, None], upper=False)
-            yp = torch.linalg.solve_triangular(L.T, t, upper=True)[:, 0]
-            return yp[rows]
+            count("normal.solves")
+            with span("normal.solve"):
+                rp = F.pad(r, (0, n_pad - m))[self.pperm]
+                t = torch.linalg.solve_triangular(L, rp[:, None], upper=False)
+                yp = torch.linalg.solve_triangular(L.T, t, upper=True)[:, 0]
+                return yp[rows]
 
         return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
                                       krylov_steps, krylov_gate, per_lane), ok

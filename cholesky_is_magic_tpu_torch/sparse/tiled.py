@@ -72,6 +72,7 @@ from cholesky_is_magic_tpu_torch.ops import chol
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
+from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
 
 def _pad2(lists, fill):
@@ -92,11 +93,12 @@ def engine_for_sparse(A_host, block: int = 128, snode_align: bool = True,
 
     from cholesky_is_magic_tpu_torch.sparse.symbolic import analyze
 
-    A_csc = sp.csc_matrix(A_host)
-    eng = TiledCholesky(analyze(A_csc, block=block), snode_align=snode_align,
-                        device=device)
-    eng.build_ell_assembly(A_csc, dtype=dtype or torch.float32)
-    return eng
+    with span("setup.analysis"):
+        A_csc = sp.csc_matrix(A_host)
+        eng = TiledCholesky(analyze(A_csc, block=block), snode_align=snode_align,
+                            device=device)
+        eng.build_ell_assembly(A_csc, dtype=dtype or torch.float32)
+        return eng
 
 
 def engine_for(A, block: int = 128, snode_align: bool = True,
@@ -328,9 +330,10 @@ class TiledCholesky:
         launch for all the lanes."""
         if row_boost is None:
             row_boost = torch.zeros(0, dtype=self.asm_w.dtype, device=d.device)
-        if per_lane:
-            return assemble_pairs_op(d, row_boost, self.op_key)
-        return _assemble_pairs(self, d, row_boost)
+        with span("normal.assemble"):
+            if per_lane:
+                return assemble_pairs_op(d, row_boost, self.op_key)
+            return _assemble_pairs(self, d, row_boost)
 
     def _assemble_pairs_plain(self, d, row_boost, slab=None):
         """The plain version: one gather of d², one multiply, the sorted sums,
@@ -437,21 +440,22 @@ class TiledCholesky:
         if mode not in ("range", "scan"):
             raise ValueError(f"assemble: unknown mode {mode!r}")
         b = self.b
-        AD, boost_p = self._prep_operands(A, d, row_boost)
-        Ap = AD.reshape(self.B, b, -1)
-        panels, order = self._panel_lists()
-        parts = []
-        for j, (lo, w, rows, srows) in enumerate(panels):
-            if mode == "range":
-                G = torch.matmul(AD[lo * b:(lo + w) * b], Ap[j].T)
-                parts.append(G.reshape(w, b, b)[rows])
-            else:
-                parts.append(torch.matmul(Ap[srows], Ap[j].T))
-        tiles = torch.cat(parts + [AD.new_zeros((1, b, b))])[order[mode]]
-        if boost_p is not None:
-            eye = torch.eye(b, dtype=tiles.dtype, device=tiles.device)
-            tiles[self.diag_ids] += eye * boost_p.reshape(self.B, b)[:, :, None]
-        return tiles
+        with span("normal.assemble"):
+            AD, boost_p = self._prep_operands(A, d, row_boost)
+            Ap = AD.reshape(self.B, b, -1)
+            panels, order = self._panel_lists()
+            parts = []
+            for j, (lo, w, rows, srows) in enumerate(panels):
+                if mode == "range":
+                    G = torch.matmul(AD[lo * b:(lo + w) * b], Ap[j].T)
+                    parts.append(G.reshape(w, b, b)[rows])
+                else:
+                    parts.append(torch.matmul(Ap[srows], Ap[j].T))
+            tiles = torch.cat(parts + [AD.new_zeros((1, b, b))])[order[mode]]
+            if boost_p is not None:
+                eye = torch.eye(b, dtype=tiles.dtype, device=tiles.device)
+                tiles[self.diag_ids] += eye * boost_p.reshape(self.B, b)[:, :, None]
+            return tiles
 
     # ---- factor and solve -----------------------------------------------
 
@@ -469,35 +473,37 @@ class TiledCholesky:
         adds nothing else: given the same tiles the factor is the single
         factorization's, up to how a rank's smaller batched matmul rounds
         (bit for bit at tp = 1).  Returns (L_tiles, invdiag, ok)."""
-        b = self.b
-        L = tiles.clone()
-        invd = tiles.new_zeros((self.B, b, b))
-        if mesh is not None:
-            import torch.distributed as dist
+        count("normal.factorizations")
+        with span("normal.factorize"):
+            b = self.b
+            L = tiles.clone()
+            invd = tiles.new_zeros((self.B, b, b))
+            if mesh is not None:
+                import torch.distributed as dist
 
-            group = mesh.get_group("tp")
-            ntp, rank = dist.get_world_size(group), mesh.get_local_rank("tp")
-        for k in range(self.B):
-            chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
-            nr = self._n_rows[k]
-            if nr:
-                rid = self.rows_ids[k, :nr]
-                L[rid] = torch.matmul(L[rid], invd[k].T)
-            ns = self._n_syrk[k]
-            if ns:
-                lo, hi = 0, ns
-                if mesh is not None:
-                    w = -(-ns // ntp)
-                    lo, hi = min(rank * w, ns), min((rank + 1) * w, ns)
-                sa, sb = self.syrk_a[k, lo:hi], self.syrk_b[k, lo:hi]
-                U = torch.matmul(L[sa], L[sb].transpose(1, 2))
-                if mesh is not None:
-                    U = F.pad(U, (0, 0, 0, 0, lo, ns - hi))
-                    dist.all_reduce(U, group=group)
-                L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
-        diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
-        ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
-        return L, invd, ok
+                group = mesh.get_group("tp")
+                ntp, rank = dist.get_world_size(group), mesh.get_local_rank("tp")
+            for k in range(self.B):
+                chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
+                nr = self._n_rows[k]
+                if nr:
+                    rid = self.rows_ids[k, :nr]
+                    L[rid] = torch.matmul(L[rid], invd[k].T)
+                ns = self._n_syrk[k]
+                if ns:
+                    lo, hi = 0, ns
+                    if mesh is not None:
+                        w = -(-ns // ntp)
+                        lo, hi = min(rank * w, ns), min((rank + 1) * w, ns)
+                    sa, sb = self.syrk_a[k, lo:hi], self.syrk_b[k, lo:hi]
+                    U = torch.matmul(L[sa], L[sb].transpose(1, 2))
+                    if mesh is not None:
+                        U = F.pad(U, (0, 0, 0, 0, lo, ns - hi))
+                        dist.all_reduce(U, group=group)
+                    L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
+            diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
+            ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
+            return L, invd, ok
 
     def solve(self, tiles, invd, rhs):
         """Blocked forward and backward substitution with the stored tile
@@ -533,7 +539,7 @@ class TiledCholesky:
         with no host read, as the JAX ``lax.cond`` under ``jax.vmap``.
         ``mesh``: both factorizations over its 'tp' axis."""
         L, invd, ok = self.factorize(tiles, per_lane, mesh)
-        if dbound <= 0.0 or (not per_lane and bool(ok)):
+        if dbound <= 0.0 or (not per_lane and host_bool(ok)):
             return L, invd, ok
         eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
         diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
@@ -648,8 +654,10 @@ class TiledCholesky:
         rows = self.slot_of[:m]
 
         def raw_solve(r):
-            rp = F.pad(r, (0, n_pad - m))[self.pperm]
-            return self.solve(L, invd, rp)[rows]
+            count("normal.solves")
+            with span("normal.solve"):
+                rp = F.pad(r, (0, n_pad - m))[self.pperm]
+                return self.solve(L, invd, rp)[rows]
 
         use_bell = EB is not None and ETB is not None
         if use_bell:
@@ -658,16 +666,17 @@ class TiledCholesky:
         def richardson_fn(g):
             y = raw_solve(g)
             for _ in range(refine_steps):
-                if use_bell:
-                    t = bell_ops.dd_matvec(ETB, y)  # Aᵀ y
-                    u = ddm.dd_mul(t, d2)  # d² ∘ Aᵀ y
-                    v = bell_ops.dd_matvec_dd(EB, u)  # A (d² Aᵀ y)
-                else:
-                    t = sparse_ops.dd_matvec(ET, y)
-                    u = ddm.dd_mul(t, d2)
-                    v = sparse_ops.dd_matvec_dd(E, u)
-                v = ddm.dd_add_w(v, boost * y)
-                r = ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
+                with span("normal.refine"):
+                    if use_bell:
+                        t = bell_ops.dd_matvec(ETB, y)  # Aᵀ y
+                        u = ddm.dd_mul(t, d2)  # d² ∘ Aᵀ y
+                        v = bell_ops.dd_matvec_dd(EB, u)  # A (d² Aᵀ y)
+                    else:
+                        t = sparse_ops.dd_matvec(ET, y)
+                        u = ddm.dd_mul(t, d2)
+                        v = sparse_ops.dd_matvec_dd(E, u)
+                    v = ddm.dd_add_w(v, boost * y)
+                    r = ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
                 y = y + raw_solve(r)
             return torch.where(ok, y, torch.zeros_like(y))
 
@@ -730,8 +739,10 @@ class TiledCholesky:
         rows = self.slot_of[:m]
 
         def raw_solve(r):
-            rp = F.pad(r, (0, n_pad - m))[self.pperm]
-            return self.solve(L, invd, rp)[rows]
+            count("normal.solves")
+            with span("normal.solve"):
+                rp = F.pad(r, (0, n_pad - m))[self.pperm]
+                return self.solve(L, invd, rp)[rows]
 
         return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
                                       krylov_steps, krylov_gate, per_lane), ok

@@ -21,7 +21,49 @@ memory-inuse leak checks (:256-258).  Here:
 - :func:`nan_debug` — every operator's floating output checked for NaN, as
   ``jax_debug_nans`` does (the numerical "sanitizer" mode);
 - :func:`profile_trace` / :func:`annotate` — ``torch.profiler`` around a
-  block, with labelled regions, written as a TensorBoard trace.
+  block, with labelled regions, written as a TensorBoard trace;
+- :func:`recording` / :func:`span` / :func:`count` — where a solve's time
+  goes, layer by layer: the spans the solvers open at their layer
+  boundaries and the counters they keep, recorded on the host's wall
+  clock (``time.time_ns()``, the clock ``torch.profiler`` stamps its
+  events on) while a ``recording()`` block is open, and nothing otherwise.
+
+Seeing where a solve's time goes::
+
+    with diag.recording() as rec:
+        rep = cimt.solve("problem.mps", "pdas_dd")
+    for name, (calls, sec, own) in sorted(rec.totals().items()):
+        print(f"{name}: {calls} calls, {sec:.3f} s, {own:.3f} s of its own")
+    print(rec.counts, rec.launches)
+
+``rec.spans`` holds each span (name, parent index, entry and exit in ns),
+``rec.counts`` the counters, ``rec.launches`` the hand-written kernels'
+launches over the block.  The spans are host time: the card runs behind
+the host, so a span that issues work ends before its work does.  To put
+the card's time down to the spans, profile the same block and give each
+kernel to the span open when its runtime call (``cudaLaunchKernel``, by
+correlation id) started, as the benchmark's ``lpbench/program_spans.py``
+does.  The spans:
+
+- ``loop.iteration``: one iteration of a pdas / pdas_dd loop, single or
+  batched (``solvers/pdas.py::_lane_loop``); its own time, less its
+  ``normal.*`` children, is the iteration's step;
+- ``normal.assemble``: the normal matrix (dense: the scaled SGEMM; the
+  tile engine: the pair-schedule assembly or the dense-A tile products);
+- ``normal.factorize``: each factorization (the dbound retry's second one
+  too; the dense "inverse" method's triangular inverse);
+- ``normal.solve``: each raw solve (two triangular solves, or the tile
+  engine's blocked substitutions with its permutation);
+- ``normal.refine``: each refinement or PCG step's residual products;
+- ``ops.bell.matvec``, ``ops.bell.dd_matvec``, ``ops.ell.matvec``,
+  ``ops.ell.dd_matvec``: the sparse path's block-ELL and ELL products;
+- ``setup.lane_state`` (a fully sparse state, ``make_pdas_sparse`` and
+  ``make_affine_state_sparse``), ``setup.analysis`` (the tile engine's
+  build, ``engine_for_sparse``), ``setup.embed`` (``api.embed_batch``).
+
+The counters: ``loop.iterations``, ``loop.host_reads`` (each read of a
+device tensor on the host in the loops and the normal solves they call),
+``normal.factorizations``, ``normal.solves``.
 
 ``release_jit_maps`` is not ported: it drops XLA's compiled-executable
 caches to keep a process under the kernel's map-count limit, and the port
@@ -40,6 +82,14 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cholesky_is_magic_tpu_torch.kkt import newton as kkt_newton
+from cholesky_is_magic_tpu_torch.utils import spans as _spans
+from cholesky_is_magic_tpu_torch.utils.spans import (  # noqa: F401  (re-exported)
+    Recording,
+    Span,
+    count,
+    recording,
+    span,
+)
 
 
 def factor_report(plan) -> str:
@@ -226,8 +276,10 @@ def profile_trace(logdir: str):
                 rep = cimt.solve(path, "pdas_dd")
 
     Records CPU activity, and CUDA activity when there is a card: each
-    kernel launch is one event.  A profiler that fails to start raises; it
-    never drops to CPU only.
+    kernel launch is one event.  Inside the block every span
+    (:func:`span`, the solvers' own at their layer boundaries and
+    :func:`annotate`'s) is a labelled region of the trace.  A profiler that
+    fails to start raises; it never drops to CPU only.
     """
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
@@ -237,13 +289,12 @@ def profile_trace(logdir: str):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
-        yield prof
+        with _spans.labelled():
+            yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
 
 
-def annotate(name: str):
-    """Named region for the profiler timeline (``record_function``): wrap a
-    host region that launches device work so that it shows up labelled in
-    the captured trace."""
-    return torch.profiler.record_function(name)
+# A named region: a span, which under profile_trace shows up labelled in
+# the captured trace and under recording() is recorded.
+annotate = span

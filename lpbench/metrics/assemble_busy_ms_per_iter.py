@@ -1,0 +1,14 @@
+"""Device ms per batched-loop iteration put down to the normal matrix's
+assembly (dense: the scaled SGEMM; the tile engine: the pair-schedule
+assembly kernel): every kernel, copy and fill whose runtime call started
+inside a ``normal.assemble`` span of the program (or inside a span nested in
+it that is no other layer's), from the traced call
+(:mod:`lpbench.program_spans`)."""
+
+from lpbench import program_spans
+
+LAUNCHES = program_spans.LAUNCHES
+
+
+def read(run):
+    return program_spans.busy_ms_per_iter(run, "normal.assemble")

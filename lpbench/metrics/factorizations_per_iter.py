@@ -1,0 +1,11 @@
+"""Factorizations of the normal matrix (``normal.factorizations``, the dbound
+retry's included) per batched-loop iteration: the program's counter over the
+traced call, over the loops' iterations in it."""
+
+from lpbench import program_spans
+
+LAUNCHES = program_spans.LAUNCHES
+
+
+def read(run):
+    return program_spans.count_per_iter(run, "normal.factorizations")

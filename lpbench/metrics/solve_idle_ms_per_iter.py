@@ -1,0 +1,12 @@
+"""Device-idle ms per batched-loop iteration while the host was in the raw
+solves (triangular solves; the tile engine's blocked substitutions): each
+idle gap of the traced call put down to the span open on the host at its
+middle, rolled up to ``normal.solve`` (:mod:`lpbench.program_spans`)."""
+
+from lpbench import program_spans
+
+LAUNCHES = program_spans.LAUNCHES
+
+
+def read(run):
+    return program_spans.idle_ms_per_iter(run, "normal.solve")

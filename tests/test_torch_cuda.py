@@ -17,7 +17,8 @@ sparse batch on one engine through the batched tile and assembly kernels;
 the slabbed front door), the dense-A engines (the tile engine's K1 per
 panel, BlockSparseCholesky's potrf per diagonal tile, the dd kernels in the
 refinement), and float64 on the card, which takes the plain forms and
-launches no kernel (Gondzio's correctors on a dense-A engine too).
+launches no kernel (Gondzio's correctors on a dense-A engine too), and the
+program's spans on the profiler's clock.
 
 Every test here needs an NVIDIA card and skips without one.  The file
 imports no jax, so it also runs on a machine without it; the repository's
@@ -1313,3 +1314,50 @@ def test_dense_a_engine_batch_on_the_card(dev):
         st = {int(b2.status[k]), int(s2.status)}
         assert len(st) == 1 or st == {1, 5}  # optimal / precision floor
         assert float(b2.objective[k]) == pytest.approx(float(s2.objective), rel=1e-6)
+
+
+def test_spans_and_the_profilers_launches_share_one_clock(dev):
+    """Spans (``time.time_ns()``) and a CUDA-only profiler like the
+    benchmark's: each of a few known launches has its runtime call start
+    inside its own span and its kernel start after that call; the spans
+    open no profiler region there.  Prints the largest offsets seen."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_is_magic_tpu_torch.utils import diag
+
+    x = torch.ones(1 << 22, device=dev)
+    x * 2.0  # the kernel loaded before the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with diag.recording() as rec:
+            for k in range(8):
+                time.sleep(0.002)
+                with diag.span(f"launch.{k}"):
+                    x * (k + 2.0)
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    runtime = {e.correlation_id(): e for e in events
+               if e.device_type() != cuda and e.name().startswith("cu")}
+    kernels = [e for e in events if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    assert not [e.name() for e in events if e.name().startswith("launch.")]
+    spans = {s.name: s for s in rec.spans}
+    assert len(kernels) == len(spans) == 8
+    into, lag, hit = [], [], []
+    for kern in kernels:
+        call = runtime[kern.correlation_id()]
+        t = call.start_ns()
+        inside = [s for s in spans.values() if s.t0_ns <= t <= s.t1_ns]
+        assert len(inside) == 1, (kern.name(), t)
+        assert call.start_ns() + call.duration_ns() <= inside[0].t1_ns
+        assert kern.start_ns() >= t
+        into.append(t - inside[0].t0_ns)
+        lag.append(kern.start_ns() - t)
+        hit.append(inside[0].name)
+    assert sorted(hit) == sorted(spans) == [f"launch.{k}" for k in range(8)]
+    print(f"[clock] runtime call after span entry: max {max(into) / 1e3:.1f} us; kernel"
+          f" start after its runtime call: max {max(lag) / 1e3:.1f} us, min"
+          f" {min(lag) / 1e3:.1f} us ({len(kernels)} launches)")
