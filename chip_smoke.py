@@ -23,7 +23,14 @@ script then exits non-zero and never prints its last line):
    bit for bit against its summation order (``dd_cuda.mv_order_plain``) on
    long rows (1536, 5120) and on short rows at afiro's pad-128 shape
    (128, 128), timed there; dd Aᵀ·x at (128, 128) (4 slabs, the short-lane
-   kernel) as at the pilot's shapes, timed there;
+   kernel) as at the pilot's shapes, timed there; then the double-word
+   block-ELL kernel at the sparse fleet's shapes (Aᵀ in 8166 block-rows of
+   2 tiles, A in 2070 of 4, 154511 nonzeros), one lane and 64 (a copy of the
+   matrix a lane, and one shared at lane stride 0), bit for bit against the
+   plain form (``bell._dd_matvec_plain``; 64 lanes under vmap), and
+   ``bell.dd_matvec`` launching it once a call, single and vmapped, with
+   CUDA-event medians of the kernel and the plain form beside the bound of
+   its tiles and that of the nonzeros (``bell_dd_mv_roofline``'s);
 4. afiro — solve(afiro, "pdas_dd", device="cuda") in f32: gap <= 1e-8,
    objective within 1e-7 relative of the published optimum; then in f64,
    dense and fully sparse (block 16), which takes the plain PyTorch forms on
@@ -66,7 +73,8 @@ script then exits non-zero and never prints its last line):
    fully sparse, f32, block 128, Mehrotra, entry repair 1e-6: the main
    path of the tile engine.  The host analysis and pair schedule are timed
    on their own; launch counters are reset just before the solve and read
-   just after; the tile and assembly kernels must have launched.  Gap
+   just after; the tile, assembly and block-ELL dd kernels must have
+   launched.  Gap
    <= 1e-6, objective error <= 1e-5; then a second, timed solve and a
    per-stage timing of one factorization and its solves;
 9. block 256 — the same LP at block 256 (every diagonal tile split around
@@ -221,7 +229,8 @@ script then exits non-zero and never prints its last line):
    --solver pdas_dd --json`` process to phase 4's bars, the kernel library
    loaded, not rebuilt, and its wall time; (b) ``diag.profile_trace``
    around afiro's f32 pdas_dd (``annotate("pdas_dd")``) and one assembly,
-   factorization and solve on phase 8's engine (``annotate("engine")``):
+   factorization and solve on phase 8's engine and a block-ELL dd Aᵀ·y
+   (``annotate("engine")``):
    the written trace's kernel events of each hand-written kernel equal to
    its counters' deltas, both annotations in it, its size; (c) the pilot's
    pdas state after 5 iterations through ``utils/checkpoint.py`` onto the
@@ -287,6 +296,12 @@ KERNELS = {
         name="assemble_pairs_f32_batched",
         replaces="benchmarks/explore_prefetch_assembly.py:174",
         source=CSRC + "assemble_pairs.cu"),
+    # No TPU kernel: the JAX package's block-ELL dd product is plain jnp.
+    "bell_mv": dict(name="bell_dd_mv_f32", replaces="none (cholesky_is_magic_tpu/ops/bell.py:169)",
+                    source=CSRC + "bell_dd.cu"),
+    "bell_mv_batched": dict(name="bell_dd_mv_f32_batched",
+                            replaces="none (cholesky_is_magic_tpu/ops/bell.py:169)",
+                            source=CSRC + "bell_dd.cu"),
 }
 AT_SCALE_M = 16384
 # The at-scale recipe of the JAX package's api.solve docstring (:439-440).
@@ -577,6 +592,134 @@ def phase_kernels(ddm, dd_cuda):
     del flush
     stats["mv"]["at_1536x1536"] = normal
     return stats
+
+
+# Phase 3 (b): the sparse fleet's block-ELL shapes (pds-10: the 16558 x
+# 65321 staircase at width 4, 154511 nonzeros; A in 2070 block-rows of 4
+# tiles, Aᵀ in 8166 of 2) and its lanes.
+BELL_SHAPES = {"AT": dict(nbr=8166, kb=2, n_rows=65321, n_cols=16558),
+               "A": dict(nbr=2070, kb=4, n_rows=16558, n_cols=65321)}
+BELL_NNZ = 154511
+BELL_LANES = 64
+
+
+def _bell_matrix(bell, nbr, kb, n_rows, n_cols, nnz, seed):
+    """A BellMatrix of this shape on the card: each block-row 1 to kb real
+    tiles at distinct block columns (padded after them), ``nnz`` draws of
+    positions in the real tiles, its ``nnz`` the nonzeros it holds.  The
+    kernel's and the plain form's work depend on the shape alone."""
+    rng = np.random.default_rng(seed)
+    ncb = -(-n_cols // bell.BC)
+    real = rng.integers(1, kb + 1, size=nbr)
+    real[0] = kb
+    bcols = np.zeros((nbr, kb), np.int64)
+    for r in range(nbr):
+        bcols[r, :real[r]] = np.sort(rng.choice(ncb, size=real[r], replace=False))
+    blocks = np.zeros((nbr, kb, bell.BR, bell.BC), np.float32)
+    tile = rng.integers(0, real.sum(), size=nnz)
+    owner = np.repeat(np.arange(nbr), real)
+    slot = np.concatenate([np.arange(k) for k in real])
+    row, col = rng.integers(0, bell.BR, size=nnz), rng.integers(0, bell.BC, size=nnz)
+    keep = bcols[owner[tile], slot[tile]] * bell.BC + col < n_cols
+    blocks[owner[tile][keep], slot[tile][keep], row[keep], col[keep]] = rng.normal(
+        size=int(keep.sum())).astype(np.float32)
+    over_r, over_i = np.nonzero(np.arange(nbr)[:, None] * bell.BR + np.arange(bell.BR) >= n_rows)
+    blocks[over_r, :, over_i, :] = 0.0
+    return bell.BellMatrix(torch.from_numpy(blocks).cuda(), torch.from_numpy(bcols).cuda(),
+                           n_rows, n_cols, int(np.count_nonzero(blocks)))
+
+
+def _bell_bounds(B, lanes, copies):
+    """The kernel's bound (every tile element and block column read once a
+    copy of the matrix, x read and (hi, lo) written a lane, 14 flops a tile
+    element a lane) and the nonzeros' bound of ``bell_dd_mv_roofline`` (a
+    value and a 32-bit index a nonzero in place of the tiles)."""
+    io = 4 * lanes * B.n_cols + 8 * lanes * B.n_rows
+    padded = _bound(copies * _nbytes(B.blocks, B.bcols) + io, 14 * lanes * B.blocks.numel())
+    nnz = _bound(copies * 8 * B.nnz + io, 14 * lanes * B.nnz)
+    return dict(padded, nnz_bound_ms=nnz["bound_ms"], nnz_bound_by=nnz["bound_by"])
+
+
+def _same_bits(got, want):
+    """(hi, lo) pairs equal bit for bit, the sign of a zero too."""
+    return all(torch.equal(u, v) and torch.equal(torch.signbit(u), torch.signbit(v))
+               for u, v in zip(got, want))
+
+
+def phase_bell(bell, bell_cuda, stats):
+    """The double-word block-ELL kernel at the sparse fleet's shapes: one
+    lane (``dd_mv``) and 64 (``dd_mv_batched``, each lane with its own copy
+    of the matrix as ``parallel.stack_sparse_states`` holds the fleet's, and
+    one copy shared at lane stride 0), bit for bit against
+    ``bell._dd_matvec_plain`` on the same inputs (64 lanes: under
+    ``torch.func.vmap``); ``bell.dd_matvec`` itself once per call, single
+    and vmapped; CUDA-event medians of the kernel and the plain form (the L2
+    cache flushed, the card asleep until the launch is queued) beside both
+    bounds."""
+    flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
+    single, batched = {}, {}
+    for tag, shape in BELL_SHAPES.items():
+        B = _bell_matrix(bell, **shape, nnz=BELL_NNZ, seed=21)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        X = torch.randn(BELL_LANES, B.n_cols, generator=g, device="cuda")
+        key = f"{B.n_rows}x{B.n_cols} kb {B.kb}"
+        name = f"{tag} ({B.blocks.shape[0]} block-rows of {B.kb} tiles, {B.nnz} nonzeros)"
+        kern = lambda: bell_cuda.dd_mv(B.blocks, B.bcols, X[0], B.n_rows, B.nnz)  # noqa: E731
+        plain = lambda: bell._dd_matvec_plain(B, X[0])  # noqa: E731
+        _reset(bell_cuda.LAUNCHES)
+        routed = bell.dd_matvec(B, X[0])
+        want = plain()
+        same = _same_bits(kern(), want) and _same_bits(routed, want)
+        if not (same and bell_cuda.LAUNCHES == {"bell_mv": 2, "bell_mv_batched": 0}):
+            raise AssertionError(f"bell {name}, one lane: bit-equal {same},"
+                                 f" launches {bell_cuda.LAUNCHES}")
+        p1, k1, k2, p2 = (_median_ms(f, flush=flush, lead=0.2)
+                          for f in (plain, kern, kern, plain))
+        bound = _bell_bounds(B, 1, 1)
+        say(f"[kernels] bell {name}, one lane: bit-equal to the plain form, and through"
+            f" bell.dd_matvec, {same}; median ms kernel {k1:.4f} {k2:.4f}  plain {p1:.4f}"
+            f" {p2:.4f}  bound {bound['bound_ms']:.5f} ({bound['bound_by']}),"
+            f" nonzeros' bound {bound['nnz_bound_ms']:.5f}")
+        single[key] = dict(ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=None,
+                           max_abs_err=0.0, **bound)
+        del want, routed
+        plain_all = lambda: torch.func.vmap(lambda v: bell._dd_matvec_plain(B, v))(X)  # noqa: E731
+        want = plain_all()
+        p64 = _median_ms(plain_all, reps=5, flush=flush, lead=0.2)
+        torch.cuda.empty_cache()
+        _reset(bell_cuda.LAUNCHES)
+        routed = torch.func.vmap(lambda v: bell.dd_matvec(B, v))(X)
+        same = _same_bits(routed, want)
+        if not (same and bell_cuda.LAUNCHES == {"bell_mv": 0, "bell_mv_batched": 1}):
+            raise AssertionError(f"bell {name}, vmapped bell.dd_matvec: bit-equal {same},"
+                                 f" launches {bell_cuda.LAUNCHES}")
+        del routed
+        for layout in ("copies", "shared"):
+            blocks = B.blocks.expand(BELL_LANES, *B.blocks.shape)
+            bcols = B.bcols.expand(BELL_LANES, *B.bcols.shape)
+            if layout == "copies":
+                blocks, bcols = blocks.clone(), bcols.clone()
+            kern = lambda: bell_cuda.dd_mv_batched(blocks, bcols, X, B.n_rows, B.nnz)  # noqa: E731
+            same = _same_bits(kern(), want)
+            if not same:
+                raise AssertionError(f"bell {name}, {BELL_LANES} lanes ({layout}): a lane"
+                                     " differs from the plain form")
+            k1, k2 = (_median_ms(kern, flush=flush, lead=0.2) for _ in range(2))
+            bound = _bell_bounds(B, BELL_LANES, BELL_LANES if layout == "copies" else 1)
+            say(f"[kernels] bell {name}, {BELL_LANES} lanes, {layout}: every lane bit-equal"
+                f" to the plain form under vmap {same}; median ms kernel {k1:.4f} {k2:.4f}"
+                f"  plain {p64:.4f}  bound {bound['bound_ms']:.4f} ({bound['bound_by']}),"
+                f" nonzeros' bound {bound['nnz_bound_ms']:.4f}")
+            batched[f"{BELL_LANES}x{key} {layout}"] = dict(
+                ms=min(k1, k2), plain_ms=p64, library_ms=None, max_abs_err=0.0, **bound)
+            del blocks, bcols
+            torch.cuda.empty_cache()
+        del B, X, want
+        torch.cuda.empty_cache()
+    first = next(iter(single))
+    stats["bell_mv"] = dict(at_shapes=single, shape=first, **single[first])
+    first = next(iter(batched))
+    stats["bell_mv_batched"] = dict(at_shapes=batched, shape=first, **batched[first])
 
 
 def _counted(counters):
@@ -1007,7 +1150,8 @@ def phase_at_scale(cimt, sf, info, counters, card, kw=AT_SCALE_KW):
         f"  objective error {obj_err:.3e}  krylov_escalated "
         f"{rep.summary.get('krylov_escalated', False)}  repair "
         f"{ {k: float(v) for k, v in rep.result.extra.get('entry_repair', {}).items()} }")
-    if not (launches["potrf_tile"] > 0 and launches["assemble_pairs"] > 0):
+    if not (launches["potrf_tile"] > 0 and launches["assemble_pairs"] > 0
+            and launches["bell_mv"] > 0):
         raise AssertionError(f"a kernel of the sparse path never launched: {launches}")
     if not (np.isfinite(rep.result.x.cpu().numpy()).all() and gap <= 1e-6
             and obj_err <= 1e-5):
@@ -2593,7 +2737,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRACED = {"dd_mv_kernel|dd_mv_short_kernel": ("mv", "mv_batched"),
           "dd_rmv_kernel|dd_rmv_short_kernel": ("rmv", "rmv_batched"),
           "potrf_tile_kernel": ("potrf_tile", "potrf_tile_batched"),
-          "assemble_chunks_kernel": ("assemble_pairs", "assemble_pairs_batched")}
+          "assemble_chunks_kernel": ("assemble_pairs", "assemble_pairs_batched"),
+          "bell_dd_mv_kernel": ("bell_mv", "bell_mv_batched")}
 
 
 def _write_mps(sf, path):
@@ -2708,6 +2853,7 @@ def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
     from cholesky_is_magic_tpu_torch.__main__ import main as cli_main
     from cholesky_is_magic_tpu_torch.ingest.device import to_device_lp
     from cholesky_is_magic_tpu_torch.kkt import dense_kkt_operator, kkt_residuals
+    from cholesky_is_magic_tpu_torch.ops import bell as bell_ops
     from cholesky_is_magic_tpu_torch.ops import cuda_build
     from cholesky_is_magic_tpu_torch.solvers.pdas import (
         PDASConfig,
@@ -2795,6 +2941,8 @@ def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
 
     # (b) profile_trace on the card.
     st8, _ = make_pdas_sparse(sf8, engine=eng8, device="cuda")
+    if st8.lp.ETB is None:
+        raise AssertionError("trace: the block-ELL rendering of Aᵀ was gated out")
     x = rep8.result.x
     s = torch.sqrt(torch.clamp_min(torch.minimum(x - st8.lp.l, st8.lp.u - x), 1e-6))
     boost = torch.zeros(st8.lp.m, device="cuda")
@@ -2810,6 +2958,7 @@ def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
             with diag.annotate("engine"):
                 L, invd, ok = eng8.factorize(eng8.assemble_pairs(s, boost))
                 y = eng8.solve(L, invd, rhs)
+                r = bell_ops.dd_matvec(st8.lp.ETB, y[:st8.lp.m])  # a refinement's dd Aᵀ·y
         took = time.perf_counter() - t
         after = _counted(counters)
         mb, counts, names, n_kernels = _trace_kernels(logdir)
@@ -2824,8 +2973,9 @@ def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
         f" counter deltas {deltas}; annotations {sorted(n for n in names if n in ('pdas_dd', 'engine'))}")
     if counts != deltas or not {"pdas_dd", "engine"} <= names or not all(deltas.values()):
         raise AssertionError(f"trace: kernels {counts} vs counters {deltas}, annotations {names}")
-    if not (bool(ok) and bool(torch.isfinite(y).all()) and rep.summary["gap"] <= 1e-8):
-        raise AssertionError("trace: the traced solve or factorization failed")
+    if not (bool(ok) and bool(torch.isfinite(y).all()) and rep.summary["gap"] <= 1e-8
+            and bool(torch.isfinite(r.hi).all())):
+        raise AssertionError("trace: the traced solve, factorization or product failed")
 
     # (c) checkpoint, checked mode.
     lp = to_device_lp(sf5, pad_multiple=128, dtype=torch.float32, device="cuda")
@@ -2881,7 +3031,7 @@ def phase_cli(cimt, counters, card, sf8, info8, eng8, rep8, pilot_counts):
 def main() -> int:
     card = phase_device()
     import cholesky_is_magic_tpu_torch as cimt
-    from cholesky_is_magic_tpu_torch.ops import chol, chol_cuda, cuda_build
+    from cholesky_is_magic_tpu_torch.ops import bell, bell_cuda, chol, chol_cuda, cuda_build
     from cholesky_is_magic_tpu_torch.ops import dd as ddm
     from cholesky_is_magic_tpu_torch.ops import dd_cuda, dense
     from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
@@ -2890,8 +3040,9 @@ def main() -> int:
     set_highest_precision()
     phase_build(cuda_build)
     counters = {"dd": dd_cuda.LAUNCHES, "chol": chol_cuda.LAUNCHES,
-                "tiled": tiled_cuda.LAUNCHES}
+                "tiled": tiled_cuda.LAUNCHES, "bell": bell_cuda.LAUNCHES}
     stats = phase_kernels(ddm, dd_cuda)
+    phase_bell(bell, bell_cuda, stats)
     phase_afiro(cimt)
     phase_afiro_f64(cimt, counters)
     launches, pilot_s, pilot_counts = phase_pilot(cimt, dd_cuda, card)
@@ -2903,7 +3054,8 @@ def main() -> int:
     phase_sparse_afiro(cimt)
     sparse_launches, rep = phase_at_scale(cimt, sf, info, counters, card)
     launches.update(potrf_tile=sparse_launches["potrf_tile"],
-                    assemble_pairs=sparse_launches["assemble_pairs"])
+                    assemble_pairs=sparse_launches["assemble_pairs"],
+                    bell_mv=sparse_launches["bell_mv"])
     phase_breakdown(cimt, sf, eng, rep, chol)
     phase_block256(cimt, sf, info, eng, counters, card)
     by_path = {"pdas_dd": dict(launches),

@@ -79,6 +79,7 @@ def _bell_from_numpy(B, *, device, dtype):
         bcols=tensor_from_numpy(np.asarray(B.bcols, np.int64), device=device),
         n_rows=int(B.n_rows),
         n_cols=int(B.n_cols),
+        nnz=int(np.count_nonzero(np.asarray(B.blocks))),
     )
 
 

@@ -14,6 +14,10 @@ for the card (CSR) is later work.
 
 :func:`from_coo` returns ``None`` when the blocked footprint exceeds its
 byte gates; the callers then keep the plain ELL products (ops.sparse_ops).
+
+:func:`dd_matvec` on float32 CUDA operands launches the hand-written
+kernel of :mod:`.bell_cuda` (``csrc/bell_dd.cu``), which keeps the plain
+form's order and so its bits; the JAX package has no kernel here.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.utils.spans import span
 
 BR = 8  # block rows
@@ -40,6 +45,10 @@ class BellMatrix:
     bcols: torch.Tensor  # (nbr, kb) int64 block-column ids; 0 on padded tiles
     n_rows: int
     n_cols: int
+    # Stored nonzeros (duplicates summed), for a record of the work on the
+    # host; 0: not counted.  Not part of the structure: ``utils.lanes``
+    # stacks matrices of one pattern whatever their counts.
+    nnz: int = dataclasses.field(default=0, compare=False)
 
     @property
     def shape(self):
@@ -107,12 +116,14 @@ def from_coo(
         bcols[b_r, tile_slot[t]] = b_c
     slot = np.array([tile_slot[t] for t in tile_ids.tolist()], dtype=np.int64)
     # Triplets are unique after the dedup: plain assignment.
-    blocks[brow, slot, rows % BR, cols % BC] = vals.astype(np_dtype)
+    vals = vals.astype(np_dtype)
+    blocks[brow, slot, rows % BR, cols % BC] = vals
     return BellMatrix(
         blocks=torch.from_numpy(blocks).to(device),
         bcols=torch.from_numpy(bcols).to(device),
         n_rows=m,
         n_cols=n,
+        nnz=int(np.count_nonzero(vals)),
     )
 
 
@@ -133,7 +144,24 @@ def matvec(B: BellMatrix, x: torch.Tensor) -> torch.Tensor:
 @span("ops.bell.dd_matvec")
 def dd_matvec(B: BellMatrix, x: torch.Tensor) -> ddm.DD:
     """A @ x in double-word: error-free per-element tile products and
-    compensated tree reductions over the lane axis, then the tile axis."""
+    compensated tree reductions over the lane axis, then the tile axis.
+
+    Float32 CUDA operands go to the hand-written kernel through its operator
+    (:func:`.bell_cuda.bell_dd_mv_op`: one launch, under ``torch.func.vmap``
+    one for the whole batch), bit-equal to the plain form; a CPU tensor, or
+    another dtype on the card, to :func:`_dd_matvec_plain`."""
+    if takes_kernel(x.device, B.blocks.dtype, x.dtype):
+        from cholesky_is_magic_tpu_torch.ops import bell_cuda
+
+        return ddm.DD(*bell_cuda.bell_dd_mv_op(B.blocks, B.bcols, x, B.n_rows, B.nnz))
+    return _dd_matvec_plain(B, x)
+
+
+def _dd_matvec_plain(B: BellMatrix, x: torch.Tensor) -> ddm.DD:
+    """The plain form of :func:`dd_matvec` (the JAX package's, line for
+    line): Dekker's product of every tile element, then ``dd_sum`` over a
+    tile row's 128 columns and over the block-row's kb tiles, padded tiles
+    included.  The CPU path and the kernel's yardstick."""
     xg = _gather_x(B, x)  # (nbr, kb, BC)
     p = ddm.two_prod(B.blocks, xg[:, :, None, :])  # (nbr, kb, BR, BC)
     s = ddm.dd_sum(p, axis=-1)  # lanes -> (nbr, kb, BR)

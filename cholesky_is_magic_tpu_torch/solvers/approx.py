@@ -40,7 +40,7 @@ from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseLP, round_
 from cholesky_is_magic_tpu_torch.ingest.standard_form import StandardForm
 from cholesky_is_magic_tpu_torch.ops import bell as bell_ops
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
-from cholesky_is_magic_tpu_torch.ops import dd_cuda, sparse_ops
+from cholesky_is_magic_tpu_torch.ops import bell_cuda, dd_cuda, sparse_ops
 from cholesky_is_magic_tpu_torch.ops.sparse_ops import ELLMatrix
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
@@ -453,19 +453,23 @@ def _unflatten(flat, spec) -> tuple:
     return tuple(out)
 
 
+_COUNTERS = (dd_cuda.LAUNCHES, bell_cuda.LAUNCHES)
+
+
 class _ChunkGraph:
     """One chunk of masked iterations captured as a CUDA graph, replayed in
     place on its own copy of the loop state: the host queues a chunk in one
     launch instead of ~60 (f32) or ~400 (double-word) per iteration.  The
     replay runs the captured kernels on the captured addresses, so it
     computes what the eager chunk computes.  The capture launches nothing,
-    so the launch counters of the dd kernels (ops.dd_cuda.LAUNCHES) are
-    put back after it, and each replay adds the launches it holds."""
+    so the launch counters of the dd kernels (``ops.dd_cuda.LAUNCHES``,
+    ``ops.bell_cuda.LAUNCHES``) are put back after it, and each replay adds
+    the launches it holds."""
 
     def __init__(self, step, state: list):
         dev = state[0].device
         self.state = [t.clone() for t in state]
-        before = dict(dd_cuda.LAUNCHES)
+        before = [dict(c) for c in _COUNTERS]
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -480,13 +484,16 @@ class _ChunkGraph:
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.launches = {k: dd_cuda.LAUNCHES[k] - v for k, v in before.items()}
-        dd_cuda.LAUNCHES.update(before)
+        self.launches = [{k: c[k] - v for k, v in b.items()}
+                         for c, b in zip(_COUNTERS, before)]
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)
 
     def replay(self) -> list:
         self.graph.replay()
-        for k, n in self.launches.items():
-            dd_cuda.LAUNCHES[k] += n
+        for c, held in zip(_COUNTERS, self.launches):
+            for k, n in held.items():
+                c[k] += n
         return self.state
 
 

@@ -62,13 +62,15 @@ def flatten(obj) -> tuple[list[torch.Tensor], Callable[[list], object]]:
 
 
 def _static(obj):
-    """Everything of ``obj`` but its tensors, for comparing structures."""
+    """Everything of ``obj`` but its tensors and a dataclass's fields
+    declared ``compare=False`` (counts kept for the record), for comparing
+    structures."""
     if isinstance(obj, torch.Tensor):
         return "tensor"
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return (type(obj),) + tuple(
             (f.name, _static(getattr(obj, f.name)))
-            for f in dataclasses.fields(obj))
+            for f in dataclasses.fields(obj) if f.compare)
     if isinstance(obj, (tuple, list)):
         return (type(obj),) + tuple(_static(v) for v in obj)
     if isinstance(obj, dict):
@@ -79,7 +81,8 @@ def _static(obj):
 def stack(objs: Sequence):
     """One object whose tensors are the lanes' tensors stacked on a new
     leading axis.  Every object must have the same structure, the same
-    non-tensor fields and the same tensor shapes."""
+    non-tensor fields and the same tensor shapes; a dataclass field declared
+    ``compare=False`` may differ, and the result keeps the first object's."""
     if not objs:
         raise ValueError("nothing to stack")
     statics = {repr(_static(o)) for o in objs}

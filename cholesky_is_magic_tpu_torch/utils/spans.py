@@ -52,8 +52,8 @@ class Recording:
     """What one :func:`recording` block saw: its own stamps, the spans in
     the order they opened, the counters, and the kernel launches of the
     port's hand-written kernels over the block (the deltas of the
-    ``LAUNCHES`` dicts of ``ops.dd_cuda``, ``ops.chol_cuda`` and
-    ``sparse.tiled_cuda``, by their keys)."""
+    ``LAUNCHES`` dicts of ``ops.dd_cuda``, ``ops.chol_cuda``,
+    ``ops.bell_cuda`` and ``sparse.tiled_cuda``, by their keys)."""
 
     t0_ns: int = 0
     t1_ns: int = 0
@@ -185,10 +185,11 @@ def host_bool(t) -> bool:
 
 
 def _launches() -> dict:
-    from cholesky_is_magic_tpu_torch.ops import chol_cuda, dd_cuda
+    from cholesky_is_magic_tpu_torch.ops import bell_cuda, chol_cuda, dd_cuda
     from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
 
-    return {**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES, **tiled_cuda.LAUNCHES}
+    return {**dd_cuda.LAUNCHES, **chol_cuda.LAUNCHES, **bell_cuda.LAUNCHES,
+            **tiled_cuda.LAUNCHES}
 
 
 @contextlib.contextmanager
