@@ -181,6 +181,7 @@ class TiledCholesky:
         self._n_rows = [len(x) for x in rows_ids]
         self._n_syrk = [len(x) for x in syrk_dst]
         self._n_fwd = [len(x) for x in fwd_ids]
+        self._trsm_tiles, self._schur_products = sum(self._n_rows), sum(self._n_syrk)
         self._diag_ids_np = np.asarray(diag_ids, np.int64)
 
         put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=self.device)  # noqa: E731
@@ -472,8 +473,13 @@ class TiledCholesky:
         buffer entry is one rank's product plus zeros and the all-reduce
         adds nothing else: given the same tiles the factor is the single
         factorization's, up to how a rank's smaller batched matmul rounds
-        (bit for bit at tp = 1).  Returns (L_tiles, invdiag, ok)."""
+        (bit for bit at tp = 1).  Spans ``factorize.tile``,
+        ``factorize.trsm`` and ``factorize.schur`` hold each panel's three
+        steps; the counters add one lane's TRSM tiles and Schur-update tile
+        products.  Returns (L_tiles, invdiag, ok)."""
         count("normal.factorizations")
+        count("normal.trsm_tiles", self._trsm_tiles)
+        count("normal.schur_products", self._schur_products)
         with span("normal.factorize"):
             b = self.b
             L = tiles.clone()
@@ -484,23 +490,26 @@ class TiledCholesky:
                 group = mesh.get_group("tp")
                 ntp, rank = dist.get_world_size(group), mesh.get_local_rank("tp")
             for k in range(self.B):
-                chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
+                with span("factorize.tile"):
+                    chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
                 nr = self._n_rows[k]
                 if nr:
-                    rid = self.rows_ids[k, :nr]
-                    L[rid] = torch.matmul(L[rid], invd[k].T)
+                    with span("factorize.trsm"):
+                        rid = self.rows_ids[k, :nr]
+                        L[rid] = torch.matmul(L[rid], invd[k].T)
                 ns = self._n_syrk[k]
                 if ns:
-                    lo, hi = 0, ns
-                    if mesh is not None:
-                        w = -(-ns // ntp)
-                        lo, hi = min(rank * w, ns), min((rank + 1) * w, ns)
-                    sa, sb = self.syrk_a[k, lo:hi], self.syrk_b[k, lo:hi]
-                    U = torch.matmul(L[sa], L[sb].transpose(1, 2))
-                    if mesh is not None:
-                        U = F.pad(U, (0, 0, 0, 0, lo, ns - hi))
-                        dist.all_reduce(U, group=group)
-                    L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
+                    with span("factorize.schur"):
+                        lo, hi = 0, ns
+                        if mesh is not None:
+                            w = -(-ns // ntp)
+                            lo, hi = min(rank * w, ns), min((rank + 1) * w, ns)
+                        sa, sb = self.syrk_a[k, lo:hi], self.syrk_b[k, lo:hi]
+                        U = torch.matmul(L[sa], L[sb].transpose(1, 2))
+                        if mesh is not None:
+                            U = F.pad(U, (0, 0, 0, 0, lo, ns - hi))
+                            dist.all_reduce(U, group=group)
+                        L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
             diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
             ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
             return L, invd, ok

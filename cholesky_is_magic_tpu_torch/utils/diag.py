@@ -55,6 +55,10 @@ does.  The spans:
 - ``normal.solve``: each raw solve (two triangular solves, or the tile
   engine's blocked substitutions with its permutation);
 - ``normal.refine``: each refinement or PCG step's residual products;
+- ``factorize.tile``, ``factorize.trsm``, ``factorize.schur``: inside a
+  tile engine's ``normal.factorize``, per panel, its tile factor (K1), its
+  TRSM, and its Schur update (the SYRK operands' gathers, the batched
+  products and the ``index_add_``);
 - ``ops.bell.matvec``, ``ops.bell.dd_matvec``, ``ops.ell.matvec``,
   ``ops.ell.dd_matvec``: the sparse path's block-ELL and ELL products;
 - ``setup.lane_state`` (a fully sparse state, ``make_pdas_sparse`` and
@@ -63,7 +67,9 @@ does.  The spans:
 
 The counters: ``loop.iterations``, ``loop.host_reads`` (each read of a
 device tensor on the host in the loops and the normal solves they call),
-``normal.factorizations``, ``normal.solves``.
+``normal.factorizations``, ``normal.solves``, and per tile-engine
+factorization ``normal.trsm_tiles`` and ``normal.schur_products`` (one
+lane's TRSM tiles and Schur-update tile products, summed over the panels).
 
 ``release_jit_maps`` is not ported: it drops XLA's compiled-executable
 caches to keep a process under the kernel's map-count limit, and the port
@@ -219,13 +225,20 @@ def memory_map_count() -> int:
 _NAN_DEBUG = {"enabled": False}
 
 
+_ALLOCATIONS = frozenset(
+    getattr(torch.ops.aten, name) for name in
+    ("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"))
+
+
 class _NaNCheck(TorchDispatchMode):
     """Raises FloatingPointError on any floating operator output that holds
-    a NaN while nan_debug is on."""
+    a NaN while nan_debug is on.  An allocation's output (``torch.empty``
+    and its kin) is not read: it holds whatever the memory held, and its
+    values are written before any operator reads them."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if _NAN_DEBUG["enabled"]:
+        if _NAN_DEBUG["enabled"] and func.overloadpacket not in _ALLOCATIONS:
             for t in pytree.tree_leaves(out):
                 if (isinstance(t, torch.Tensor) and t.device.type != "meta"
                         and (t.is_floating_point() or t.is_complex())
