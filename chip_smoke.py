@@ -66,7 +66,14 @@ script then exits non-zero and never prints its last line):
    m = 16384 engine's pair schedule (each entry within 8·eps32·Σ|w·d²|),
    bit-identical across two runs, with the schedule's run count, mean and
    longest run, and times (whole, and its zeros and its runs apart, from two
-   copies of its source built by tools/probe_assembly_kernel.py);
+   copies of its source built by tools/probe_assembly_kernel.py); then the
+   tile engine's Schur kernel at QAP15's widest panel (34 row tiles, their
+   595 pairs, block 128, 32 lanes): bit for bit against its own sums in
+   plain PyTorch (``chol_cuda.tile_schur_fma_plain``) batched, through the
+   operator under vmap and on one lane, its launches, and CUDA-event
+   medians beside the plain four-launch chain it replaces (gathers, batched
+   SGEMM, ``index_add_``), the SGEMM alone on gathered operands and
+   ``lpbench/schur.py``'s bound;
 7. sparse afiro — solve(afiro, "pdas_dd", sparse=True, block=16) in f32:
    objective within 1e-5 relative of the published optimum;
 8. at scale — the constructed-optimum LP at m = 16384 (16384 x 49152),
@@ -302,7 +309,18 @@ KERNELS = {
     "bell_mv_batched": dict(name="bell_dd_mv_f32_batched",
                             replaces="none (cholesky_is_magic_tpu/ops/bell.py:169)",
                             source=CSRC + "bell_dd.cu"),
+    # No TPU kernel: the JAX tile engine's Schur update is plain jnp.
+    "tile_schur": dict(name="tile_schur_f32",
+                       replaces="none (cholesky_is_magic_tpu/sparse/tiled.py:367)",
+                       source=CSRC + "tile_schur.cu"),
+    "tile_schur_batched": dict(name="tile_schur_f32_batched",
+                               replaces="none (cholesky_is_magic_tpu/sparse/tiled.py:367)",
+                               source=CSRC + "tile_schur.cu"),
 }
+# QAP15's widest Schur update at block 128 (sparse/symbolic.py's analysis of
+# lpbench's qap15 configuration): 34 row tiles and every pair of them, on the
+# qap15.fleet32 cell's 32 lanes.
+SCHUR_ROWS, SCHUR_LANES = 34, 32
 AT_SCALE_M = 16384
 # The at-scale recipe of the JAX package's api.solve docstring (:439-440).
 AT_SCALE_KW = dict(sparse=True, block=128, mehrotra=True, entry_repair_tol=1e-6,
@@ -1085,6 +1103,89 @@ def phase_assembly(eng, stats):
                                    plain_ms=min(p), library_ms=lib,
                                    ms_with_launch=min(kh),
                                    plain_ms_with_launch=min(ph), **bound)
+
+
+def _same_tiles(got, want):
+    """Equal bit for bit (the sign of a zero too), NaNs in the same places."""
+    g0, w0 = torch.nan_to_num(got), torch.nan_to_num(want)
+    return (torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(g0, w0)
+            and torch.equal(torch.signbit(g0), torch.signbit(w0)))
+
+
+def phase_tile_schur(chol_cuda, tiled_cuda, stats):
+    """The tile engine's Schur kernel at QAP15's widest panel on 32 lanes:
+    each lane's (NT+1, 128, 128) tiles, the panel's 34 tiles and a
+    destination of its own for each of their 595 pairs.  Bit for bit
+    against ``chol_cuda.tile_schur_fma_plain`` on three lanes, batched,
+    through ``cim::tile_schur`` under vmap and on one lane alone; then
+    CUDA-event medians (the L2 cache flushed, the card asleep until the
+    launches are queued) of the kernel, the plain four-launch chain it
+    replaces and the SGEMM of that chain alone on gathered operands, beside
+    ``lpbench.schur.update``'s bound."""
+    from lpbench import schur as lpschur
+
+    rows, lanes, b = SCHUR_ROWS, SCHUR_LANES, 128
+    pa, pb = zip(*[(i, j) for i in range(rows) for j in range(i + 1)])
+    pairs = len(pa)
+    a, bt, dst = (torch.tensor(x, device="cuda")
+                  for x in (pa, pb, range(rows, rows + pairs)))
+    g = torch.Generator(device="cuda").manual_seed(23)
+    L0 = 0.1 * torch.randn(lanes, rows + pairs + 1, b, b, generator=g, device="cuda")
+    some = torch.tensor([0, lanes // 2, lanes - 1], device="cuda")
+    want = chol_cuda.tile_schur_fma_plain(L0[some][:, dst], L0[some][:, a], L0[some][:, bt])
+    _reset(tiled_cuda.LAUNCHES)
+    L = L0.clone()
+    tiled_cuda.tile_schur_batched_(L, a, bt, dst)
+    same = {"batched": _same_tiles(L[some][:, dst], want)}
+
+    def lane(x):
+        y = x.clone()
+        tiled_cuda.tile_schur(y, a, bt, dst, per_lane=True)
+        return y
+
+    L = torch.func.vmap(lane)(L0)
+    same["vmap"] = _same_tiles(L[some][:, dst], want)
+    one = L0[0].clone()
+    tiled_cuda.tile_schur_(one, a, bt, dst)
+    same["one lane"] = _same_tiles(one[dst], want[0])
+    launched = dict(tiled_cuda.LAUNCHES)
+    err = (L[some][:, dst] - want).abs().max().item()
+    del want, one
+    if not (all(same.values()) and launched["tile_schur"] == 1
+            and launched["tile_schur_batched"] == 2):
+        raise AssertionError(f"tile_schur: bit-equal {same}, launches {launched}")
+    flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
+    L = L0.clone()
+    Ga, Gb = L0[:, a], L0[:, bt].transpose(-1, -2)
+    U = torch.empty_like(Ga)
+    kern = lambda: tiled_cuda.tile_schur_batched_(L, a, bt, dst)  # noqa: E731
+    kern1 = lambda: tiled_cuda.tile_schur_(L[0], a, bt, dst)  # noqa: E731
+
+    def chain():
+        L.index_add_(1, dst, torch.matmul(L[:, a], L[:, bt].transpose(-1, -2)), alpha=-1)
+
+    p1, k1, k2, p2 = (_median_ms(f, reps=10, flush=flush, lead=1.0)
+                      for f in (chain, kern, kern, chain))
+    lib = _median_ms(lambda: torch.matmul(Ga, Gb, out=U), reps=10, flush=flush, lead=1.0)
+    o1, o2 = (_median_ms(kern1, reps=10, flush=flush, lead=0.2) for _ in range(2))
+    bound = lpschur.update(lanes, b, pairs, rows)
+    bound1 = lpschur.update(1, b, pairs, rows)
+    share = 100 * bound["ms"] / min(k1, k2)
+    say(f"[tile schur] QAP15's widest panel: {rows} row tiles, {pairs} pairs, b {b},"
+        f" {lanes} lanes: bit-equal to tile_schur_fma_plain on lanes"
+        f" {some.tolist()} {same}; launches {launched}; median ms kernel {k1:.4f}"
+        f" {k2:.4f}  plain chain (gathers, SGEMM, index_add_) {p1:.4f} {p2:.4f}  the"
+        f" chain's SGEMM alone {lib:.4f}  bound {bound['ms']:.4f} ({bound['by']}),"
+        f" {share:.2f}% of it; one lane: kernel {o1:.4f} {o2:.4f}  bound"
+        f" {bound1['ms']:.4f} ({bound1['by']})")
+    stats["tile_schur_batched"] = dict(max_abs_err=err, ms=min(k1, k2), plain_ms=min(p1, p2),
+                                       library_ms=lib, bound_ms=bound["ms"],
+                                       bound_by=bound["by"], roofline_pct=share)
+    stats["tile_schur"] = dict(max_abs_err=err, ms=min(o1, o2), plain_ms=None,
+                               library_ms=None, bound_ms=bound1["ms"],
+                               bound_by=bound1["by"])
+    del L, L0, Ga, Gb, U, flush
+    torch.cuda.empty_cache()
 
 
 def phase_sparse_afiro(cimt):
@@ -2115,8 +2216,8 @@ def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_high
         say(f"[batch sparse] {part} took {now - t_lap[0]:.3f} s")
         t_lap[0] = now
 
-    def single_k1_k4(launches):
-        return launches["potrf_tile"] + launches["assemble_pairs"]
+    def single_launches(launches):
+        return launches["potrf_tile"] + launches["assemble_pairs"] + launches["tile_schur"]
 
     _sparse_batch_kernels(eng, chol, chol_cuda, tiled_cuda, stats)
     lap("(a)")
@@ -2146,7 +2247,7 @@ def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_high
         f" vs {SPARSE_LANES} single calls {t_s:.3f}; launches of one batched call"
         f" {launched} on {card}")
     if not (bool(ok.all()) and rel <= 1e-5 and launched["potrf_tile_batched"] > 0
-            and launched["assemble_pairs_batched"] > 0 and single_k1_k4(launched) == 0):
+            and launched["assemble_pairs_batched"] > 0 and single_launches(launched) == 0):
         raise AssertionError(f"batched normal solves: rel {rel}, launches {launched}")
     del E, ET, Y, singles
     torch.cuda.empty_cache()
@@ -2220,7 +2321,7 @@ def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_high
                      stacked, dataclasses.replace(cfg1, max_iters=1), engine=feng))
     for tag, got in (("pdas", l1), ("pdas_dd", l2)):
         if not (got["potrf_tile_batched"] > 0 and got["assemble_pairs_batched"] > 0
-                and single_k1_k4(got) == 0):
+                and single_launches(got) == 0):
             raise AssertionError(f"batch fleet {tag}: launches {got}")
     if not (worst <= 1e-5 and np.isfinite(p2.x.cpu().numpy()).all() and not miss1
             and floor == miss2):
@@ -2631,7 +2732,8 @@ def phase_mesh(cimt, counters, card, pilot_s, sf8, info8):
                 and factorizations >= int(r1.iterations) + int(r2.iterations)
                 and launched["potrf_tile"] == eng.B * factorizations
                 and launched["assemble_pairs_batched"] == 0
-                and launched["potrf_tile_batched"] == 0):
+                and launched["potrf_tile_batched"] == 0
+                and launched["tile_schur"] + launched["tile_schur_batched"] == 0):
             raise AssertionError(f"mesh tp at scale: gap {gap}, error {err}, {launched}")
         paths["mesh tp at scale"] = launched
         # (c) the dp batch: phase 15 (c)'s mix through solve_batch with and
@@ -3051,11 +3153,13 @@ def main() -> int:
                     potrf_schur=chol_launches["potrf_schur"])
     sf, info, eng = build_at_scale_engine()
     phase_assembly(eng, stats)
+    phase_tile_schur(chol_cuda, tiled_cuda, stats)
     phase_sparse_afiro(cimt)
     sparse_launches, rep = phase_at_scale(cimt, sf, info, counters, card)
     launches.update(potrf_tile=sparse_launches["potrf_tile"],
                     assemble_pairs=sparse_launches["assemble_pairs"],
-                    bell_mv=sparse_launches["bell_mv"])
+                    bell_mv=sparse_launches["bell_mv"],
+                    tile_schur=sparse_launches["tile_schur"])
     phase_breakdown(cimt, sf, eng, rep, chol)
     phase_block256(cimt, sf, info, eng, counters, card)
     by_path = {"pdas_dd": dict(launches),

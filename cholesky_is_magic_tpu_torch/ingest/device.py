@@ -150,7 +150,7 @@ def to_device_lp(
     row_type = np.zeros(M, dtype=np.int8)
     row_type[:m] = sf.row_type
 
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    np_dtype = torch.zeros((), dtype=dtype).numpy().dtype
     put = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
     return DeviceLP(
         A=put(A.astype(np_dtype)),
@@ -182,7 +182,7 @@ def to_sparse_lp(sf: StandardForm, *, dtype: torch.dtype = torch.float32,
     shape, shape_t = (sf.ncons, sf.nvars), (sf.nvars, sf.ncons)
     gates = dict(dtype=dtype, device=device, max_bytes=bell_max_bytes,
                  max_dense_frac=bell_max_dense_frac)
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    np_dtype = torch.zeros((), dtype=dtype).numpy().dtype
     put = lambda v: torch.from_numpy(  # noqa: E731
         np.ascontiguousarray(np.asarray(v, np.float64).astype(np_dtype))).to(device)
     return SparseLP(

@@ -97,7 +97,7 @@ def from_coo(
     tiles_per_brow = np.bincount((uniq // ((n // BC) + 2)).astype(np.int64),
                                  minlength=nbr)
     kb = max(int(tiles_per_brow.max()), 1)
-    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    np_dtype = torch.zeros((), dtype=dtype).numpy().dtype
     bytes_bell = nbr * kb * BR * BC * np_dtype.itemsize
     if (bytes_bell > max_bytes
             or bytes_bell > max_dense_frac * m * n * np_dtype.itemsize):

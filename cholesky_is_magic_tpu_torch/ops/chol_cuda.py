@@ -40,8 +40,9 @@ addresses inside the matrix, so that the host stays ahead of the card.
 The plain versions are ``ops.chol._factor_tile_plain`` (``cholesky_ex`` +
 ``solve_triangular``), ``torch.tril(S - P @ P.T)`` and
 ``ops.chol.blocked_cholesky``; :func:`schur_fma_plain` is the Schur kernel's
-own sums in plain PyTorch, bit for bit.  ``LAUNCHES`` counts the kernel
-launches.
+own sums in plain PyTorch, bit for bit, and :func:`tile_schur_fma_plain`
+those of the tile engine's Schur kernel (``csrc/tile_schur.cu``, launched
+by ``sparse.tiled_cuda``).  ``LAUNCHES`` counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -238,6 +239,23 @@ def schur_fma_plain(S: torch.Tensor, P: torch.Tensor, cols: int | None = None) -
     idx = torch.arange(t, device=P.device)
     owned = (idx[None, :] <= idx[:, None]) & (idx[None, :] < cols)
     return torch.where(owned, S - acc.float(), S)
+
+
+def tile_schur_fma_plain(S: torch.Tensor, A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """S - A·Bᵀ as the tile engine's Schur kernel (``csrc/tile_schur.cu``)
+    computes it, in plain PyTorch on any device, bit for bit: per entry one
+    accumulator from zero, ``fma(A[i, t], B[j, t], acc)`` for t ascending,
+    one float32 subtraction from S.  S (..., r, c), A (..., r, k) and B
+    (..., c, k), float32, leading axes broadcast (lanes, pairs).  Slow (k
+    passes over a float64 array of S's size): for tests and the CPU route
+    of ``sparse.tiled_cuda.tile_schur_``."""
+    A64, B64 = A.double(), B.double()
+    acc = torch.zeros(torch.broadcast_shapes(S.shape, A.shape[:-1] + (1,),
+                                             B.shape[:-2] + (1, B.shape[-2])),
+                      dtype=torch.float64, device=S.device)
+    for t in range(A.shape[-1]):
+        acc = _fma32(A64[..., :, t, None], B64[..., None, :, t], acc)
+    return S - acc.float()
 
 
 _STREAMS: dict[int, tuple] = {}

@@ -42,6 +42,7 @@ from cholesky_is_magic_tpu_torch.ops import bell as bell_ops
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops import bell_cuda, dd_cuda, sparse_ops
 from cholesky_is_magic_tpu_torch.ops.sparse_ops import ELLMatrix
+from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
 BIG = 1e30  # encoded infinity (see ingest.device)
@@ -453,7 +454,7 @@ def _unflatten(flat, spec) -> tuple:
     return tuple(out)
 
 
-_COUNTERS = (dd_cuda.LAUNCHES, bell_cuda.LAUNCHES)
+_COUNTERS = (dd_cuda.LAUNCHES, bell_cuda.LAUNCHES, tiled_cuda.LAUNCHES)
 
 
 class _ChunkGraph:
@@ -462,9 +463,9 @@ class _ChunkGraph:
     launch instead of ~60 (f32) or ~400 (double-word) per iteration.  The
     replay runs the captured kernels on the captured addresses, so it
     computes what the eager chunk computes.  The capture launches nothing,
-    so the launch counters of the dd kernels (``ops.dd_cuda.LAUNCHES``,
-    ``ops.bell_cuda.LAUNCHES``) are put back after it, and each replay adds
-    the launches it holds."""
+    so the launch counters of the hand-written kernels (``ops.dd_cuda``,
+    ``ops.bell_cuda``, ``sparse.tiled_cuda``) are put back after it, and each
+    replay adds the launches it holds."""
 
     def __init__(self, step, state: list):
         dev = state[0].device

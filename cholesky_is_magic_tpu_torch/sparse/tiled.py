@@ -9,8 +9,10 @@ on the host, then per factorization
     per 128-column panel:
       chol + tri-inv of the diagonal tile             (one kernel, K1)
       all the panel's TRSMs:  (R, b, b) x (b, b)      (one batched matmul)
-      all the panel's SYRKs:  (P, b, b) x (P, b, b)   (one batched matmul
-                                                       + one index_add_)
+      all the panel's SYRKs:  L[dst] -= L[a]·L[b]ᵀ    (one kernel in place;
+                                                       off the card one
+                                                       batched matmul + one
+                                                       index_add_)
 
 Storage is a compact (NT+1, b, b) tile array (row NT is a dummy target of
 the padded schedules), so memory follows nnz(L) tiles, not m².  Both
@@ -21,22 +23,24 @@ Where the JAX package runs ``lax.fori_loop``s over the panels, the port
 runs host loops over device tensors.  The per-panel index arrays are kept
 on the device padded, as in the JAX package; the host knows each panel's
 true length and slices to it, so no padded entry is ever computed and the
-dummy row is never written.  The TRSM and SYRK products and the solves are
+dummy row is never written.  The TRSM products and the solves are
 ``torch.matmul`` (XLA einsums outside any Pallas kernel in the JAX
-package); the tile factor and the assembly are the hand-written kernels on
-float32 CUDA tensors (:mod:`..ops.chol_cuda`, :mod:`.tiled_cuda`) and their
-plain versions on a CPU tensor or in another dtype on the card.  ``ok`` is
-read on the host once per factorization, and only when the dbound retry is
-armed.
+package); the tile factor, the assembly and the Schur updates are the
+hand-written kernels on float32 CUDA tensors (:mod:`..ops.chol_cuda`,
+:mod:`.tiled_cuda`) and their plain versions on a CPU tensor or in another
+dtype on the card (the SYRKs as ``torch.matmul`` + ``index_add_``, as the
+JAX package's einsum + scatter-add).  ``ok`` is read on the host once per
+factorization, and only when the dbound retry is armed.
 
 The engine also runs inside a lane of a batched solve (``parallel.batched``
 vmaps the solvers with ``torch.func.vmap``; the lanes share A and so the
-engine, and differ in their scalings).  There (``per_lane``) both kernels
+engine, and differ in their scalings).  There (``per_lane``) the kernels
 are reached through operators (``cim::assemble_pairs`` here,
-``cim::factor_tile`` in :mod:`..ops.chol`) whose vmap rules launch one
-batched kernel for all the lanes (the plain forms with a lane axis off the
-card), and the dbound retry and the Krylov gate become per-lane selects
-with no host read, as ``lax.cond`` becomes under ``jax.vmap``.
+``cim::factor_tile`` in :mod:`..ops.chol`, ``cim::tile_schur`` in
+:mod:`.tiled_cuda`) whose vmap rules launch one batched kernel for all the
+lanes (the plain forms with a lane axis off the card), and the dbound retry
+and the Krylov gate become per-lane selects with no host read, as
+``lax.cond`` becomes under ``jax.vmap``.
 
 The dense-A entry points (:func:`engine_for`, :meth:`TiledCholesky.assemble`,
 ``prepare_normal``, ``solve_normal``) take a dense (padded) A instead of
@@ -71,6 +75,7 @@ import torch.nn.functional as F
 from cholesky_is_magic_tpu_torch.ops import chol
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
+from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
 from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
 
@@ -316,8 +321,6 @@ class TiledCholesky:
         # assemble_pairs will launch it.
         self._kernel_schedule = None
         if takes_kernel(self.device, dtype):
-            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
             self._kernel_schedule = tiled_cuda.kernel_schedule(
                 self, run_start, run_dst)
 
@@ -462,9 +465,14 @@ class TiledCholesky:
 
     def factorize(self, tiles, per_lane: bool = False, mesh=None):
         """One host loop over the panels; per panel one tile factor +
-        inverse, one batched TRSM, one batched SYRK + index_add_.  Leaves
-        ``tiles`` as it is.  ``per_lane`` (a lane under ``torch.func.vmap``):
-        the tile factor through its operator, one launch for all the lanes.
+        inverse, one batched TRSM, and the Schur update of the panel's SYRK
+        pairs.  On float32 CUDA tiles that update is one launch of the
+        hand-written kernel (:func:`.tiled_cuda.tile_schur`), in place on L,
+        nothing gathered or scattered; otherwise (CPU tensors, another dtype,
+        ``mesh``) one batched SYRK of the gathered tiles + one ``index_add_``.
+        Leaves ``tiles`` as it is.  ``per_lane`` (a lane under
+        ``torch.func.vmap``): the tile factor and the Schur kernel through
+        their operators, one launch each for all the lanes.
         ``mesh``: each panel's SYRK batch shared over the mesh's 'tp' ranks,
         everything else replicated; each rank computes its contiguous share
         of the panel's Schur-update pairs into a zero buffer of all of them,
@@ -484,6 +492,7 @@ class TiledCholesky:
             b = self.b
             L = tiles.clone()
             invd = tiles.new_zeros((self.B, b, b))
+            kernel = mesh is None and takes_kernel(L.device, L.dtype)
             if mesh is not None:
                 import torch.distributed as dist
 
@@ -498,7 +507,11 @@ class TiledCholesky:
                         rid = self.rows_ids[k, :nr]
                         L[rid] = torch.matmul(L[rid], invd[k].T)
                 ns = self._n_syrk[k]
-                if ns:
+                if ns and kernel:
+                    with span("factorize.schur"):
+                        tiled_cuda.tile_schur(L, self.syrk_a[k, :ns], self.syrk_b[k, :ns],
+                                              self.syrk_dst[k, :ns], per_lane)
+                elif ns:
                     with span("factorize.schur"):
                         lo, hi = 0, ns
                         if mesh is not None:
@@ -579,8 +592,6 @@ class TiledCholesky:
             put = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
             kernel = None
             if self._kernel_schedule is not None:
-                from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
                 kernel = tiled_cuda.kernel_schedule(self, *self._slab_runs(p0, p1),
                                                     boost=rank == 0)
             self._slabs[key] = _Slab(
@@ -615,8 +626,6 @@ class TiledCholesky:
         group = mesh.get_group("tp")
         slab = self._slab(dist.get_world_size(group), mesh.get_local_rank("tp"))
         if takes_kernel(d.device, d.dtype, self.asm_w.dtype):
-            from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
             tiles = tiled_cuda.assemble_pairs(self, d, row_boost, slab.kernel)
         else:
             tiles = self._assemble_pairs_plain(d, row_boost, slab)
@@ -809,8 +818,6 @@ def _assemble_pairs(eng, d, row_boost):
     """The engine's tiles: the kernel on float32 CUDA operands
     (:func:`.tiled_cuda.assemble_pairs`), the plain version otherwise."""
     if takes_kernel(d.device, d.dtype, eng.asm_w.dtype):
-        from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
         return tiled_cuda.assemble_pairs(eng, d, row_boost)
     return eng._assemble_pairs_plain(d, row_boost)
 
@@ -841,7 +848,5 @@ def _(info, in_dims, d, row_boost, engine):
     if bd is not None:
         row_boost = row_boost.movedim(bd, 0)
     if takes_kernel(d.device, d.dtype, eng.asm_w.dtype):
-        from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
-
         return tiled_cuda.assemble_pairs_batched(eng, d, row_boost), 0
     return eng._assemble_pairs_plain(d, row_boost), 0

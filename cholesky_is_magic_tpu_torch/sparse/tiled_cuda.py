@@ -26,8 +26,19 @@ operator ``cim::assemble_pairs`` (``sparse.tiled``) launches from its
 
 The plain version is ``sparse.tiled.TiledCholesky._assemble_pairs_plain``
 (w·d²[k] summed per destination in schedule order, then the boost; with a
-lane axis for the batch).  ``LAUNCHES`` counts the kernel launches, single
-and batched apart.
+lane axis for the batch).
+
+:func:`tile_schur_` (``cim_tile_schur_f32``, ``csrc/tile_schur.cu``) runs one
+panel's Schur update in place on the engine's tiles, L[dst] -= L[a]·L[b]ᵀ
+for every pair of the panel, with nothing gathered or scattered; it
+replaces no TPU kernel (the JAX engine's update is plain jnp) and
+:func:`tile_schur_batched_` does it for every lane in one launch, each lane
+bit-equal to the single launch on it.  ``TiledCholesky.factorize`` reaches
+them on float32 CUDA tiles (through the operator ``cim::tile_schur``,
+:func:`tile_schur_op`, inside a lane of a batched solver); their plain form
+is ``ops.chol_cuda.tile_schur_fma_plain``, the kernel's own sums, which the
+wrappers run on CPU tensors.  ``LAUNCHES`` counts the kernel launches,
+single and batched apart.
 """
 
 from __future__ import annotations
@@ -40,15 +51,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cholesky_is_magic_tpu_torch.ops import cuda_build
+from cholesky_is_magic_tpu_torch.ops import chol_cuda, cuda_build
 
-LAUNCHES = {"assemble_pairs": 0, "assemble_pairs_batched": 0}
+LAUNCHES = {"assemble_pairs": 0, "assemble_pairs_batched": 0, "tile_schur": 0,
+            "tile_schur_batched": 0}
 
 _SIGNATURES = {
     "cim_assemble_pairs_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                _P],
     "cim_assemble_pairs_f32_batched": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _LL, _LL, _LL, _P],
+    "cim_tile_schur_f32_batched": [_P, _LL, _I, _P, _P, _P, _I, _I, _I, _P],
 }
 
 # Lanes of one batched launch: the grid's y extent.
@@ -192,3 +205,129 @@ def assemble_pairs_batched(eng, d: torch.Tensor,
             torch.cuda.current_stream(d.device).cuda_stream),
         "assemble_pairs_batched")
     return buf[:, :total].view(lanes, NT + 1, b, b)
+
+
+def _row_major_lanes(L: torch.Tensor) -> bool:
+    """Whether each lane of L (axis 0 the lanes) is laid out row-major."""
+    return L.shape[0] == 0 or L[0].is_contiguous()
+
+
+def _tile_schur_plain_(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       dst: torch.Tensor) -> None:
+    """What the kernel leaves in L, leading axes of L lanes: the kernel's
+    sums by ``chol_cuda.tile_schur_fma_plain``."""
+    L[..., dst, :, :] = chol_cuda.tile_schur_fma_plain(
+        L[..., dst, :, :], L[..., a, :, :], L[..., b, :, :])
+
+
+def _tile_schur_launch(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       dst: torch.Tensor, key: str, name: str) -> None:
+    """One launch over the lanes of L (lanes, NT+1, b, b) float32 on the
+    card, each lane row-major, for the pairs (a[p], b[p], dst[p]): int64
+    tile indices on the same card, which the kernel does not check."""
+    if not (L.is_cuda and a.is_cuda and b.is_cuda and dst.is_cuda):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if len({L.device, a.device, b.device, dst.device}) != 1:
+        raise ValueError(f"{name}: operands on {L.device}, {a.device}, {b.device}, "
+                         f"{dst.device}")
+    if L.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 tiles (got {L.dtype})")
+    pairs = a.shape[0] if a.dim() == 1 else -1
+    for t in (a, b, dst):
+        if t.dtype != torch.int64 or t.shape != (pairs,) or (pairs > 1 and t.stride(0) != 1):
+            raise ValueError(f"{name}: the pair lists must be three int64 vectors of one "
+                             f"length (got {tuple(a.shape)}, {tuple(b.shape)}, "
+                             f"{tuple(dst.shape)})")
+    lanes = L.shape[0]
+    if L.dim() != 4 or L.shape[2] != L.shape[3] or not _row_major_lanes(L):
+        raise ValueError(f"{name}: tiles {tuple(L.shape)} at strides {L.stride()}, each "
+                         "lane (NT+1, b, b) row-major")
+    if not 1 <= lanes <= MAX_LANES or (lanes > 1 and L.stride(0) == 0):
+        raise ValueError(f"{name}: {lanes} lanes at lane stride {L.stride(0)}, the kernel "
+                         f"takes 1 to {MAX_LANES} lanes of their own")
+    if pairs == 0:
+        return
+    bs = L.shape[-1]
+    lane_stride = L.stride(0) if lanes > 1 else 0
+    vec = int(L.data_ptr() % 16 == 0 and bs % 4 == 0 and lane_stride % 4 == 0)
+    lib = cuda_build.load(_SIGNATURES)
+    cuda_build.raise_on(
+        lib.cim_tile_schur_f32_batched(
+            L.data_ptr(), lane_stride, bs, a.data_ptr(), b.data_ptr(), dst.data_ptr(),
+            pairs, lanes, vec, torch.cuda.current_stream(L.device).cuda_stream),
+        name)
+    LAUNCHES[key] += 1
+
+
+def tile_schur_(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                dst: torch.Tensor) -> None:
+    """In place on one lane's tiles L (NT+1, b, b): L[dst[p]] -= L[a[p]] ·
+    L[b[p]]ᵀ for every pair p, where the destinations are distinct and none
+    is an operand's tile (one panel's Schur update).  The kernel on a CUDA
+    tensor (float32), one launch (on a row-major copy, written back, where L
+    is not row-major); on a CPU tensor the kernel's sums in plain PyTorch
+    (``chol_cuda.tile_schur_fma_plain``)."""
+    if not L.is_cuda:
+        _tile_schur_plain_(L, a, b, dst)
+        return
+    if L.dim() != 3:
+        raise ValueError(f"tile_schur_: tiles {tuple(L.shape)}, not (NT+1, b, b)")
+    _tile_schur_rows_(L[None], a, b, dst, "tile_schur", "tile_schur_")
+
+
+def tile_schur_batched_(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        dst: torch.Tensor) -> None:
+    """:func:`tile_schur_` on every lane of L (lanes, NT+1, b, b) with the
+    same pairs, in one launch: lane k bit-equal to ``tile_schur_(L[k], a, b,
+    dst)``.  Lanes at any lane stride; where a lane is not row-major the
+    kernel runs on a row-major copy, written back."""
+    if not L.is_cuda:
+        _tile_schur_plain_(L, a, b, dst)
+        return
+    if L.dim() != 4:
+        raise ValueError(f"tile_schur_batched_: tiles {tuple(L.shape)}, not "
+                         "(lanes, NT+1, b, b)")
+    _tile_schur_rows_(L, a, b, dst, "tile_schur_batched", "tile_schur_batched_")
+
+
+def _tile_schur_rows_(L, a, b, dst, key, name):
+    """The launch on L's lanes where each is row-major, else on a row-major
+    copy written back."""
+    work = L if _row_major_lanes(L) else L.contiguous()
+    _tile_schur_launch(work, a, b, dst, key, name)
+    if work is not L:
+        L.copy_(work)
+
+
+@torch.library.custom_op("cim::tile_schur", mutates_args=("L",))
+def tile_schur_op(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  dst: torch.Tensor) -> None:
+    """:func:`tile_schur_` as an operator; under ``torch.func.vmap`` (the
+    lanes' tiles batched, the pair lists shared) one
+    :func:`tile_schur_batched_` launch for the whole batch, in place on the
+    batch's tiles."""
+    tile_schur_(L, a, b, dst)
+
+
+@tile_schur_op.register_fake
+def _(L, a, b, dst):
+    return None
+
+
+@tile_schur_op.register_vmap
+def _(info, in_dims, L, a, b, dst):
+    if in_dims[0] is None or any(d is not None for d in in_dims[1:]):
+        raise ValueError("cim::tile_schur under vmap takes batched tiles and shared "
+                         f"pair lists (in_dims {in_dims})")
+    tile_schur_batched_(L.movedim(in_dims[0], 0), a, b, dst)
+    return None, None
+
+
+def tile_schur(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor, dst: torch.Tensor,
+               per_lane: bool = False) -> None:
+    """One panel's Schur update in place, as ``TiledCholesky.factorize``
+    runs it on float32 CUDA tiles: :func:`tile_schur_`, or inside a lane of
+    a batched solver (``per_lane``) through :func:`tile_schur_op`, one
+    launch for all the lanes.  The operator's dispatch costs tens of
+    microseconds a call, so the single path launches the kernel itself."""
+    (tile_schur_op if per_lane else tile_schur_)(L, a, b, dst)

@@ -1077,7 +1077,7 @@ def test_batched_sparse_pdas_on_the_card(dev):
     res = parallel.batched_pdas(parallel.stack_sparse_states(states), cfg, engine=eng)
     got = {k: v - before[k] for k, v in _counts().items()}
     assert got["potrf_tile_batched"] > 0 and got["assemble_pairs_batched"] > 0
-    assert got["potrf_tile"] == got["assemble_pairs"] == 0
+    assert got["potrf_tile"] == got["assemble_pairs"] == got["tile_schur"] == 0
     assert (res.status == 1).all()
     for k, st in enumerate(states):
         one = pdas.pdas(st, cfg, engine=eng)
@@ -1219,6 +1219,7 @@ def test_tp_solve_normal_ell_at_world_size_1(dev, nccl_mesh):
     assert float((y_tp - y).norm() / y.norm()) <= 1e-5
     assert (got["assemble_pairs"], got["potrf_tile"]) == (1, eng.B)
     assert got["assemble_pairs_batched"] == got["potrf_tile_batched"] == 0
+    assert got["tile_schur"] == got["tile_schur_batched"] == 0  # mesh=: the plain SYRKs
 
 
 @pytest.mark.parametrize("ntp", [2, 4])
