@@ -17,6 +17,7 @@ sparse-newton-solve.lisp:30-45).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -42,6 +43,18 @@ class KKTOperator(NamedTuple):
     prepare_scaled_normal: Optional[Callable] = None
 
 
+def factor_once_operator(mv, rmv, prepare_scaled_normal) -> KKTOperator:
+    """The KKTOperator of a factor-once backend: ``prepare_scaled_normal``
+    as given, and ``solve_scaled_normal`` one prepare and one solve."""
+
+    def solve_scaled_normal(s, g):
+        solve_fn, ok = prepare_scaled_normal(s)
+        return solve_fn(g), ok
+
+    return KKTOperator(mv=mv, rmv=rmv, solve_scaled_normal=solve_scaled_normal,
+                       prepare_scaled_normal=prepare_scaled_normal)
+
+
 def dense_kkt_operator(
     A: torch.Tensor,
     row_boost: Optional[torch.Tensor] = None,
@@ -55,25 +68,10 @@ def dense_kkt_operator(
     """Dense operator over ops.dense (dbound retry, refinement, optional
     gated PCG; ``per_lane``: both branches selected per lane, for a lane
     under ``torch.func.vmap``)."""
-
-    def prepare_scaled_normal(s):
-        return dense_ops.prepare_normal(
-            A, s, row_boost=row_boost, refine_steps=refine_steps,
-            true_residual=true_residual, dbound=dbound,
-            krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            per_lane=per_lane,
-        )
-
-    def solve_scaled_normal(s, g):
-        solve_fn, ok = prepare_scaled_normal(s)
-        return solve_fn(g), ok
-
-    return KKTOperator(
-        mv=lambda v: A @ v,
-        rmv=lambda v: A.T @ v,
-        solve_scaled_normal=solve_scaled_normal,
-        prepare_scaled_normal=prepare_scaled_normal,
-    )
+    return factor_once_operator(lambda v: A @ v, lambda v: A.T @ v, functools.partial(
+        dense_ops.prepare_normal, A, row_boost=row_boost, refine_steps=refine_steps,
+        true_residual=true_residual, dbound=dbound, krylov_steps=krylov_steps,
+        krylov_gate=krylov_gate, per_lane=per_lane))
 
 
 def sparse_kkt_operator(
@@ -95,23 +93,10 @@ def sparse_kkt_operator(
     ``per_lane``: a lane under ``torch.func.vmap`` (A the lane's own; the
     dbound retry and the Krylov gate selected per lane)."""
 
-    def prepare_scaled_normal(s):
-        return engine.prepare_normal(
-            A, s, row_boost=row_boost, refine_steps=refine_steps,
-            dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            per_lane=per_lane,
-        )
-
-    def solve_scaled_normal(s, g):
-        solve_fn, ok = prepare_scaled_normal(s)
-        return solve_fn(g), ok
-
-    return KKTOperator(
-        mv=lambda v: A @ v,
-        rmv=lambda v: A.T @ v,
-        solve_scaled_normal=solve_scaled_normal,
-        prepare_scaled_normal=prepare_scaled_normal,
-    )
+    return factor_once_operator(lambda v: A @ v, lambda v: A.T @ v, functools.partial(
+        engine.prepare_normal, A, row_boost=row_boost, refine_steps=refine_steps,
+        dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
+        per_lane=per_lane))
 
 
 def ell_kkt_operator(
@@ -127,36 +112,19 @@ def ell_kkt_operator(
 ) -> KKTOperator:
     """Fully sparse operator: ELL / block-ELL products and the tile
     engine's pair-schedule assembly and factorization
-    (sparse.tiled.engine_for_sparse).  No dense A operand anywhere — ``lp``
-    is an ingest.device.SparseKKTLP.  ``per_lane``: a lane under
+    (sparse.tiled.engine_for_sparse), both as solvers.backend chooses them
+    for the operand set.  No dense A operand anywhere — ``lp`` is an
+    ingest.device.SparseKKTLP.  ``per_lane``: a lane under
     ``torch.func.vmap`` (the dbound retry and the Krylov gate selected per
     lane).  ``mesh`` shards every factorization's assembly pair slabs and
     Schur updates over the mesh's 'tp' axis (the products and the solves
     stay replicated)."""
-    from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
+    from cholesky_is_magic_tpu_torch.solvers import backend
 
-    def prepare_scaled_normal(s):
-        return engine.prepare_normal_ell(
-            lp.E, lp.ET, s, lp.m, row_boost=row_boost,
-            refine_steps=refine_steps, dbound=dbound,
-            krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-            EB=lp.EB, ETB=lp.ETB, mesh=mesh, per_lane=per_lane,
-        )
-
-    def solve_scaled_normal(s, g):
-        solve_fn, ok = prepare_scaled_normal(s)
-        return solve_fn(g), ok
-
-    mv = ((lambda v: bell.matvec(lp.EB, v)) if lp.EB is not None
-          else (lambda v: sparse_ops.matvec(lp.E, v)))
-    rmv = ((lambda v: bell.matvec(lp.ETB, v)) if lp.ETB is not None
-           else (lambda v: sparse_ops.matvec(lp.ET, v)))
-    return KKTOperator(
-        mv=mv,
-        rmv=rmv,
-        solve_scaled_normal=solve_scaled_normal,
-        prepare_scaled_normal=prepare_scaled_normal,
-    )
+    return factor_once_operator(*backend.mv_rmv(lp), functools.partial(
+        backend.prepare_normal_backend, lp, engine, row_boost=row_boost,
+        refine_steps=refine_steps, mesh=mesh, dbound=dbound,
+        krylov_steps=krylov_steps, krylov_gate=krylov_gate, per_lane=per_lane))
 
 
 class KKTDeltas(NamedTuple):

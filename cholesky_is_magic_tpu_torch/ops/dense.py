@@ -8,26 +8,23 @@ the reference's CHOLMOD pipeline, sparse-cholesky.lisp:409-431, 524-560):
   (``torch.linalg`` by default; the blocked potrf or the plain blocked
   factorization of ops.chol on request);
 - :func:`prepare_normal` factors once and returns a refined solve, with the
-  dbound singular-retry and double-word refinement.
+  dbound singular-retry and double-word refinement of :mod:`.normal`.
 
 The factorization and triangular solves are ``torch.linalg`` (the JAX
 package leaves them to XLA's library Cholesky too); the refinement
-residuals run through the double-word kernels of :mod:`.dd`.  Where the JAX
-package branches with ``lax.cond`` (the dbound retry), the port branches in
-Python on a 0-dim tensor, which costs one host sync per factorization; with
-``per_lane=True`` (a lane of a batched solve under ``torch.func.vmap``) it
-computes both branches and selects per lane, as ``lax.cond`` does under
-``jax.vmap``.
+residuals run through the double-word kernels of :mod:`.dd`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
-from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
+from cholesky_is_magic_tpu_torch.ops import krylov, normal
+from cholesky_is_magic_tpu_torch.utils.spans import count, span
 
 
 class CholFactors(NamedTuple):
@@ -114,12 +111,15 @@ def solve_spd(
     """Solve N x = b, N SPD, with double-word iterative refinement.
     Returns (x, ok)."""
     f = factorize(N) if factors is None else factors
-    x = chol_solve(f.L, b)
-    for _ in range(refine_steps):
-        with span("normal.refine"):
-            r = ddm.dd_residual(b, N, x)
-        x = x + chol_solve(f.L, r)
-    return torch.where(f.ok, x, torch.zeros_like(x)), f.ok
+    solve_fn = normal.refined_solve(functools.partial(chol_solve, f.L),
+                                    functools.partial(_assembled_residual, N), f.ok,
+                                    refine_steps)
+    return solve_fn(b), f.ok
+
+
+def _assembled_residual(N, y, g):
+    # g - N·y in double-word against the assembled N.
+    return ddm.dd_residual(g, N, y)
 
 
 def operator_residual(
@@ -138,40 +138,26 @@ def operator_residual(
     return ddm.dd_add_w(ddm.dd_neg(u), g).to_working()
 
 
-def unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps: int,
-                           krylov_steps: int = 0, krylov_gate=None,
-                           per_lane: bool = False):
-    """The solve_fn of a factor-once sparse engine on a dense A: ``raw_solve``
-    (its triangular solves) refined by ``refine_steps`` Richardson steps
-    against the UNASSEMBLED operator (:func:`operator_residual`), or with
-    ``krylov_steps`` > 0 by flexible PCG with ``raw_solve`` as the
-    preconditioner, per call when ``krylov_gate`` is given (both paths and
-    a select in a lane, ``per_lane``); zero where the factorization failed
-    (``ok`` False)."""
+def unassembled_operator(AD: torch.Tensor, row_boost: Optional[torch.Tensor] = None):
+    """(residual, pcg) of ops.normal.refined_solve against the UNASSEMBLED
+    operator (AD)(AD)ᵀ (+ diag(row_boost)): :func:`operator_residual` for
+    Richardson, ops.krylov's dense N-apply and dd residual for PCG."""
+    return (functools.partial(operator_residual, AD, row_boost=row_boost),
+            (krylov.dense_normal_apply(AD, row_boost),
+             functools.partial(krylov.dense_residual_dd, AD, row_boost=row_boost)))
 
-    def richardson_fn(g):
-        y = raw_solve(g)
-        for _ in range(refine_steps):
-            with span("normal.refine"):
-                r = operator_residual(AD, y, g, row_boost)
-            y = y + raw_solve(r)
-        return torch.where(ok, y, torch.zeros_like(y))
 
-    if krylov_steps == 0:
-        return richardson_fn
-    from cholesky_is_magic_tpu_torch.ops import krylov
+def factorize_with_retry(N: torch.Tensor, dbound: float = 0.0, blocked: bool = False,
+                         per_lane: bool = False) -> CholFactors:
+    """:func:`factorize` with the dbound singular retry on
+    N + dbound·max(diag N)·I (ops.normal.factor_with_retry)."""
 
-    def pcg_fn(g):
-        x = krylov.pcg_refine(
-            precond=raw_solve,
-            apply_n=krylov.dense_normal_apply(AD, row_boost),
-            residual_dd=krylov.dense_residual_dd(AD, g, row_boost),
-            b=g,
-            iters=krylov_steps,
-        )
-        return torch.where(ok, x.to_working(), torch.zeros_like(g))
+    def factor(shift):
+        f = factorize(N if shift is None else normal.shifted(N, shift), blocked=blocked)
+        return (f.L,), f.ok
 
-    return krylov.gated(pcg_fn, richardson_fn, krylov_gate, per_lane=per_lane)
+    (L,), ok = normal.factor_with_retry(factor, dbound, per_lane)
+    return CholFactors(L=L, ok=ok)
 
 
 def prepare_normal(
@@ -211,57 +197,26 @@ def prepare_normal(
         raise ValueError(f"prepare_normal: unknown method {method!r}")
     AD, N = _scaled_normal(A, d, row_boost)
     blocked = method == "inverse"
-    f = factorize(N, blocked=blocked)
-    if dbound > 0.0 and (per_lane or not host_bool(f.ok)):
-        jitter = dbound * torch.max(torch.diagonal(N))
-        eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-        retry = factorize(N + jitter * eye, blocked=blocked)
-        f = retry if not per_lane else CholFactors(
-            L=torch.where(f.ok, f.L, retry.L),
-            ok=torch.where(f.ok, f.ok, retry.ok))
+    L, ok = factorize_with_retry(N, dbound, blocked, per_lane)
 
     if blocked:
         with span("normal.factorize"):
             eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-            W = torch.linalg.solve_triangular(f.L, eye, upper=False)
+            W = torch.linalg.solve_triangular(L, eye, upper=False)
 
         def solve1(g):
             count("normal.solves")
             with span("normal.solve"):
                 return W.T @ (W @ g)
     else:
-        def solve1(g):
-            return chol_solve(f.L, g)
+        solve1 = functools.partial(chol_solve, L)
 
-    def richardson_fn(g):
-        y = solve1(g)
-        for _ in range(refine_steps):
-            with span("normal.refine"):
-                if true_residual:
-                    r = operator_residual(AD, y, g, row_boost)
-                else:
-                    r = ddm.dd_residual(g, N, y)
-            y = y + solve1(r)
-        return torch.where(f.ok, y, torch.zeros_like(y))
+    residual, pcg = unassembled_operator(AD, row_boost)
+    if not true_residual:
+        residual = functools.partial(_assembled_residual, N)
 
-    if krylov_steps > 0:
-        from cholesky_is_magic_tpu_torch.ops import krylov
-
-        def pcg_fn(g):
-            x = krylov.pcg_refine(
-                precond=solve1,
-                apply_n=krylov.dense_normal_apply(AD, row_boost),
-                residual_dd=krylov.dense_residual_dd(AD, g, row_boost),
-                b=g,
-                iters=krylov_steps,
-            )
-            y = x.to_working()
-            return torch.where(f.ok, y, torch.zeros_like(y))
-
-        return (krylov.gated(pcg_fn, richardson_fn, krylov_gate,
-                             per_lane=per_lane), f.ok)
-
-    return richardson_fn, f.ok
+    return normal.refined_solve(solve1, residual, ok, refine_steps, krylov_steps,
+                                krylov_gate, pcg, per_lane), ok
 
 
 def solve_normal(

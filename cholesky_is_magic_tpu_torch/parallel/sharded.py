@@ -32,6 +32,7 @@ by default refines against the assembled N.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -40,8 +41,9 @@ import torch.distributed as dist
 from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
+from cholesky_is_magic_tpu_torch.ops import normal
 from cholesky_is_magic_tpu_torch.ops.dd import DD
-from cholesky_is_magic_tpu_torch.utils.spans import host_bool, span
+from cholesky_is_magic_tpu_torch.utils.spans import span
 
 
 def check_mesh(mesh) -> None:
@@ -201,12 +203,7 @@ def sharded_prepare_normal(
         N = 0.5 * (N + N.T)
         if row_boost is not None:
             N = N + torch.diag(row_boost.to(N.dtype))
-    f = dense_ops.factorize(N)
-    if dbound > 0.0 and not host_bool(f.ok):
-        jitter = dbound * torch.max(torch.diagonal(N))
-        eye = torch.eye(N.shape[0], dtype=N.dtype, device=N.device)
-        f = dense_ops.factorize(N + jitter * eye)
-    L, ok = f.L, f.ok
+    L, ok = dense_ops.factorize_with_retry(N, dbound)
 
     def gram_dd(t: DD) -> DD:
         # AD·t for a dd t on this rank's block, summed over the ranks.
@@ -218,36 +215,23 @@ def sharded_prepare_normal(
             u = ddm.dd_add_w(u, row_boost.to(y.dtype) * y)
         return ddm.dd_add_w(ddm.dd_neg(u), g).to_working()
 
-    def richardson_fn(g):
-        y = dense_ops.chol_solve(L, g)
-        for _ in range(refine_steps):
-            with span("normal.refine"):
-                r = residual(y, g)
-            y = y + dense_ops.chol_solve(L, r)
-        return torch.where(ok, y, torch.zeros_like(y))
-
-    if krylov_steps == 0:
-        return richardson_fn, ok
-    from cholesky_is_magic_tpu_torch.ops import krylov
-
     def apply_n(p):
         q = sh.sum(AD @ (AD.T @ p))
         return q + row_boost * p if row_boost is not None else q
 
-    def pcg_fn(g):
-        def residual_dd(x: DD):
+    def residual_dd(g):
+        def of(x: DD):
             u = gram_dd(ddm.dd_rmatvec_dd(AD, x))
             if row_boost is not None:
                 u = ddm.dd_add(u, ddm.two_prod(row_boost, x.hi))
                 u = ddm.dd_add_w(u, row_boost * x.lo)
             return ddm.dd_add_w(ddm.dd_neg(u), g).to_working()
 
-        x = krylov.pcg_refine(
-            precond=lambda r: dense_ops.chol_solve(L, r), apply_n=apply_n,
-            residual_dd=residual_dd, b=g, iters=krylov_steps)
-        return torch.where(ok, x.to_working(), torch.zeros_like(g))
+        return of
 
-    return krylov.gated(pcg_fn, richardson_fn, krylov_gate), ok
+    return normal.refined_solve(functools.partial(dense_ops.chol_solve, L), residual, ok,
+                                refine_steps, krylov_steps, krylov_gate,
+                                (apply_n, residual_dd)), ok
 
 
 def sharded_solve_normal(
@@ -284,22 +268,10 @@ def sharded_kkt_operator(
     the same elimination the dense and sparse backends use, so tp is a
     solver mode.  Its products are the sharded ones of
     :class:`ColumnShard` (``A`` whole, or a ColumnShard)."""
-    from cholesky_is_magic_tpu_torch.kkt.newton import KKTOperator
+    from cholesky_is_magic_tpu_torch.kkt.newton import factor_once_operator
 
     sh = _shard(mesh, A)
-
-    def prepare_scaled_normal(s):
-        return sharded_prepare_normal(
-            mesh, sh, s, row_boost=row_boost, refine_steps=refine_steps,
-            dbound=dbound, krylov_steps=krylov_steps, krylov_gate=krylov_gate,
-        )
-
-    def solve_scaled_normal(s, g):
-        solve_fn, ok = prepare_scaled_normal(s)
-        return solve_fn(g), ok
-
-    return KKTOperator(
-        mv=sh.mv, rmv=sh.rmv,
-        solve_scaled_normal=solve_scaled_normal,
-        prepare_scaled_normal=prepare_scaled_normal,
-    )
+    return factor_once_operator(sh.mv, sh.rmv, functools.partial(
+        sharded_prepare_normal, mesh, sh, row_boost=row_boost,
+        refine_steps=refine_steps, dbound=dbound, krylov_steps=krylov_steps,
+        krylov_gate=krylov_gate))

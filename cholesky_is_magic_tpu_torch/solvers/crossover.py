@@ -42,6 +42,12 @@ import torch
 from cholesky_is_magic_tpu_torch.ingest.device import SparseKKTLP
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
+from cholesky_is_magic_tpu_torch.solvers.backend import (
+    check_backend,
+    dd_linops,
+    prepare_normal_backend,
+    row_boost,
+)
 from cholesky_is_magic_tpu_torch.solvers.result import SolveResult, Status
 from cholesky_is_magic_tpu_torch.utils.precision import highest_precision
 
@@ -124,48 +130,20 @@ def _mask_dd(m, v: DD) -> DD:
 
 
 def _ops_for(lp, engine):
-    """(prepare, mv_dd, rmv_dd, boost) for the operand set."""
-    if isinstance(lp, SparseKKTLP):
-        from cholesky_is_magic_tpu_torch.ops import bell
-        from cholesky_is_magic_tpu_torch.ops import sparse_ops as so
-
-        if engine is None:
-            raise ValueError("crossover on SparseKKTLP needs engine=")
-
-        def prepare(d, cfg):
-            return engine.prepare_normal_ell(
-                lp.E, lp.ET, d, lp.m,
-                refine_steps=cfg.refine_steps, dbound=cfg.dbound,
-                krylov_steps=cfg.krylov_steps, EB=lp.EB, ETB=lp.ETB,
-            )
-
-        # Block-ELL dd products when carried, the ELL pair otherwise.
-        mv_dd = ((lambda v: bell.dd_matvec_dd(lp.EB, v)) if lp.EB is not None
-                 else (lambda v: so.dd_matvec_dd(lp.E, v)))
-        rmv_dd = ((lambda v: bell.dd_matvec_dd(lp.ETB, v)) if lp.ETB is not None
-                  else (lambda v: so.dd_matvec_dd(lp.ET, v)))
-        return prepare, mv_dd, rmv_dd, torch.zeros_like(lp.b)
-
-    from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
-
-    boost = (~lp.row_mask).to(lp.A.dtype)
-    # A sparse engine of the dense A (sparse.engine_for,
-    # BlockSparseCholesky) factors B·Bᵀ by its tiles; else ops.dense.
-    factor = engine.prepare_normal if engine is not None else dense_ops.prepare_normal
+    """(prepare, mv_dd, rmv_dd, boost) for the operand set, from
+    solvers.backend: ops.dense, a dense-A engine's tiles (sparse.engine_for,
+    BlockSparseCholesky) or the tile engine of the fully sparse set."""
+    check_backend(lp, engine, None)
+    boost = row_boost(lp)
+    mv_dd, rmv_dd, _ = dd_linops(lp)
 
     def prepare(d, cfg):
-        return factor(
-            lp.A, d, row_boost=boost,
-            refine_steps=cfg.refine_steps, dbound=cfg.dbound,
+        return prepare_normal_backend(
+            lp, engine, d, boost, cfg.refine_steps, dbound=cfg.dbound,
             krylov_steps=cfg.krylov_steps,
         )
 
-    return (
-        prepare,
-        lambda v: ddm.dd_matvec_dd(lp.A, v),
-        lambda v: ddm.dd_rmatvec_dd(lp.A, v),
-        boost,
-    )
+    return prepare, mv_dd, rmv_dd, boost
 
 
 def _ir_solve(solve_fn, apply_dd, rhs: DD, steps: int) -> DD:

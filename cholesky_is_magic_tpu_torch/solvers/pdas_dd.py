@@ -12,35 +12,37 @@ Updates accumulate error-free: state <- dd(state) - t * dx.
 As in :mod:`.pdas`, the jitted ``lax.while_loop`` is an eager host loop
 with the same carry and status codes, and ``lax.cond`` (the entry repair)
 a Python branch.  ``engine=`` on a dense state (a sparse engine of its A)
-runs every factorization through :func:`..kkt.newton.sparse_kkt_operator`,
+runs every factorization through that engine (solvers.backend),
 the entry repair's too, in the single loop and in every lane of the batched
 one; Gondzio's correctors run in double-word as in the JAX package.
 ``mesh=`` runs the loop on every rank of a ('dp', 'tp') DeviceMesh: a dense
 LP held by columns over 'tp' (the double-word products as per-rank dd
 partials with hi and lo all-reduced apart, every factorization through
-``parallel.sharded_kkt_operator``), or the fully sparse engine's
+``parallel.sharded_prepare_normal``), or the fully sparse engine's
 factorizations sharded over 'tp'.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from cholesky_is_magic_tpu_torch.ingest.device import DeviceLP, SparseKKTLP
-from cholesky_is_magic_tpu_torch.kkt.newton import (
-    FILTER_THRESHOLD,
-    dense_kkt_operator,
-    ell_kkt_operator,
-    sparse_kkt_operator,
-)
+from cholesky_is_magic_tpu_torch.kkt.newton import FILTER_THRESHOLD, factor_once_operator
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops.dd import DD
 from cholesky_is_magic_tpu_torch.solvers.affine import _slack
-from cholesky_is_magic_tpu_torch.solvers.backend import check_backend, shard_for
+from cholesky_is_magic_tpu_torch.solvers.backend import (
+    check_backend,
+    dd_linops,
+    mv_rmv,
+    prepare_normal_backend,
+    shard_for,
+)
 from cholesky_is_magic_tpu_torch.solvers.pdas import (
     PDASConfig,
     PDASState,
@@ -142,33 +144,6 @@ def make_pdas_dd_sparse(
     )
 
 
-def _linops(lp):
-    """The three double-word A-products the loop needs, dispatched on the
-    operand set: dense (the CUDA double-word kernels on the card),
-    column-sharded (the same products on each rank's block, made whole by
-    all-reduces of the hi and lo words or all-gathers) or fully sparse
-    (block-ELL when carried, else the ELL pair)."""
-    if isinstance(lp, SparseKKTLP):
-        from cholesky_is_magic_tpu_torch.ops import bell
-        from cholesky_is_magic_tpu_torch.ops import sparse_ops as so
-
-        mv_dd = ((lambda x_dd: bell.dd_matvec_dd(lp.EB, x_dd))
-                 if lp.EB is not None
-                 else (lambda x_dd: so.dd_matvec_dd(lp.E, x_dd)))
-        if lp.ETB is not None:
-            return (mv_dd, lambda y_dd: bell.dd_matvec_dd(lp.ETB, y_dd),
-                    lambda v: bell.dd_matvec(lp.ETB, v))
-        return (mv_dd, lambda y_dd: so.dd_matvec_dd(lp.ET, y_dd),
-                lambda v: so.dd_matvec(lp.ET, v))
-    if not isinstance(lp, DeviceLP):  # a parallel.sharded.ShardedLP
-        return lp.shard.mv_dd, lp.shard.rmv_dd, lp.shard.rmv_w
-    return (
-        lambda x_dd: ddm.dd_matvec_dd(lp.A, x_dd),
-        lambda y_dd: ddm.dd_rmatvec_dd(lp.A, y_dd),
-        lambda v: ddm.dd_rmatvec(lp.A, v),
-    )
-
-
 def _boost(lp):
     # f32 even in an f64 run, as in the JAX package (promotes on use).
     return (~lp.row_mask).to(torch.float32)
@@ -176,39 +151,19 @@ def _boost(lp):
 
 def _make_op(lp, cfg: PDASConfig, engine, gate, per_lane: bool = False,
              mesh=None):
-    """KKT operator on the operand set: the fully sparse tile engine (its
-    factorizations sharded over ``mesh``'s 'tp' when given); a
-    column-sharded LP's tp pipeline (parallel.sharded_kkt_operator); the
-    dense one with true-residual refinement (refined against the
-    UNASSEMBLED operator in double-word, which corrects the f32 rounding
-    of assembling N; otherwise a ~1e-7 direction floor); or, with an engine
-    on a dense state, that engine refined against the unassembled operator
-    too.  ``per_lane``: a lane under ``torch.func.vmap``."""
-    if isinstance(lp, SparseKKTLP):
-        return ell_kkt_operator(
-            lp, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
-            dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
-            mesh=mesh, per_lane=per_lane,
-        )
-    if not isinstance(lp, DeviceLP):  # a parallel.sharded.ShardedLP
-        from cholesky_is_magic_tpu_torch.parallel.sharded import sharded_kkt_operator
-
-        return sharded_kkt_operator(
-            lp.mesh, lp.shard, row_boost=_boost(lp),
-            refine_steps=cfg.refine_steps, dbound=cfg.dbound,
-            krylov_steps=cfg.krylov_steps, krylov_gate=gate,
-        )
-    if engine is not None:
-        return sparse_kkt_operator(
-            lp.A, engine, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
-            dbound=cfg.dbound, krylov_steps=cfg.krylov_steps, krylov_gate=gate,
-            per_lane=per_lane,
-        )
-    return dense_kkt_operator(
-        lp.A, row_boost=_boost(lp), refine_steps=cfg.refine_steps,
-        true_residual=True, dbound=cfg.dbound,
+    """KKT operator on the operand set (solvers.backend): the fully sparse
+    tile engine (its factorizations sharded over ``mesh``'s 'tp' when
+    given); a column-sharded LP's tp pipeline; the dense one with
+    true-residual refinement (refined against the UNASSEMBLED operator in
+    double-word, which corrects the f32 rounding of assembling N;
+    otherwise a ~1e-7 direction floor); or, with an engine on a dense
+    state, that engine refined against the unassembled operator too.
+    ``per_lane``: a lane under ``torch.func.vmap``."""
+    return factor_once_operator(*mv_rmv(lp), functools.partial(
+        prepare_normal_backend, lp, engine, row_boost=_boost(lp),
+        refine_steps=cfg.refine_steps, mesh=mesh, dbound=cfg.dbound,
         krylov_steps=cfg.krylov_steps, krylov_gate=gate, per_lane=per_lane,
-    )
+        true_residual=True))
 
 
 def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
@@ -224,7 +179,7 @@ def _entry_repair(state: PDASDDState, cfg: PDASConfig, engine=None,
     Returns (state, pviol_before, pviol_after)."""
     lp = state.lp
     mask = lp.col_mask
-    mv_dd, rmv_dd, _ = _linops(lp)
+    mv_dd, rmv_dd, _ = dd_linops(lp)
     sl_dd, su_dd, *_rest, primal_dd, _dual = _dd_violation(state)
     r0 = ddm.dd_neg(primal_dd)  # b - Ax
     bscale = 1.0 + torch.max(torch.abs(lp.b))
@@ -293,7 +248,7 @@ def _dd_violation(st: PDASDDState):
     su = torch.where(mask, su_dd.to_working(), 1.0)
     wu = torch.where(mask, ddm.dd_mul(st.w, su_dd).to_working(), 0.0)
     zl = torch.where(mask, ddm.dd_mul(st.z, sl_dd).to_working(), 0.0)
-    mv_dd, rmv_dd, _ = _linops(lp)
+    mv_dd, rmv_dd, _ = dd_linops(lp)
     primal_dd = ddm.dd_add_w(mv_dd(st.x), -lp.b)
     aty = rmv_dd(st.y)
     dual_dd = ddm.dd_add_w(
@@ -406,7 +361,7 @@ def _kkt_dd(st, sl_dd, su_dd, sl, su, wu, zl, g_dd, h_dd, op, cfg, gap):
     one = DD(torch.ones_like(sl), zero)
     beta_dd = ddm.dd_div(one, denom)
 
-    mv_dd, rmv_dd, rmv32 = _linops(lp)
+    mv_dd, rmv_dd, rmv32 = dd_linops(lp)
     boost = _boost(lp)
     s32 = torch.sqrt(beta_dd.to_working())
     solve_fn, ok = op.prepare_scaled_normal(s32)

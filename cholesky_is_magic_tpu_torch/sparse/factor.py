@@ -35,10 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cholesky_is_magic_tpu_torch.ops import chol
+from cholesky_is_magic_tpu_torch.ops import chol, normal
+from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
-from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
+from cholesky_is_magic_tpu_torch.utils.spans import count, span
 
 
 class BlockSparseCholesky:
@@ -182,19 +183,15 @@ class BlockSparseCholesky:
         on the factor, per call when ``krylov_gate`` is given.
         ``per_lane``: a lane under ``torch.func.vmap`` (the retry computed
         always and selected where the first factorization failed)."""
-        from cholesky_is_magic_tpu_torch.ops.dense import unassembled_refinement
-
         n_pad = self.plan.n_padded
         m = A.shape[0]
         N = self.assemble_normal(A, d, row_boost)
-        L = self.factorize(N, per_lane)
-        ok = self._check(L)
-        if dbound > 0.0 and (per_lane or not host_bool(ok)):
-            jitter = dbound * torch.max(torch.diagonal(N))
-            eye = torch.eye(n_pad, dtype=N.dtype, device=N.device)
-            L2 = self.factorize(N + jitter * eye, per_lane)
-            ok2 = self._check(L2)
-            L, ok = (torch.where(ok, L, L2), ok | ok2) if per_lane else (L2, ok2)
+
+        def factor(shift):
+            L = self.factorize(N if shift is None else normal.shifted(N, shift), per_lane)
+            return (L,), self._check(L)
+
+        (L,), ok = normal.factor_with_retry(factor, dbound, per_lane)
         AD = A * d[None, :] if (refine_steps or krylov_steps) else None
         rows = self.slot_of[:m]
 
@@ -206,8 +203,9 @@ class BlockSparseCholesky:
                 yp = torch.linalg.solve_triangular(L.T, t, upper=True)[:, 0]
                 return yp[rows]
 
-        return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
-                                      krylov_steps, krylov_gate, per_lane), ok
+        residual, pcg = dense_ops.unassembled_operator(AD, row_boost)
+        return normal.refined_solve(raw_solve, residual, ok, refine_steps, krylov_steps,
+                                    krylov_gate, pcg, per_lane), ok
 
     def solve_normal(
         self,

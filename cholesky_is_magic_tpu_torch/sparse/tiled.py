@@ -64,6 +64,7 @@ the refinement stay replicated.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import weakref
 from typing import NamedTuple
@@ -74,10 +75,12 @@ import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import chol
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
+from cholesky_is_magic_tpu_torch.ops import krylov, normal
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.sparse import tiled_cuda
 from cholesky_is_magic_tpu_torch.sparse.symbolic import FactorPlan
-from cholesky_is_magic_tpu_torch.utils.spans import count, host_bool, span
+from cholesky_is_magic_tpu_torch.utils.spans import count, span
 
 
 def _pad2(lists, fill):
@@ -552,26 +555,27 @@ class TiledCholesky:
             z[k] = invd[k].T @ acc
         return z[:B].reshape(B * b)
 
-    def _factorize_dbound(self, tiles, dbound, per_lane: bool = False,
-                          mesh=None):
-        """factorize with the CHOLMOD-dbound singular retry: on failure,
-        refactor once with dbound·max(diag) added to the diagonal tiles.
-        ``per_lane`` (a lane under ``torch.func.vmap``): the retry is
-        computed always and selected where the first factorization failed,
-        with no host read, as the JAX ``lax.cond`` under ``jax.vmap``.
-        ``mesh``: both factorizations over its 'tp' axis."""
+    def _factor(self, tiles, shift, per_lane: bool = False, mesh=None):
+        """ops.normal.factor_with_retry's ``factor``: :meth:`factorize` of
+        ``tiles``, or with ``shift`` (the dbound retry) of a copy with
+        dbound·max(diag) added to the diagonal tiles.  ``mesh``: over its
+        'tp' axis.  Returns ((L_tiles, invdiag), ok)."""
+        if shift is not None:
+            eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
+            diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
+            tiles = tiles.clone()
+            tiles[self.diag_ids] += normal.jitter(shift, diags) * eye[None]
         L, invd, ok = self.factorize(tiles, per_lane, mesh)
-        if dbound <= 0.0 or (not per_lane and host_bool(ok)):
-            return L, invd, ok
-        eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
-        diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
-        tiles2 = tiles.clone()
-        tiles2[self.diag_ids] += dbound * torch.max(diags) * eye[None]
-        retry = self.factorize(tiles2, per_lane, mesh)
-        if not per_lane:
-            return retry
-        return (torch.where(ok, L, retry[0]), torch.where(ok, invd, retry[1]),
-                ok | retry[2])
+        return (L, invd), ok
+
+    def raw_solve(self, L, invd, r, m: int):
+        """One unrefined solve of the factored N for ``r``, a right-hand
+        side over the ``m`` original rows: padded, permuted, :meth:`solve`,
+        and taken back to the original rows."""
+        count("normal.solves")
+        with span("normal.solve"):
+            rp = F.pad(r, (0, self.B * self.b - m))[self.pperm]
+            return self.solve(L, invd, rp)[self.slot_of[:m]]
 
     # ---- the mesh (tensor-parallel) mode --------------------------------
 
@@ -652,9 +656,8 @@ class TiledCholesky:
         factors over its 'tp' axis (:meth:`assemble_pairs_tp`,
         :meth:`factorize`); the triangular solves and the refinement stay
         replicated.  Returns (solve_fn, ok)."""
-        from cholesky_is_magic_tpu_torch.ops import sparse_ops
+        from cholesky_is_magic_tpu_torch.ops import bell, sparse_ops
 
-        n_pad = self.B * self.b
         boost = row_boost if row_boost is not None else torch.zeros(
             m, dtype=d.dtype, device=d.device)
         if mesh is not None:
@@ -667,55 +670,25 @@ class TiledCholesky:
             tiles = self.assemble_pairs_tp(mesh, d, boost)
         else:
             tiles = self.assemble_pairs(d, boost, per_lane)
-        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane, mesh)
+        (L, invd), ok = normal.factor_with_retry(
+            functools.partial(self._factor, tiles, per_lane=per_lane, mesh=mesh),
+            dbound, per_lane)
         d2 = ddm.two_prod(d, d) if refine_steps else None
-        rows = self.slot_of[:m]
+        # Block-ELL dd products when both are carried, the ELL pair otherwise.
+        prod, A, AT = ((bell, EB, ETB) if EB is not None and ETB is not None
+                       else (sparse_ops, E, ET))
 
-        def raw_solve(r):
-            count("normal.solves")
-            with span("normal.solve"):
-                rp = F.pad(r, (0, n_pad - m))[self.pperm]
-                return self.solve(L, invd, rp)[rows]
+        def residual(y, g):
+            u = ddm.dd_mul(prod.dd_matvec(AT, y), d2)  # d² ∘ Aᵀ y
+            v = ddm.dd_add_w(prod.dd_matvec_dd(A, u), boost * y)
+            return ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
 
-        use_bell = EB is not None and ETB is not None
-        if use_bell:
-            from cholesky_is_magic_tpu_torch.ops import bell as bell_ops
-
-        def richardson_fn(g):
-            y = raw_solve(g)
-            for _ in range(refine_steps):
-                with span("normal.refine"):
-                    if use_bell:
-                        t = bell_ops.dd_matvec(ETB, y)  # Aᵀ y
-                        u = ddm.dd_mul(t, d2)  # d² ∘ Aᵀ y
-                        v = bell_ops.dd_matvec_dd(EB, u)  # A (d² Aᵀ y)
-                    else:
-                        t = sparse_ops.dd_matvec(ET, y)
-                        u = ddm.dd_mul(t, d2)
-                        v = sparse_ops.dd_matvec_dd(E, u)
-                    v = ddm.dd_add_w(v, boost * y)
-                    r = ddm.dd_add_w(ddm.dd_neg(v), g).to_working()
-                y = y + raw_solve(r)
-            return torch.where(ok, y, torch.zeros_like(y))
-
-        if krylov_steps > 0:
-            from cholesky_is_magic_tpu_torch.ops import krylov
-
-            def pcg_fn(g):
-                x = krylov.pcg_refine(
-                    precond=raw_solve,
-                    apply_n=krylov.ell_normal_apply(E, ET, d, boost),
-                    residual_dd=krylov.ell_residual_dd(E, ET, d, g, boost),
-                    b=g,
-                    iters=krylov_steps,
-                )
-                y = x.to_working()
-                return torch.where(ok, y, torch.zeros_like(y))
-
-            return krylov.gated(pcg_fn, richardson_fn, krylov_gate,
-                                per_lane=per_lane), ok
-
-        return richardson_fn, ok
+        pcg = (krylov.ell_normal_apply(E, ET, d, boost),
+               functools.partial(krylov.ell_residual_dd, E, ET, d, row_boost=boost)
+               ) if krylov_steps else None
+        return normal.refined_solve(functools.partial(self.raw_solve, L, invd, m=m),
+                                    residual, ok, refine_steps, krylov_steps,
+                                    krylov_gate, pcg, per_lane), ok
 
     def solve_normal_ell(self, E, ET, d, g, row_boost=None, refine_steps=0,
                          dbound: float = 0.0, krylov_steps: int = 0,
@@ -747,23 +720,14 @@ class TiledCholesky:
         own): the tile factor through its operator (one batched launch per
         panel for all the lanes), the retry and the gate selected per
         lane."""
-        from cholesky_is_magic_tpu_torch.ops.dense import unassembled_refinement
-
-        n_pad = self.B * self.b
-        m = A.shape[0]
         tiles = self.assemble(A, d, row_boost, mode=self.assemble_mode)
-        L, invd, ok = self._factorize_dbound(tiles, dbound, per_lane)
+        (L, invd), ok = normal.factor_with_retry(
+            functools.partial(self._factor, tiles, per_lane=per_lane), dbound, per_lane)
         AD = A * d[None, :] if (refine_steps or krylov_steps) else None
-        rows = self.slot_of[:m]
-
-        def raw_solve(r):
-            count("normal.solves")
-            with span("normal.solve"):
-                rp = F.pad(r, (0, n_pad - m))[self.pperm]
-                return self.solve(L, invd, rp)[rows]
-
-        return unassembled_refinement(raw_solve, AD, row_boost, ok, refine_steps,
-                                      krylov_steps, krylov_gate, per_lane), ok
+        residual, pcg = dense_ops.unassembled_operator(AD, row_boost)
+        return normal.refined_solve(functools.partial(self.raw_solve, L, invd, m=A.shape[0]),
+                                    residual, ok, refine_steps, krylov_steps,
+                                    krylov_gate, pcg, per_lane), ok
 
     def solve_normal(self, A, d, g, row_boost=None, refine_steps=0,
                      dbound: float = 0.0, krylov_steps: int = 0):
