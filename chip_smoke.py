@@ -316,6 +316,14 @@ KERNELS = {
     "tile_schur_batched": dict(name="tile_schur_f32_batched",
                                replaces="none (cholesky_is_magic_tpu/sparse/tiled.py:367)",
                                source=CSRC + "tile_schur.cu"),
+    # No TPU kernel: the JAX tile engine's triangular solves are plain jnp.
+    "tile_solve": dict(name="tile_solve_f32",
+                       replaces="none (cholesky_is_magic_tpu/sparse/tiled.py TiledCholesky.solve)",
+                       source=CSRC + "tile_solve.cu"),
+    "tile_solve_batched": dict(
+        name="tile_solve_f32_batched",
+        replaces="none (cholesky_is_magic_tpu/sparse/tiled.py TiledCholesky.solve)",
+        source=CSRC + "tile_solve.cu"),
 }
 # QAP15's widest Schur update at block 128 (sparse/symbolic.py's analysis of
 # lpbench's qap15 configuration): 34 row tiles and every pair of them, on the
@@ -1186,6 +1194,122 @@ def phase_tile_schur(chol_cuda, tiled_cuda, stats):
                                bound_by=bound1["by"])
     del L, L0, Ga, Gb, U, flush
     torch.cuda.empty_cache()
+
+
+def cell_engine(config: str, block: int):
+    """The tile engine of a benchmark configuration's A at ``block``: the
+    generator's structure (the values and the slack block move no tile)."""
+    import scipy.sparse as sp
+
+    from cholesky_is_magic_tpu_torch.sparse import tiled
+
+    with open(f"lpbench/configs/{config}.json") as fh:
+        cfg = json.load(fh)
+    if cfg["generator"] == "qap_relaxation":
+        from lpbench.gen import qap_relaxation as gen
+
+        rows, cols, vals, m, n = gen.structure(cfg["n"])
+    else:
+        from lpbench.gen import constructed_optimum as gen
+
+        base = gen.base_instance(cfg["m"], cfg["n_struct"], cfg["matrix_seed"],
+                                 cfg.get("width", 8))
+        rows, cols, vals, m, n = (base[k] for k in ("rows", "cols", "vals", "m", "n"))
+    A = sp.csc_matrix((vals, (rows, cols)), shape=(m, n))
+    return tiled.engine_for_sparse(A, block=block, device="cuda")
+
+
+def solve_operands(eng, lanes: int, seed: int):
+    """Random (L tiles, inverse tiles, right-hand sides) of ``lanes`` lanes
+    on the engine's pattern: off-diagonal entries ~ N(0, 1/(4b)²), each
+    inverse lower triangular with a unit diagonal and entries ~ N(0,
+    1/(4b)²) below, as the tile factor leaves its upper triangle zero; the
+    solution stays of the right-hand side's size through every panel."""
+    b, B = eng.b, eng.B
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L = torch.randn(lanes, eng.NT + 1, b, b, generator=g, device="cuda") / (4 * b)
+    inv = torch.tril(torch.randn(lanes, B, b, b, generator=g, device="cuda"), -1) / (4 * b)
+    inv += torch.eye(b, device="cuda")
+    rhs = torch.randn(lanes, B * b, generator=g, device="cuda")
+    return L, inv, rhs
+
+
+def phase_tile_solve(tiled_cuda, stats):
+    """The tile engine's solve kernel at both fleets' shapes: 64 lanes of
+    pds-10's engine and 32 of qap15's, block 128.  Bit for bit against
+    ``tiled_cuda.tile_solve_plain`` on three lanes (one with a NaN tile),
+    batched, through ``TiledCholesky.solve`` under vmap and on one lane
+    alone; then CUDA-event medians (the L2 cache flushed) of both passes
+    over every lane beside the plain loop it replaces (``TiledCholesky.solve``
+    under vmap with the kernel's route off: the host's launches in it) and
+    ``tile_solve_roofline``'s bound."""
+    from lpbench.drive import HERE, load
+
+    metric = load(HERE, "metrics", "tile_solve_roofline")
+    flush = torch.zeros(2 * L2_BYTES // 4, device="cuda")
+    for config, lanes in (("pds-10", 64), ("qap15", 32)):
+        t0 = time.perf_counter()
+        eng = cell_engine(config, 128)
+        analysis_s = time.perf_counter() - t0
+        L, inv, rhs = solve_operands(eng, lanes, 25)
+        fwd, bwd = (tiled_cuda.SolvePass(eng.fwd_ids, eng.fwd_j, eng.fwd_n, eng.NT - eng.B),
+                    tiled_cuda.SolvePass(eng.rows_ids, eng.rows_i, eng.rows_n, eng.NT - eng.B))
+        some = [0, lanes // 2, lanes - 1]
+        nan_tile = next(int(eng.rows_ids[k, 0]) for k in range(eng.B) if eng._n_rows[k])
+        L[some[2], nan_tile] = float("nan")
+        want = tiled_cuda.tile_solve_plain(L[some], inv[some], rhs[some], fwd, bwd)
+        _reset(tiled_cuda.LAUNCHES)
+        got = tiled_cuda._tile_solve_lanes(L, inv, rhs, fwd, bwd, "tile_solve_batched")
+        same = {"batched": _same_tiles(got[some], want)}
+        solve = lambda x, i, r: eng.solve(x, i, r)  # noqa: E731
+        same["vmap"] = _same_tiles(torch.func.vmap(solve)(L, inv, rhs)[some], want)
+        same["one lane"] = _same_tiles(eng.solve(L[0], inv[0], rhs[0]), want[0])
+        launched = dict(tiled_cuda.LAUNCHES)
+        nan_lane = bool(torch.isnan(got[some[2]]).any())
+        if not (all(same.values()) and nan_lane and launched["tile_solve"] == 2
+                and launched["tile_solve_batched"] == 4):
+            raise AssertionError(f"tile_solve {config}: bit-equal {same}, NaN lane {nan_lane},"
+                                 f" launches {launched}")
+        L[some[2]] = torch.randn_like(L[some[2]]) / (4 * 128)
+        kern = lambda: tiled_cuda._tile_solve_lanes(  # noqa: E731
+            L, inv, rhs, fwd, bwd, "tile_solve_batched")
+        kern1 = lambda: tiled_cuda._tile_solve_lanes(  # noqa: E731
+            L[:1], inv[:1], rhs[:1], fwd, bwd, "tile_solve")
+        takes = tiled_cuda.takes_tile_solve
+        tiled_cuda.takes_tile_solve = lambda *a: False
+        try:
+            plain = lambda: torch.func.vmap(solve)(L, inv, rhs)  # noqa: E731
+            pl1 = _median_ms(plain, reps=3, flush=flush)
+        finally:
+            tiled_cuda.takes_tile_solve = takes
+        k1, k2 = (_median_ms(kern, reps=10, flush=flush, lead=0.5) for _ in range(2))
+        o1 = _median_ms(kern1, reps=10, flush=flush, lead=0.2)
+        bound = [metric.bound(n, 128, eng.B, eng.NT - eng.B) for n in (lanes, 1)]
+        ms_bound = [2 * x["ms"] for x in bound]
+        share = 100 * ms_bound[0] / min(k1, k2)
+        say(f"[tile solve] {config}'s engine (analysis {analysis_s:.1f} s): B {eng.B}, NT"
+            f" {eng.NT}, {eng.NT - eng.B} off-diagonal tiles, widest step"
+            f" {max(eng._n_fwd)} / {max(eng._n_rows)} tiles, b 128, {lanes} lanes, cluster"
+            f" {tiled_cuda.tile_solve_cluster(128, lanes)} (one lane:"
+            f" {tiled_cuda.tile_solve_cluster(128, 1)}): bit-equal to tile_solve_plain on"
+            f" lanes {some} (lane {some[2]} with a NaN tile) {same}; launches {launched};"
+            f" median ms both passes {k1:.4f} {k2:.4f}  the plain loop under vmap, host"
+            f" launches in it, {pl1:.2f}  bound {ms_bound[0]:.4f} ({bound[0]['by']}),"
+            f" {share:.2f}% of it; one lane {o1:.4f}, bound {ms_bound[1]:.4f}")
+        if config == "pds-10":
+            stats["tile_solve_batched"] = dict(
+                max_abs_err=0.0, ms=min(k1, k2), plain_ms=pl1, library_ms=None,
+                bound_ms=ms_bound[0], bound_by=bound[0]["by"], roofline_pct=share)
+            stats["tile_solve"] = dict(max_abs_err=0.0, ms=o1, plain_ms=None,
+                                       library_ms=None, bound_ms=ms_bound[1],
+                                       bound_by=bound[1]["by"])
+        else:
+            stats["tile_solve_batched"]["qap15"] = dict(ms=min(k1, k2), plain_ms=pl1,
+                                                        bound_ms=ms_bound[0],
+                                                        roofline_pct=share)
+        del L, inv, rhs, got, want, eng
+        torch.cuda.empty_cache()
+    del flush
 
 
 def phase_sparse_afiro(cimt):
@@ -2217,7 +2341,8 @@ def phase_batch_sparse(cimt, counters, card, stats, sf, eng, same_sfs, same_high
         t_lap[0] = now
 
     def single_launches(launches):
-        return launches["potrf_tile"] + launches["assemble_pairs"] + launches["tile_schur"]
+        return (launches["potrf_tile"] + launches["assemble_pairs"] + launches["tile_schur"]
+                + launches["tile_solve"])
 
     _sparse_batch_kernels(eng, chol, chol_cuda, tiled_cuda, stats)
     lap("(a)")
@@ -3154,12 +3279,14 @@ def main() -> int:
     sf, info, eng = build_at_scale_engine()
     phase_assembly(eng, stats)
     phase_tile_schur(chol_cuda, tiled_cuda, stats)
+    phase_tile_solve(tiled_cuda, stats)
     phase_sparse_afiro(cimt)
     sparse_launches, rep = phase_at_scale(cimt, sf, info, counters, card)
     launches.update(potrf_tile=sparse_launches["potrf_tile"],
                     assemble_pairs=sparse_launches["assemble_pairs"],
                     bell_mv=sparse_launches["bell_mv"],
-                    tile_schur=sparse_launches["tile_schur"])
+                    tile_schur=sparse_launches["tile_schur"],
+                    tile_solve=sparse_launches["tile_solve"])
     phase_breakdown(cimt, sf, eng, rep, chol)
     phase_block256(cimt, sf, info, eng, counters, card)
     by_path = {"pdas_dd": dict(launches),

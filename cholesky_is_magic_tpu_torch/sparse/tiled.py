@@ -17,7 +17,8 @@ on the host, then per factorization
 Storage is a compact (NT+1, b, b) tile array (row NT is a dummy target of
 the padded schedules), so memory follows nnz(L) tiles, not m².  Both
 triangular solves run one gather and one batched matvec per panel, using
-the stored tile inverses.
+the stored tile inverses; on float32 CUDA tiles one kernel launch a pass
+for every lane (:func:`.tiled_cuda.tile_solve`).
 
 Where the JAX package runs ``lax.fori_loop``s over the panels, the port
 runs host loops over device tensors.  The per-panel index arrays are kept
@@ -201,6 +202,9 @@ class TiledCholesky:
         self.syrk_dst = put(_pad2(syrk_dst, DUMMY))
         self.fwd_ids = put(_pad2(fwd_ids, DUMMY))
         self.fwd_j = put(_pad2(fwd_j, B))
+        self.fwd_n, self.rows_n = put(self._n_fwd), put(self._n_rows)
+        # The tiles one lane's solve reads, the inverse tiles in halves.
+        self._solve_tiles = 2 * (self.NT - B) + B
         diag_panel = np.full(self.NT + 1, -1, np.int64)
         diag_panel[diag_ids] = np.arange(B)
         self.diag_panel = put(diag_panel)  # tile -> its panel, or -1
@@ -532,7 +536,12 @@ class TiledCholesky:
 
     def solve(self, tiles, invd, rhs):
         """Blocked forward and backward substitution with the stored tile
-        inverses: one gather + one batched matvec per panel."""
+        inverses: one gather + one batched matvec per panel.  On float32 CUDA
+        tiles of a width the kernel takes, one launch a pass instead
+        (:func:`.tiled_cuda.tile_solve`, every lane of a batched solver in
+        the same launch)."""
+        if tiled_cuda.takes_tile_solve(tiles, invd, rhs):
+            return tiled_cuda.tile_solve(self, tiles, invd, rhs)
         b, B = self.b, self.B
         r = rhs.reshape(B, b)
         y = invd.new_zeros((B + 1, b))
@@ -571,8 +580,11 @@ class TiledCholesky:
     def raw_solve(self, L, invd, r, m: int):
         """One unrefined solve of the factored N for ``r``, a right-hand
         side over the ``m`` original rows: padded, permuted, :meth:`solve`,
-        and taken back to the original rows."""
+        and taken back to the original rows.  Counts one ``normal.solves``
+        and the tiles a lane's solve reads (``normal.solve_tiles``: each
+        off-diagonal tile twice, each inverse tile's lower half twice)."""
         count("normal.solves")
+        count("normal.solve_tiles", self._solve_tiles)
         with span("normal.solve"):
             rp = F.pad(r, (0, self.B * self.b - m))[self.pperm]
             return self.solve(L, invd, rp)[self.slot_of[:m]]

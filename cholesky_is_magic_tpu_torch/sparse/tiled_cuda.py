@@ -39,6 +39,15 @@ them on float32 CUDA tiles (through the operator ``cim::tile_schur``,
 is ``ops.chol_cuda.tile_schur_fma_plain``, the kernel's own sums, which the
 wrappers run on CPU tensors.  ``LAUNCHES`` counts the kernel launches,
 single and batched apart.
+
+:func:`tile_solve` (``cim_tile_solve_f32``, ``csrc/tile_solve.cu``) runs
+``TiledCholesky.solve`` on float32 CUDA tiles: the forward and the backward
+substitution with the stored tile inverses, one launch a pass for all the
+lanes (through the operator ``cim::tile_solve``, :func:`tile_solve_op`,
+whose ``torch.func.vmap`` rule launches every lane at once).  It replaces
+no TPU kernel (the JAX engine's solve is plain jnp).  Its plain form is
+:func:`tile_solve_plain`, the kernel's own sums, which the operator runs on
+CPU tensors; each launch goes through :func:`tile_solve_pass`.
 """
 
 from __future__ import annotations
@@ -50,11 +59,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import chol_cuda, cuda_build
 
 LAUNCHES = {"assemble_pairs": 0, "assemble_pairs_batched": 0, "tile_schur": 0,
-            "tile_schur_batched": 0}
+            "tile_schur_batched": 0, "tile_solve": 0, "tile_solve_batched": 0}
 
 _SIGNATURES = {
     "cim_assemble_pairs_f32": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -62,6 +72,9 @@ _SIGNATURES = {
     "cim_assemble_pairs_f32_batched": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _I, _I, _LL, _LL, _LL, _P],
     "cim_tile_schur_f32_batched": [_P, _LL, _I, _P, _P, _P, _I, _I, _I, _P],
+    "cim_tile_solve_f32": [_P, _LL, _P, _LL, _P, _LL, _P, _I, _I, _P, _P, _P, _LL, _I, _I,
+                           _P],
+    "cim_tile_solve_cluster": [_I, _I],
 }
 
 # Lanes of one batched launch: the grid's y extent.
@@ -331,3 +344,243 @@ def tile_schur(L: torch.Tensor, a: torch.Tensor, b: torch.Tensor, dst: torch.Ten
     launch for all the lanes.  The operator's dispatch costs tens of
     microseconds a call, so the single path launches the kernel itself."""
     (tile_schur_op if per_lane else tile_schur_)(L, a, b, dst)
+
+
+# The tile widths the solve kernel takes: every multiple of 32 up to 256.
+SOLVE_BLOCKS = range(32, 257, 32)
+
+
+class SolvePass(NamedTuple):
+    """One pass's tables of an engine: per panel step the tiles (``ids``,
+    (B, width), padded), the panel of each tile's vector (``idx``) and the
+    tile count (``counts``, (B,)), int64 on the engine's device; and
+    ``tiles``, the off-diagonal tiles the pass reads a lane."""
+
+    ids: torch.Tensor
+    idx: torch.Tensor
+    counts: torch.Tensor
+    tiles: int
+
+
+def takes_tile_solve(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor) -> bool:
+    """Whether ``TiledCholesky.solve`` takes the kernel for these operands:
+    float32 on a card, tiles of a width in :data:`SOLVE_BLOCKS`."""
+    return (cuda_build.takes_kernel(L.device, L.dtype, invd.dtype, rhs.dtype)
+            and L.shape[-1] in SOLVE_BLOCKS)
+
+
+def _lanes_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (lanes, ...) as the kernel reads it: each lane row-major, the
+    lane stride (0 shares one lane) and the start on 16-byte boundaries;
+    else a row-major copy."""
+    if (x[0].is_contiguous() and x.data_ptr() % 16 == 0
+            and (x.shape[0] == 1 or x.stride(0) % 4 == 0)):
+        return x
+    return x.contiguous()
+
+
+def tile_solve_pass(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
+                    tables: SolvePass, forward: bool, key: str = "tile_solve") -> torch.Tensor:
+    """One launch of the solve kernel over the lanes of L (lanes, NT+1, b, b),
+    invd (lanes, B, b, b) and rhs (lanes, B·b), float32 on one card, any
+    lane strides: the forward substitution (``forward``) or the backward one
+    of every lane, in slot order, as a new (lanes, B·b) tensor.  ``key``
+    names the ``LAUNCHES`` counter the launch adds to."""
+    name = "tile_solve_pass"
+    if not (L.is_cuda and invd.is_cuda and rhs.is_cuda):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if len({L.device, invd.device, rhs.device, tables.ids.device}) != 1:
+        raise ValueError(f"{name}: operands on {L.device}, {invd.device}, {rhs.device}, "
+                         f"{tables.ids.device}")
+    if not L.dtype == invd.dtype == rhs.dtype == torch.float32:
+        raise TypeError(f"{name} takes float32 (got {L.dtype}, {invd.dtype}, {rhs.dtype})")
+    lanes, b = L.shape[0], L.shape[-1]
+    B = invd.shape[1] if invd.dim() == 4 else -1
+    if (L.dim() != 4 or L.shape[2] != b or invd.shape != (lanes, B, b, b)
+            or rhs.shape != (lanes, B * b) or b not in SOLVE_BLOCKS):
+        raise ValueError(f"{name}: tiles {tuple(L.shape)}, inverses {tuple(invd.shape)}, "
+                         f"right-hand sides {tuple(rhs.shape)}: (lanes, NT+1, b, b), "
+                         f"(lanes, B, b, b), (lanes, B·b), b in {list(SOLVE_BLOCKS)}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"{name}: {lanes} lanes, the kernel takes 1 to {MAX_LANES}")
+    for t in tables[:3]:
+        if t.dtype != torch.int64 or not t.is_contiguous() or t.shape[0] != B:
+            raise ValueError(f"{name}: the tables must be contiguous int64 with B = {B} rows")
+    L, invd = _lanes_ready(L), _lanes_ready(invd)
+    rhs = rhs if rhs.stride(1) == 1 else rhs.contiguous()
+    out = torch.empty((lanes, B * b), dtype=torch.float32, device=L.device)
+    stride = lambda x: x.stride(0) if lanes > 1 else 0  # noqa: E731
+    lib = cuda_build.load(_SIGNATURES)
+    cuda_build.raise_on(
+        lib.cim_tile_solve_f32(
+            L.data_ptr(), stride(L), invd.data_ptr(), stride(invd), rhs.data_ptr(),
+            stride(rhs), out.data_ptr(), b, B, tables.ids.data_ptr(),
+            tables.idx.data_ptr(), tables.counts.data_ptr(), tables.ids.shape[1], lanes,
+            int(forward), torch.cuda.current_stream(L.device).cuda_stream),
+        name)
+    LAUNCHES[key] += 1
+    return out
+
+
+def tile_solve_cluster(b: int, lanes: int) -> int:
+    """The cluster size (CTAs a lane) the solve kernel takes for ``lanes``
+    lanes of b-wide tiles on the current card (0 where it takes no such
+    b)."""
+    got = cuda_build.load(_SIGNATURES).cim_tile_solve_cluster(b, lanes)
+    if got < 0:
+        raise RuntimeError(f"tile_solve_cluster: CUDA error {-got}")
+    return got
+
+
+def _tile_solve_lanes(L, invd, rhs, fwd: SolvePass, bwd: SolvePass, key: str):
+    """Both passes over the lanes (leading axis) on the card: two launches."""
+    y = tile_solve_pass(L, invd, rhs, fwd, True, key)
+    return tile_solve_pass(L, invd, y, bwd, False, key)
+
+
+def _fma(a: torch.Tensor, c: torch.Tensor, acc: torch.Tensor, f32: bool) -> torch.Tensor:
+    """The kernel's fused multiply-add on float32 values held in float64,
+    rounded once to float32 (``f32``); else a·c + acc in float64."""
+    return chol_cuda._fma32(a, c, acc) if f32 else a * c + acc
+
+
+def _split(x: torch.Tensor, dim: int, quads: bool) -> torch.Tensor:
+    """Axis ``dim`` (of length b) of ``x`` as the kernel's partials split it,
+    padded with zeros: (U, 32, 4) with q = 128·u + 4·l + j (``quads``), or
+    (U, 32) with q = 32·u + l."""
+    dim = dim % x.dim()
+    b, width = x.shape[dim], 128 if quads else 32
+    U = -(-b // width)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, width * U - b]
+    inner = (U, 32, 4) if quads else (U, 32)
+    return F.pad(x, pad).reshape(*x.shape[:dim], *inner, *x.shape[dim + 1:])
+
+
+def _butterfly(P: torch.Tensor, dim: int, dt) -> torch.Tensor:
+    """The 32 partials along ``dim`` added as the kernel's butterfly does
+    (partial l plus partial l + 16, then l + 8, ...), in ``dt``."""
+    P = P.to(dt).movedim(dim, -1)
+    while P.shape[-1] > 1:
+        h = P.shape[-1] // 2
+        P = P[..., :h] + P[..., h:]
+    return P[..., 0]
+
+
+def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
+                     fwd: SolvePass, bwd: SolvePass) -> torch.Tensor:
+    """``TiledCholesky.solve`` as the solve kernel (``csrc/tile_solve.cu``)
+    computes it, in plain PyTorch on any device: leading axes of L (...,
+    NT+1, b, b), invd (..., B, b, b) and rhs (..., B·b) are lanes.  In
+    float32 bit for bit the kernel's sums: every dot product over a tile
+    index q split into 32 partials, partial l one chain of fused
+    multiply-adds from zero over the panel step's tiles in list order and
+    over its own q ascending (forward, a column index: q = 128·u + 4·l + j;
+    backward, a row index: q = 32·u + l), the 32 partials added by the
+    kernel's butterfly, one subtraction from the right-hand side where the
+    step has tiles; the inverse tile's product the same way over its lower
+    triangle (q <= i forward, q >= p backward).  In float64 the same order
+    with a·c + acc.  Any b (the kernel takes multiples of 32; others pad q
+    with zeros it never adds).  Slow (a host loop over panels, tiles and u): for tests and
+    the CPU route of :func:`tile_solve_op`."""
+    dt, work = L.dtype, torch.float64
+    f32 = dt == torch.float32
+    b, B = L.shape[-1], invd.shape[-3]
+    U = -(-b // 32)
+    lead = torch.broadcast_shapes(L.shape[:-3], invd.shape[:-3], rhs.shape[:-1])
+    q = (32 * torch.arange(U, device=L.device)[:, None]
+         + torch.arange(32, device=L.device)[None, :])  # (U, 32): q = 32 u + l
+    U4 = -(-b // 128)
+    q4 = (128 * torch.arange(U4, device=L.device)[:, None, None]
+          + 4 * torch.arange(32, device=L.device)[None, :, None]
+          + torch.arange(4, device=L.device)[None, None, :])  # (U4, 32, 4): q = 128 u + 4 l + j
+    rows = torch.arange(b, device=L.device)
+    r = rhs.reshape(*rhs.shape[:-1], B, b).to(dt)
+    fn, bn = fwd.counts.tolist(), bwd.counts.tolist()
+
+    y = torch.zeros(*lead, B, b, dtype=dt, device=L.device)
+    for k in range(B):
+        if fn[k]:
+            P = torch.zeros(*lead, b, 32, dtype=work, device=L.device)
+            for t in range(fn[k]):
+                Lt = _split(L[..., int(fwd.ids[k, t]), :, :].to(work), -1, True)  # (.., i, u, l, j)
+                vt = _split(y[..., int(fwd.idx[k, t]), :].to(work), -1, True)  # (.., u, l, j)
+                for u in range(U4):
+                    for j in range(4):
+                        P = torch.where(q4[u, :, j] < b, _fma(
+                            Lt[..., :, u, :, j], vt[..., None, u, :, j], P, f32), P)
+            acc = r[..., k, :] - _butterfly(P, -1, dt)
+        else:
+            acc = r[..., k, :].expand(*lead, b)
+        Ik = _split(invd[..., k, :, :].to(work), -1, True)
+        a = _split(acc.to(work), -1, True)
+        P = torch.zeros(*lead, b, 32, dtype=work, device=L.device)
+        for u in range(U4):
+            for j in range(4):
+                keep = (q4[u, :, j][None, :] <= rows[:, None]) & (q4[u, :, j][None, :] < b)
+                P = torch.where(keep, _fma(Ik[..., :, u, :, j], a[..., None, u, :, j], P, f32), P)
+        y[..., k, :] = _butterfly(P, -1, dt)
+
+    z = torch.zeros(*lead, B, b, dtype=dt, device=L.device)
+    for k in range(B - 1, -1, -1):
+        if bn[k]:
+            P = torch.zeros(*lead, 32, b, dtype=work, device=L.device)
+            for t in range(bn[k]):
+                Lt = _split(L[..., int(bwd.ids[k, t]), :, :].to(work), -2, False)  # (.., u, l, p)
+                vt = _split(z[..., int(bwd.idx[k, t]), :].to(work), -1, False)  # (.., u, l)
+                for u in range(U):
+                    keep = (q[u] < b)[:, None]
+                    P = torch.where(keep, _fma(Lt[..., u, :, :], vt[..., u, :, None], P, f32), P)
+            acc = y[..., k, :] - _butterfly(P, -2, dt)
+        else:
+            acc = y[..., k, :]
+        Ik = _split(invd[..., k, :, :].to(work), -2, False)  # (.., u, l, p): row q, column p
+        a = _split(acc.to(work), -1, False)
+        P = torch.zeros(*lead, 32, b, dtype=work, device=L.device)
+        for u in range(U):
+            keep = (q[u][:, None] >= rows[None, :]) & (q[u] < b)[:, None]
+            P = torch.where(keep, _fma(Ik[..., u, :, :], a[..., u, :, None], P, f32), P)
+        z[..., k, :] = _butterfly(P, -2, dt)
+    return z.reshape(*lead, B * b)
+
+
+@torch.library.custom_op("cim::tile_solve", mutates_args=())
+def tile_solve_op(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
+                  fwd_ids: torch.Tensor, fwd_j: torch.Tensor, fwd_n: torch.Tensor,
+                  rows_ids: torch.Tensor, rows_i: torch.Tensor, rows_n: torch.Tensor,
+                  tiles: int) -> torch.Tensor:
+    """``TiledCholesky.solve`` of one lane by the kernel, two launches
+    (:func:`tile_solve_plain` on CPU tensors), as an operator: under
+    ``torch.func.vmap`` (any of L, invd and rhs batched, the tables shared)
+    two launches for the whole batch."""
+    fwd = SolvePass(fwd_ids, fwd_j, fwd_n, tiles)
+    bwd = SolvePass(rows_ids, rows_i, rows_n, tiles)
+    if not L.is_cuda:
+        return tile_solve_plain(L, invd, rhs, fwd, bwd)
+    return _tile_solve_lanes(L[None], invd[None], rhs[None], fwd, bwd, "tile_solve")[0]
+
+
+@tile_solve_op.register_fake
+def _(L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles):
+    return rhs.new_empty(rhs.shape)
+
+
+@tile_solve_op.register_vmap
+def _(info, in_dims, L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles):
+    if any(d is not None for d in in_dims[3:]):
+        raise ValueError(f"cim::tile_solve under vmap takes shared tables (in_dims {in_dims})")
+    n = info.batch_size
+    L, invd, rhs = (x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
+                    for x, d in zip((L, invd, rhs), in_dims[:3]))
+    fwd = SolvePass(fwd_ids, fwd_j, fwd_n, tiles)
+    bwd = SolvePass(rows_ids, rows_i, rows_n, tiles)
+    if not L.is_cuda:
+        return tile_solve_plain(L, invd, rhs, fwd, bwd), 0
+    return _tile_solve_lanes(L, invd, rhs, fwd, bwd, "tile_solve_batched"), 0
+
+
+def tile_solve(eng, L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """``TiledCholesky.solve`` of the engine ``eng`` through
+    :func:`tile_solve_op`: one lane (two launches) or, inside a lane of a
+    batched solver, every lane at once (two launches)."""
+    return tile_solve_op(L, invd, rhs, eng.fwd_ids, eng.fwd_j, eng.fwd_n, eng.rows_ids,
+                         eng.rows_i, eng.rows_n, eng.NT - eng.B)

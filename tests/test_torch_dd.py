@@ -189,7 +189,8 @@ def test_nvcc_found_through_cuda_home(monkeypatch, tmp_path):
 def test_library_is_keyed_by_the_sources(monkeypatch, tmp_path):
     real = cuda_build.sources()
     assert [p.name for p in real] == ["assemble_pairs.cu", "bell_dd.cu",
-                                      "dd_matvec.cu", "potrf.cu", "tile_schur.cu"]
+                                      "dd_matvec.cu", "potrf.cu", "tile_schur.cu",
+                                      "tile_solve.cu"]
     path = cuda_build.library_path()
     assert path.parent == cuda_build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "cim_torch_kernels")
