@@ -14,6 +14,9 @@ for the card (CSR) is later work.
 
 :func:`from_coo` returns ``None`` when the blocked footprint exceeds its
 byte gates; the callers then keep the plain ELL products (ops.sparse_ops).
+It can hold long rows apart (``apart_rows``, an ``ops.sparse_ops.RowsApart``,
+a dense block of them, as ``sparse_ops.from_coo`` does), so that they
+neither set ``kb`` nor trip the gates; the products add them back.
 
 :func:`dd_matvec` on float32 CUDA operands launches the hand-written
 kernel of :mod:`.bell_cuda` (``csrc/bell_dd.cu``), which keeps the plain
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
+from cholesky_is_magic_tpu_torch.ops import sparse_ops
 from cholesky_is_magic_tpu_torch.ops.cuda_build import takes_kernel
 from cholesky_is_magic_tpu_torch.utils.spans import span
 
@@ -49,6 +53,7 @@ class BellMatrix:
     # host; 0: not counted.  Not part of the structure: ``utils.lanes``
     # stacks matrices of one pattern whatever their counts.
     nnz: int = dataclasses.field(default=0, compare=False)
+    apart: "sparse_ops.RowsApart | None" = None  # rows held apart, or None
 
     @property
     def shape(self):
@@ -68,12 +73,16 @@ def from_coo(
     max_bytes: int = 256 * 1024 * 1024,
     max_dense_frac: float = 1.0,
     device="cuda",
+    apart_rows=None,
 ) -> BellMatrix | None:
     """Build a BellMatrix from COO triplets on the host (duplicates summed).
 
     Returns ``None`` when the blocked footprint exceeds ``max_bytes`` or
     ``max_dense_frac`` of the dense (m x n) bytes — the caller's signal to
-    stay on plain ELL.  The same gates as the JAX package."""
+    stay on plain ELL.  The same gates as the JAX package.  ``apart_rows``:
+    rows held apart, as ``sparse_ops.from_coo`` holds them."""
+    (rows, cols, vals), apart = sparse_ops.rows_apart(rows, cols, vals, shape,
+                                                      apart_rows, dtype, device)
     m, n = shape
     if m == 0 or len(vals) == 0:
         return None
@@ -124,6 +133,7 @@ def from_coo(
         n_rows=m,
         n_cols=n,
         nnz=int(np.count_nonzero(vals)),
+        apart=apart,
     )
 
 
@@ -137,8 +147,8 @@ def _gather_x(B: BellMatrix, x: torch.Tensor) -> torch.Tensor:
 @span("ops.bell.matvec")
 def matvec(B: BellMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x via whole-tile gathers + per-tile dense products."""
-    y = torch.einsum("rkij,rkj->ri", B.blocks, _gather_x(B, x))
-    return y.reshape(-1)[: B.n_rows]
+    y = torch.einsum("rkij,rkj->ri", B.blocks, _gather_x(B, x)).reshape(-1)[: B.n_rows]
+    return y if B.apart is None else B.apart.matvec(y, x)
 
 
 @span("ops.bell.dd_matvec")
@@ -149,12 +159,15 @@ def dd_matvec(B: BellMatrix, x: torch.Tensor) -> ddm.DD:
     Float32 CUDA operands go to the hand-written kernel through its operator
     (:func:`.bell_cuda.bell_dd_mv_op`: one launch, under ``torch.func.vmap``
     one for the whole batch), bit-equal to the plain form; a CPU tensor, or
-    another dtype on the card, to :func:`_dd_matvec_plain`."""
+    another dtype on the card, to :func:`_dd_matvec_plain`.  Rows held
+    apart come from the dense double-word product of their block."""
     if takes_kernel(x.device, B.blocks.dtype, x.dtype):
         from cholesky_is_magic_tpu_torch.ops import bell_cuda
 
-        return ddm.DD(*bell_cuda.bell_dd_mv_op(B.blocks, B.bcols, x, B.n_rows, B.nnz))
-    return _dd_matvec_plain(B, x)
+        y = ddm.DD(*bell_cuda.bell_dd_mv_op(B.blocks, B.bcols, x, B.n_rows, B.nnz))
+    else:
+        y = _dd_matvec_plain(B, x)
+    return y if B.apart is None else B.apart.dd_matvec(y, x)
 
 
 def _dd_matvec_plain(B: BellMatrix, x: torch.Tensor) -> ddm.DD:

@@ -119,18 +119,19 @@ def _factor_tile_plain(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _factor_tile(T: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(L, L⁻¹) of the (b, b) tile T as new tensors: the tile kernel on a
-    float32 CUDA tensor (b <= 128), :func:`_factor_tile_plain` otherwise."""
+    """(L, L⁻¹) of the (b, b) tile T, or of each tile of a (G, b, b) stack,
+    as new tensors: the tile kernel on a float32 CUDA tensor (b <= 128; a
+    stack in one launch), :func:`_factor_tile_plain` otherwise."""
     if takes_kernel(T.device, T.dtype):
-        return chol_cuda.potrf_tile(T)
+        return (chol_cuda.potrf_tile if T.dim() == 2 else chol_cuda.potrf_tile_batched)(T)
     return _factor_tile_plain(T)
 
 
 # :func:`_factor_tile` as the operator ``cim::factor_tile``: under
 # ``torch.func.vmap`` one launch of the batched tile kernel for the whole
-# batch (the plain form on the stack off the card).  Only a lane needs it:
-# the operator's dispatch costs tens of microseconds a call, so the single
-# path launches the kernel itself (:func:`factor_tile_`).
+# batch, a lane's stack of tiles included (the plain form on the stack off
+# the card).  The operator's dispatch costs tens of microseconds a call, so
+# the single path of one tile launches the kernel itself (:func:`factor_tile_`).
 factor_tile_op = torch.library.custom_op("cim::factor_tile", mutates_args=())(
     _factor_tile)
 
@@ -147,7 +148,8 @@ def _(info, in_dims, T):
     if takes_kernel(T.device, T.dtype):
         if T.stride(-1) != 1:
             T = T.contiguous()
-        return chol_cuda.potrf_tile_batched(T), (0, 0)
+        L, X = chol_cuda.potrf_tile_batched(T.reshape(-1, *T.shape[-2:]))
+        return (L.reshape(T.shape), X.reshape(T.shape)), (0, 0)
     return _factor_tile_plain(T), (0, 0)
 
 

@@ -341,6 +341,9 @@ def _column_norms(lp) -> np.ndarray:
     if isinstance(lp, SparseKKTLP):
         vals = _to_host(lp.ET.values).astype(np.float64)  # row i of ET = col i of A
         nrm = np.sqrt((vals * vals).sum(axis=1))
+        if lp.ET.apart is not None:  # the dense columns, held apart
+            held = _to_host(lp.ET.apart.A).astype(np.float64)
+            nrm[_to_host(lp.ET.apart.rows)] = np.sqrt((held * held).sum(axis=1))
     else:
         nrm = np.linalg.norm(_to_host(lp.A).astype(np.float64), axis=0)
     return np.maximum(nrm, 1e-30)

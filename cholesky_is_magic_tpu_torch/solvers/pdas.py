@@ -228,7 +228,10 @@ def make_pdas_sparse(
     (m, n) operand is ever built.  Pass the engine to pdas(..., engine=...)
     / pdas_dd(..., engine=...).  ``engine`` reuses the engine of an LP with
     the SAME constraint matrix (its schedule bakes the pair weights), so
-    only b, c, l and u may differ; a mismatch is not detected."""
+    only b, c, l and u may differ; a mismatch is not detected.  The columns
+    the engine sets apart from N (``engine.plan.dense_cols``) are held apart
+    from Aᵀ's ELL and block-ELL forms too (their rows there), so that their
+    length sets neither form's width; A's forms keep them."""
     import scipy.sparse as sp
 
     from cholesky_is_magic_tpu_torch.ingest.standard_form import scale_constraints
@@ -245,10 +248,11 @@ def make_pdas_sparse(
         engine = engine_for_sparse(A, block=block, snode_align=snode_align,
                                    dtype=dtype, device=device)
     kw = dict(dtype=dtype, device=device)
+    apart = dict(apart_rows=engine.plan.dense_cols)
     E = sparse_ops.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), **kw)
-    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw)
+    ET = sparse_ops.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw, **apart)
     EB = bell.from_coo(sf.a_rows, sf.a_cols, vals, (m, n), **kw)
-    ETB = bell.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw)
+    ETB = bell.from_coo(sf.a_cols, sf.a_rows, vals, (n, m), **kw, **apart)
 
     # Clamp/widen + primal/dual init, identical to make_pdas, host-side in
     # f64 before the dtype cast.

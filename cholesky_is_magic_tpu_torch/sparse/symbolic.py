@@ -10,10 +10,14 @@ and reuses the symbolic factor every iteration, affine-scaling.lisp:271):
 - :func:`postorder` — DFS postorder of the etree;
 - :func:`column_counts` — exact per-column L counts via row-subtree walks;
 - :func:`supernodes` — fundamental supernodes + relaxed amalgamation;
-- :func:`analyze` — everything above for the IPM normal matrix N = A·Aᵀ,
-  plus the static 128-tile block-nonzero map the device factorization
-  schedules against, and the nnz/flop report the reference prints at solver
-  start (affine-scaling.lisp:273-279 via wrapper.c accessors).
+- :func:`dense_columns` — the columns of A long enough to be set apart
+  from N (Andersen, ACM TOMS 22(3), 1996): the engine adds them back as a
+  low-rank correction;
+- :func:`analyze` — everything above for the IPM normal matrix N = A·Aᵀ
+  (or N_s, A's other columns only, where columns are set apart), plus the
+  static 128-tile block-nonzero map the device factorization schedules
+  against, and the nnz/flop report the reference prints at solver start
+  (affine-scaling.lisp:273-279 via wrapper.c accessors).
 
 Pure numpy/scipy graph work; a C++ native fast path for large patterns
 lives in native/symbolic.cpp (see sparse.native).
@@ -35,6 +39,31 @@ def normal_pattern(A: sp.spmatrix) -> sp.csc_matrix:
     N = (Ab @ Ab.T).tocsc()
     N.data = np.ones_like(N.data)
     return N
+
+
+DENSE_SQRT_M, DENSE_MEDIAN = 10.0, 10.0
+
+
+def dense_columns(A: sp.spmatrix) -> np.ndarray:
+    """The dense columns of A, ascending: those with more entries than
+    max(10·sqrt(m), 10·median column count).
+
+    A column of c entries puts a clique of c rows into N = A·D²·Aᵀ, and
+    elimination joins such cliques into a dense trailing block; in the padded
+    ELL form of Aᵀ it sets every row's slot count.  Interior-point codes set
+    such columns apart and add them back as a rank-k update (Andersen 1996).
+    The threshold is CHOLMOD's dense-row test (10·sqrt(m), AMD's default
+    ``dense`` parameter) against m, and ten times the median against the
+    LP's own column lengths, so that a column is set apart only where it is
+    long both absolutely and for its LP.  The rule selects nothing in a
+    matrix of at most 100 rows (10·sqrt(m) >= m there)."""
+    C = sp.csc_matrix(A)
+    m = C.shape[0]
+    lengths = np.diff(C.indptr)
+    if lengths.size == 0:
+        return np.zeros(0, np.int64)
+    limit = max(DENSE_SQRT_M * np.sqrt(m), DENSE_MEDIAN * float(np.median(lengths)))
+    return np.flatnonzero(lengths > limit).astype(np.int64)
 
 
 def amd_order(N: sp.spmatrix, use_native: bool = True) -> np.ndarray:
@@ -230,9 +259,10 @@ def supernodes(parent: np.ndarray, counts: np.ndarray, relax: int = 8) -> list[t
     return snodes
 
 
-def pack_supernodes(snodes: list, block: int) -> tuple[np.ndarray, int]:
+def pack_supernodes(snodes: list, block: int, parent=None) -> tuple[np.ndarray, int]:
     """Assign each (postordered) column a slot so no supernode straddles a
-    ``block``-wide panel boundary.
+    ``block``-wide panel boundary; with ``parent`` (the postordered
+    elimination forest), no tree of it that fits in a panel either.
 
     Whole supernodes are packed greedily into panels; a supernode that
     would straddle starts a fresh panel (leaving inert gap slots), and
@@ -245,14 +275,29 @@ def pack_supernodes(snodes: list, block: int) -> tuple[np.ndarray, int]:
     (sparse-cholesky.lisp:24,265 toggles supernodal mode): panel boundaries
     follow the structure instead of a fixed grid, so independent
     subproblems stop densifying shared tiles.
+
+    ``parent`` is passed where dense columns were set apart (:func:`analyze`):
+    N_s is then a forest of the blocks they coupled, and a tree cut by a
+    panel boundary puts a tile below the diagonal, with its TRSM and Schur
+    update, between panels that are otherwise independent.  Without it the
+    packing is the JAX package's.
     """
     n = snodes[-1][1] if snodes else 0
     slots = np.empty(n, dtype=np.int64)
+    tree_end = None
+    if parent is not None:
+        # In postorder each tree is a contiguous range ending at its root.
+        roots = np.flatnonzero(np.asarray(parent) == -1)
+        tree_end = np.repeat(roots + 1, np.diff(np.concatenate([[0], roots + 1])))
     cur = 0
     for s, e in snodes:
         w = e - s
+        if tree_end is not None and (s == 0 or tree_end[s - 1] == s) \
+                and tree_end[s] - s <= block:
+            w = max(w, int(tree_end[s]) - s)  # a tree that fits stays in one panel
         if w > block - (cur % block) and (cur % block) != 0:
             cur += block - cur % block  # start a fresh panel
+        w = e - s
         while w > block:
             slots[s : s + block] = np.arange(cur, cur + block)
             cur += block
@@ -311,6 +356,10 @@ class FactorPlan:
     # column, and the block mask on the slot grid.  None when not computed.
     slots: Optional[np.ndarray] = None
     slot_mask: Optional[np.ndarray] = None
+    # Columns of A set apart from N (ascending; :func:`dense_columns`): the
+    # plan is N_s's, A's other columns only.
+    dense_cols: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int64))
 
     @property
     def n_padded(self) -> int:
@@ -325,6 +374,7 @@ class FactorPlan:
             "supernodes": len(self.snodes),
             "nonzero_tiles": int(self.block_mask.sum()),
             "total_tiles": int(B * (B + 1) // 2),
+            "dense_cols": int(len(self.dense_cols)),
         }
         if self.slot_mask is not None:
             Bs = self.slot_mask.shape[0]
@@ -338,13 +388,26 @@ def analyze(
     block: int = 128,
     order: bool = True,
     use_native: bool = True,
+    dense: bool = False,
 ) -> FactorPlan:
     """Full symbolic analysis of the normal matrix N = A·Aᵀ.
 
     The block_mask marks which (row-tile, col-tile) pairs of L can hold
     nonzeros: the device factorization executes exactly those tile
     operations and skips the rest — dynamic sparsity decided entirely at
-    ingest (SURVEY.md §7 "Hard parts": all structure static)."""
+    ingest (SURVEY.md §7 "Hard parts": all structure static).
+
+    ``dense``: the columns :func:`dense_columns` picks are set apart (the
+    fully sparse engine; the dense-A engines assemble N from every column).
+    The plan is then N_s's, of A's other columns, and records them in
+    ``dense_cols``; with none set apart it is the plan of N."""
+    dense_cols = dense_columns(A) if dense else np.zeros(0, np.int64)
+    if len(dense_cols):
+        C = sp.csc_matrix(A, copy=True)
+        keep = np.ones(C.shape[1], np.float64)
+        keep[dense_cols] = 0.0
+        A = C @ sp.diags(keep)
+        A.eliminate_zeros()
     Np = normal_pattern(A)
     m = Np.shape[0]
     if order:
@@ -408,7 +471,7 @@ def analyze(
             block_mask[bi, bi] = True
             for j in struct:
                 block_mask[bi, j // block] = True
-    slots, slot_B = pack_supernodes(snodes, block)
+    slots, slot_B = pack_supernodes(snodes, block, parent if len(dense_cols) else None)
     slot_mask = _slot_block_mask(
         C, parent, block, slots, slot_B, use_native=use_native
     )
@@ -427,4 +490,5 @@ def analyze(
         flops=flops,
         slots=slots,
         slot_mask=slot_mask,
+        dense_cols=dense_cols,
     )

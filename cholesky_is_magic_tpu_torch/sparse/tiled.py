@@ -53,6 +53,24 @@ unassembled operator through the double-word A·x and Aᵀ·x (the dd kernels
 on the card).  They run inside a lane too (``per_lane``: a batch of dense
 states whose lanes share A's pattern, each assembling from its own A).
 
+Dense columns (the fully sparse entry point, Andersen, ACM TOMS 22(3),
+1996): ``engine_for_sparse`` sets apart the k columns of A that
+``symbolic.dense_columns`` picks, so that the plan, the pair schedule and
+the panel loop are N_s's, of A's other columns, and N = N_s + A_d·Δ·A_dᵀ
+(Δ = D² on the dense columns).  With N_s = L·Lᵀ, N = L·(I + P·Δ·Pᵀ)·Lᵀ
+for P = L⁻¹·A_d: after each factorization of N_s the engine forms P (one
+forward substitution a column, each for every lane at once), its QR
+factors P = T·Q (Cholesky QR twice over, in float64), and the Cholesky
+factor of the k × k M = I + Tᵀ·Δ·T; each raw solve then runs the forward
+substitution, applies (I + P·Δ·Pᵀ)⁻¹ (M⁻¹ on Q's span, the identity on its
+complement, the projection taken twice) and runs the backward one.  This is
+the product-form idea of Goldfarb & Scheinberg (Math. Program. 99, 2004):
+the Sherman–Morrison–Woodbury form N_s⁻¹ − W·S⁻¹·Wᵀ subtracts two terms of
+order Δ and loses what the refinement needs once δ·u·‖A_d‖² nears 1 (u the
+unit roundoff), while in the factor's coordinates Δ acts on Q's span alone
+and an error off it is not multiplied.  The refinement runs against the
+whole operator, dense columns included.
+
 The mesh (tensor-parallel) mode of the fully sparse path
 (``prepare_normal_ell(mesh=...)``, JAX ``sparse/tiled.py:541-706``): every
 rank of the mesh's 'tp' group assembles its contiguous slab of the sorted
@@ -74,7 +92,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cholesky_is_magic_tpu_torch.ops import chol
+from cholesky_is_magic_tpu_torch.ops import chol, chol_cuda
 from cholesky_is_magic_tpu_torch.ops import dd as ddm
 from cholesky_is_magic_tpu_torch.ops import dense as dense_ops
 from cholesky_is_magic_tpu_torch.ops import krylov, normal
@@ -97,15 +115,17 @@ def engine_for_sparse(A_host, block: int = 128, snode_align: bool = True,
                       dtype=None, device="cuda") -> "TiledCholesky":
     """Analyse-once engine on ``device`` with the O(nnz) pair schedule
     attached: the fully sparse entry point, no dense A anywhere.
-    ``A_host`` is anything scipy.sparse converts to CSC."""
+    ``A_host`` is anything scipy.sparse converts to CSC.  The columns
+    ``symbolic.dense_columns`` picks are set apart from N (the module
+    docstring)."""
     import scipy.sparse as sp
 
     from cholesky_is_magic_tpu_torch.sparse.symbolic import analyze
 
     with span("setup.analysis"):
         A_csc = sp.csc_matrix(A_host)
-        eng = TiledCholesky(analyze(A_csc, block=block), snode_align=snode_align,
-                            device=device)
+        eng = TiledCholesky(analyze(A_csc, block=block, dense=True),
+                            snode_align=snode_align, device=device)
         eng.build_ell_assembly(A_csc, dtype=dtype or torch.float32)
         return eng
 
@@ -192,6 +212,16 @@ class TiledCholesky:
         self._n_fwd = [len(x) for x in fwd_ids]
         self._trsm_tiles, self._schur_products = sum(self._n_rows), sum(self._n_syrk)
         self._diag_ids_np = np.asarray(diag_ids, np.int64)
+        # Runs of panels (k0, k) whose panels before k have no TRSM tiles and
+        # no Schur pairs: they change no tile, so every diagonal tile of the
+        # run is final once the run starts, and the run's tiles factor in one
+        # launch (N_s's forest where columns are set apart is one run).  The
+        # tile kernel takes b <= chol_cuda.BLOCK; wider tiles go one by one.
+        self._panel_runs, k0 = [], 0
+        for k in range(B):
+            if self._n_rows[k] or self._n_syrk[k] or k == B - 1 or b > chol_cuda.BLOCK:
+                self._panel_runs.append((k0, k))
+                k0 = k + 1
 
         put = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=self.device)  # noqa: E731
         self.diag_ids = put(diag_ids)
@@ -251,6 +281,11 @@ class TiledCholesky:
         self._slot_of_np = slot_of
         self.pperm = put(pperm)
         self.slot_of = put(slot_of)  # row -> its slot
+        # Columns set apart from N (plan.dense_cols); their values come with
+        # the pair schedule (build_ell_assembly).
+        self.n_dense = int(len(plan.dense_cols))
+        self.dense_cols = put(plan.dense_cols)
+        self.dense_A_slot = None  # (k, B·b): A's dense columns, in slot order
 
     # ---- pair-schedule assembly -----------------------------------------
 
@@ -263,7 +298,8 @@ class TiledCholesky:
         tiles, sorted by destination.  The enumeration runs in C++ when
         native/symbolic.cpp is available, with this Python loop as the
         fallback.  The run offsets of equal destinations are recorded
-        too."""
+        too.  Columns the plan sets apart have no pairs; their values are
+        kept as the rows of ``dense_A_slot``, (k, B·b) in the slot order."""
         import scipy.sparse as sp
 
         from cholesky_is_magic_tpu_torch.sparse import native
@@ -272,6 +308,17 @@ class TiledCholesky:
             dtype = torch.float32
         A_csc = sp.csc_matrix(A_host)
         A_csc.sort_indices()
+        if self.n_dense:
+            cols = self.plan.dense_cols
+            dense_A = np.zeros((self.n_dense, self.B * self.b))
+            dense_A[:, :self.plan.n] = A_csc[:, cols].T.toarray()
+            self.dense_A_slot = torch.as_tensor(dense_A[:, self.pperm.cpu().numpy()],
+                                                device=self.device).to(dtype)
+            keep = np.ones(A_csc.shape[1])
+            keep[cols] = 0.0
+            A_csc = sp.csc_matrix(A_csc @ sp.diags(keep))
+            A_csc.eliminate_zeros()
+            A_csc.sort_indices()
         b, B = self.b, self.B
         slot_of = self._slot_of_np
         tilemap = np.full((B, B), -1, np.int64)
@@ -470,12 +517,14 @@ class TiledCholesky:
 
     # ---- factor and solve -----------------------------------------------
 
-    def factorize(self, tiles, per_lane: bool = False, mesh=None):
+    def factorize(self, tiles, per_lane: bool = False, mesh=None, d=None):
         """One host loop over the panels; per panel one tile factor +
         inverse, one batched TRSM, and the Schur update of the panel's SYRK
-        pairs.  On float32 CUDA tiles that update is one launch of the
-        hand-written kernel (:func:`.tiled_cuda.tile_schur`), in place on L,
-        nothing gathered or scattered; otherwise (CPU tensors, another dtype,
+        pairs (a run of panels that update nothing before its last one
+        factors its tiles in one launch: ``_panel_runs``).  On float32 CUDA
+        tiles the Schur update is one launch of the hand-written kernel
+        (:func:`.tiled_cuda.tile_schur`), in place on L, nothing gathered or
+        scattered; otherwise (CPU tensors, another dtype,
         ``mesh``) one batched SYRK of the gathered tiles + one ``index_add_``.
         Leaves ``tiles`` as it is.  ``per_lane`` (a lane under
         ``torch.func.vmap``): the tile factor and the Schur kernel through
@@ -491,7 +540,11 @@ class TiledCholesky:
         (bit for bit at tp = 1).  Spans ``factorize.tile``,
         ``factorize.trsm`` and ``factorize.schur`` hold each panel's three
         steps; the counters add one lane's TRSM tiles and Schur-update tile
-        products.  Returns (L_tiles, invdiag, ok)."""
+        products.  Returns (L_tiles, invdiag, ok).  ``d`` (the column
+        scaling, where the engine sets columns apart): ``tiles`` are N_s's,
+        and the dense columns' stage follows in the same span
+        (:meth:`_dense_factor`); returns (L_tiles, invdiag, ok, Q, M_L), ok
+        false where either part failed."""
         count("normal.factorizations")
         count("normal.trsm_tiles", self._trsm_tiles)
         count("normal.schur_products", self._schur_products)
@@ -505,9 +558,13 @@ class TiledCholesky:
 
                 group = mesh.get_group("tp")
                 ntp, rank = dist.get_world_size(group), mesh.get_local_rank("tp")
-            for k in range(self.B):
+            for k0, k in self._panel_runs:
                 with span("factorize.tile"):
-                    chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
+                    if k0 == k:
+                        chol.factor_tile_(L[int(self._diag_ids_np[k])], invd[k], per_lane)
+                    else:
+                        ids = self.diag_ids[k0:k + 1]
+                        L[ids], invd[k0:k + 1] = chol.factor_tile_op(L[ids])
                 nr = self._n_rows[k]
                 if nr:
                     with span("factorize.trsm"):
@@ -532,20 +589,55 @@ class TiledCholesky:
                         L.index_add_(0, self.syrk_dst[k, :ns], U, alpha=-1)
             diags = torch.diagonal(L[self.diag_ids], dim1=1, dim2=2)
             ok = torch.all(torch.isfinite(L)) & torch.all(diags > 0)
-            return L, invd, ok
+            if d is None or not self.n_dense:
+                return L, invd, ok
+            Q, ML, ok_d = self._dense_factor(L, invd, d)
+            return L, invd, ok & ok_d, Q, ML
 
-    def solve(self, tiles, invd, rhs):
+    def _dense_factor(self, L, invd, d):
+        """The dense columns' part of a factorization (the module
+        docstring), in span ``normal.dense_cols``: P = L⁻¹·A_d, one forward
+        substitution a column (every lane in the same launch), in the slot
+        order; P = T·Q with Q's rows orthonormal, by Cholesky QR run twice in
+        float64 (Q orthonormal to float32's roundoff while cond(P) stays
+        under about 1e7); and the Cholesky factor of the k × k
+        M = I + Tᵀ·diag(δ)·T in float64, δ = d² on the columns.  Counts the
+        columns (``normal.dense_cols``) and the right-hand sides solved
+        (``normal.dense_col_rhs``).  Returns (Q as (k, B·b), M_L, ok)."""
+        k = self.n_dense
+        count("normal.dense_cols", k)
+        count("normal.dense_col_rhs", k)
+        with span("normal.dense_cols"):
+            A_slot = self.dense_A_slot.to(L.dtype)
+            P = torch.stack([self.solve(L, invd, A_slot[j], passes=1) for j in range(k)])
+            Q, T, ok = P.double(), None, torch.all(torch.isfinite(P))
+            for _ in range(2):
+                G, info = torch.linalg.cholesky_ex(torch.matmul(Q, Q.T))
+                Q = torch.linalg.solve_triangular(G, Q, upper=False)
+                T = G if T is None else torch.matmul(T, G)
+                ok = ok & (info == 0)
+            delta = d[self.dense_cols].double() ** 2
+            M = torch.eye(k, dtype=T.dtype, device=T.device) + torch.matmul(
+                T.T * delta, T)
+            ML, info = torch.linalg.cholesky_ex(M)
+            return Q.to(L.dtype), ML, ok & (info == 0)
+
+    def solve(self, tiles, invd, rhs, passes: int = 3):
         """Blocked forward and backward substitution with the stored tile
         inverses: one gather + one batched matvec per panel.  On float32 CUDA
         tiles of a width the kernel takes, one launch a pass instead
         (:func:`.tiled_cuda.tile_solve`, every lane of a batched solver in
-        the same launch)."""
+        the same launch).  ``passes``: 3 both, 1 the forward substitution
+        alone (L⁻¹·rhs), 2 the backward one alone (L⁻ᵀ·rhs)."""
         if tiled_cuda.takes_tile_solve(tiles, invd, rhs):
-            return tiled_cuda.tile_solve(self, tiles, invd, rhs)
+            return tiled_cuda.tile_solve(self, tiles, invd, rhs, passes)
         b, B = self.b, self.B
         r = rhs.reshape(B, b)
-        y = invd.new_zeros((B + 1, b))
-        for k in range(B):
+        if not passes & 1:
+            y = F.pad(r, (0, 0, 0, 1))
+        else:
+            y = invd.new_zeros((B + 1, b))
+        for k in range(B if passes & 1 else 0):
             acc = r[k]
             nf = self._n_fwd[k]
             if nf:
@@ -553,6 +645,8 @@ class TiledCholesky:
                 ys = y[self.fwd_j[k, :nf]]
                 acc = acc - torch.matmul(Ls, ys[:, :, None]).sum(0)[:, 0]
             y[k] = invd[k] @ acc
+        if not passes & 2:
+            return y[:B].reshape(B * b)
         z = invd.new_zeros((B + 1, b))
         for k in range(B - 1, -1, -1):
             acc = y[k]
@@ -564,30 +658,52 @@ class TiledCholesky:
             z[k] = invd[k].T @ acc
         return z[:B].reshape(B * b)
 
-    def _factor(self, tiles, shift, per_lane: bool = False, mesh=None):
+    def _factor(self, tiles, shift, per_lane: bool = False, mesh=None, d=None):
         """ops.normal.factor_with_retry's ``factor``: :meth:`factorize` of
         ``tiles``, or with ``shift`` (the dbound retry) of a copy with
         dbound·max(diag) added to the diagonal tiles.  ``mesh``: over its
-        'tp' axis.  Returns ((L_tiles, invdiag), ok)."""
+        'tp' axis.  Returns ((L_tiles, invdiag), ok), or with ``d`` (columns
+        set apart) ((L_tiles, invdiag, Q, M_L), ok): the retry shifts N_s,
+        the matrix the tiles hold."""
         if shift is not None:
             eye = torch.eye(self.b, dtype=tiles.dtype, device=tiles.device)
             diags = torch.diagonal(tiles[self.diag_ids], dim1=1, dim2=2)
             tiles = tiles.clone()
             tiles[self.diag_ids] += normal.jitter(shift, diags) * eye[None]
-        L, invd, ok = self.factorize(tiles, per_lane, mesh)
-        return (L, invd), ok
+        L, invd, ok, *dense = self.factorize(tiles, per_lane, mesh, d)
+        return (L, invd, *dense), ok
 
-    def raw_solve(self, L, invd, r, m: int):
+    def raw_solve(self, L, invd, r, m: int, Q=None, ML=None):
         """One unrefined solve of the factored N for ``r``, a right-hand
         side over the ``m`` original rows: padded, permuted, :meth:`solve`,
         and taken back to the original rows.  Counts one ``normal.solves``
         and the tiles a lane's solve reads (``normal.solve_tiles``: each
-        off-diagonal tile twice, each inverse tile's lower half twice)."""
+        off-diagonal tile twice, each inverse tile's lower half twice).
+        ``Q``, ``ML`` (:meth:`_dense_factor`'s, where columns are set
+        apart): between the two substitutions a ↦ a_⊥ + Qᵀ·M⁻¹·Q·a, a_⊥
+        the part of a off Q's span (projected twice), in span
+        ``normal.dense_cols``."""
         count("normal.solves")
         count("normal.solve_tiles", self._solve_tiles)
         with span("normal.solve"):
             rp = F.pad(r, (0, self.B * self.b - m))[self.pperm]
-            return self.solve(L, invd, rp)[self.slot_of[:m]]
+            if Q is None:
+                return self.solve(L, invd, rp)[self.slot_of[:m]]
+            a = self.solve(L, invd, rp, passes=1)
+            with span("normal.dense_cols"):
+                c = torch.matmul(Q, a)
+                a = a - torch.matmul(c, Q)
+                c2 = torch.matmul(Q, a)
+                a = a - torch.matmul(c2, Q)
+                # Two triangular solves: torch.cholesky_solve of this batch of
+                # k × k float64 factors takes ~10 ms of host time a call on an
+                # H100, most of the correction's.
+                s = torch.linalg.solve_triangular(
+                    ML.mT, torch.linalg.solve_triangular(
+                        ML, (c + c2).to(ML.dtype)[:, None], upper=False),
+                    upper=True)[:, 0]
+                a = a + torch.matmul(s.to(a.dtype), Q)
+            return self.solve(L, invd, a, passes=2)[self.slot_of[:m]]
 
     # ---- the mesh (tensor-parallel) mode --------------------------------
 
@@ -682,8 +798,9 @@ class TiledCholesky:
             tiles = self.assemble_pairs_tp(mesh, d, boost)
         else:
             tiles = self.assemble_pairs(d, boost, per_lane)
-        (L, invd), ok = normal.factor_with_retry(
-            functools.partial(self._factor, tiles, per_lane=per_lane, mesh=mesh),
+        (L, invd, *dense), ok = normal.factor_with_retry(
+            functools.partial(self._factor, tiles, per_lane=per_lane, mesh=mesh,
+                              d=d if self.n_dense else None),
             dbound, per_lane)
         d2 = ddm.two_prod(d, d) if refine_steps else None
         # Block-ELL dd products when both are carried, the ELL pair otherwise.
@@ -698,7 +815,8 @@ class TiledCholesky:
         pcg = (krylov.ell_normal_apply(E, ET, d, boost),
                functools.partial(krylov.ell_residual_dd, E, ET, d, row_boost=boost)
                ) if krylov_steps else None
-        return normal.refined_solve(functools.partial(self.raw_solve, L, invd, m=m),
+        Q, ML = dense if dense else (None, None)
+        return normal.refined_solve(functools.partial(self.raw_solve, L, invd, m=m, Q=Q, ML=ML),
                                     residual, ok, refine_steps, krylov_steps,
                                     krylov_gate, pcg, per_lane), ok
 
@@ -732,6 +850,9 @@ class TiledCholesky:
         own): the tile factor through its operator (one batched launch per
         panel for all the lanes), the retry and the gate selected per
         lane."""
+        if self.n_dense:
+            raise ValueError("prepare_normal: this engine sets columns apart, which only "
+                             "the fully sparse entry point (prepare_normal_ell) adds back")
         tiles = self.assemble(A, d, row_boost, mode=self.assemble_mode)
         (L, invd), ok = normal.factor_with_retry(
             functools.partial(self._factor, tiles, per_lane=per_lane), dbound, per_lane)

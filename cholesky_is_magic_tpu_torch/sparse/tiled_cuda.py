@@ -432,10 +432,12 @@ def tile_solve_cluster(b: int, lanes: int) -> int:
     return got
 
 
-def _tile_solve_lanes(L, invd, rhs, fwd: SolvePass, bwd: SolvePass, key: str):
-    """Both passes over the lanes (leading axis) on the card: two launches."""
-    y = tile_solve_pass(L, invd, rhs, fwd, True, key)
-    return tile_solve_pass(L, invd, y, bwd, False, key)
+def _tile_solve_lanes(L, invd, rhs, fwd: SolvePass, bwd: SolvePass, key: str,
+                      passes: int = 3):
+    """The passes over the lanes (leading axis) on the card, one launch each:
+    ``passes`` 3 both, 1 the forward one alone, 2 the backward one alone."""
+    y = tile_solve_pass(L, invd, rhs, fwd, True, key) if passes & 1 else rhs
+    return tile_solve_pass(L, invd, y, bwd, False, key) if passes & 2 else y
 
 
 def _fma(a: torch.Tensor, c: torch.Tensor, acc: torch.Tensor, f32: bool) -> torch.Tensor:
@@ -467,7 +469,7 @@ def _butterfly(P: torch.Tensor, dim: int, dt) -> torch.Tensor:
 
 
 def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
-                     fwd: SolvePass, bwd: SolvePass) -> torch.Tensor:
+                     fwd: SolvePass, bwd: SolvePass, passes: int = 3) -> torch.Tensor:
     """``TiledCholesky.solve`` as the solve kernel (``csrc/tile_solve.cu``)
     computes it, in plain PyTorch on any device: leading axes of L (...,
     NT+1, b, b), invd (..., B, b, b) and rhs (..., B·b) are lanes.  In
@@ -481,7 +483,8 @@ def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
     triangle (q <= i forward, q >= p backward).  In float64 the same order
     with a·c + acc.  Any b (the kernel takes multiples of 32; others pad q
     with zeros it never adds).  Slow (a host loop over panels, tiles and u): for tests and
-    the CPU route of :func:`tile_solve_op`."""
+    the CPU route of :func:`tile_solve_op`.  ``passes``: 3 both, 1 the
+    forward one alone, 2 the backward one alone (on ``rhs``)."""
     dt, work = L.dtype, torch.float64
     f32 = dt == torch.float32
     b, B = L.shape[-1], invd.shape[-3]
@@ -498,7 +501,9 @@ def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
     fn, bn = fwd.counts.tolist(), bwd.counts.tolist()
 
     y = torch.zeros(*lead, B, b, dtype=dt, device=L.device)
-    for k in range(B):
+    if not passes & 1:
+        y = r.expand(*lead, B, b)
+    for k in range(B if passes & 1 else 0):
         if fn[k]:
             P = torch.zeros(*lead, b, 32, dtype=work, device=L.device)
             for t in range(fn[k]):
@@ -519,6 +524,8 @@ def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
                 keep = (q4[u, :, j][None, :] <= rows[:, None]) & (q4[u, :, j][None, :] < b)
                 P = torch.where(keep, _fma(Ik[..., :, u, :, j], a[..., None, u, :, j], P, f32), P)
         y[..., k, :] = _butterfly(P, -1, dt)
+    if not passes & 2:
+        return y.reshape(*lead, B * b)
 
     z = torch.zeros(*lead, B, b, dtype=dt, device=L.device)
     for k in range(B - 1, -1, -1):
@@ -547,26 +554,29 @@ def tile_solve_plain(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
 def tile_solve_op(L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
                   fwd_ids: torch.Tensor, fwd_j: torch.Tensor, fwd_n: torch.Tensor,
                   rows_ids: torch.Tensor, rows_i: torch.Tensor, rows_n: torch.Tensor,
-                  tiles: int) -> torch.Tensor:
+                  tiles: int, passes: int = 3) -> torch.Tensor:
     """``TiledCholesky.solve`` of one lane by the kernel, two launches
     (:func:`tile_solve_plain` on CPU tensors), as an operator: under
     ``torch.func.vmap`` (any of L, invd and rhs batched, the tables shared)
-    two launches for the whole batch."""
+    two launches for the whole batch.  ``passes`` 1 or 2: the forward or
+    the backward pass alone, one launch."""
     fwd = SolvePass(fwd_ids, fwd_j, fwd_n, tiles)
     bwd = SolvePass(rows_ids, rows_i, rows_n, tiles)
     if not L.is_cuda:
-        return tile_solve_plain(L, invd, rhs, fwd, bwd)
-    return _tile_solve_lanes(L[None], invd[None], rhs[None], fwd, bwd, "tile_solve")[0]
+        return tile_solve_plain(L, invd, rhs, fwd, bwd, passes)
+    return _tile_solve_lanes(L[None], invd[None], rhs[None], fwd, bwd, "tile_solve",
+                             passes)[0]
 
 
 @tile_solve_op.register_fake
-def _(L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles):
+def _(L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles, passes=3):
     return rhs.new_empty(rhs.shape)
 
 
 @tile_solve_op.register_vmap
-def _(info, in_dims, L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles):
-    if any(d is not None for d in in_dims[3:]):
+def _(info, in_dims, L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows_n, tiles,
+      passes=3):
+    if any(d is not None for d in in_dims[3:9]):
         raise ValueError(f"cim::tile_solve under vmap takes shared tables (in_dims {in_dims})")
     n = info.batch_size
     L, invd, rhs = (x.movedim(d, 0) if d is not None else x.expand(n, *x.shape)
@@ -574,13 +584,15 @@ def _(info, in_dims, L, invd, rhs, fwd_ids, fwd_j, fwd_n, rows_ids, rows_i, rows
     fwd = SolvePass(fwd_ids, fwd_j, fwd_n, tiles)
     bwd = SolvePass(rows_ids, rows_i, rows_n, tiles)
     if not L.is_cuda:
-        return tile_solve_plain(L, invd, rhs, fwd, bwd), 0
-    return _tile_solve_lanes(L, invd, rhs, fwd, bwd, "tile_solve_batched"), 0
+        return tile_solve_plain(L, invd, rhs, fwd, bwd, passes), 0
+    return _tile_solve_lanes(L, invd, rhs, fwd, bwd, "tile_solve_batched", passes), 0
 
 
-def tile_solve(eng, L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def tile_solve(eng, L: torch.Tensor, invd: torch.Tensor, rhs: torch.Tensor,
+               passes: int = 3) -> torch.Tensor:
     """``TiledCholesky.solve`` of the engine ``eng`` through
     :func:`tile_solve_op`: one lane (two launches) or, inside a lane of a
-    batched solver, every lane at once (two launches)."""
+    batched solver, every lane at once (two launches); ``passes`` as
+    there."""
     return tile_solve_op(L, invd, rhs, eng.fwd_ids, eng.fwd_j, eng.fwd_n, eng.rows_ids,
-                         eng.rows_i, eng.rows_n, eng.NT - eng.B)
+                         eng.rows_i, eng.rows_n, eng.NT - eng.B, passes)

@@ -59,6 +59,11 @@ does.  The spans:
   tile engine's ``normal.factorize``, per panel, its tile factor (K1), its
   TRSM, and its Schur update (the SYRK operands' gathers, the batched
   products and the ``index_add_``);
+- ``normal.dense_cols``: where the tile engine sets dense columns apart
+  from N (``sparse/tiled.py``), their part of each factorization inside
+  ``normal.factorize`` (the columns' forward substitutions, their QR and
+  the k × k factor) and of each raw solve inside ``normal.solve`` (the
+  correction between the two substitutions); it rolls up to those;
 - ``ops.bell.matvec``, ``ops.bell.dd_matvec``, ``ops.ell.matvec``,
   ``ops.ell.dd_matvec``: the sparse path's block-ELL and ELL products;
 - ``setup.lane_state`` (a fully sparse state, ``make_pdas_sparse`` and
@@ -69,7 +74,10 @@ The counters: ``loop.iterations``, ``loop.host_reads`` (each read of a
 device tensor on the host in the loops and the normal solves they call),
 ``normal.factorizations``, ``normal.solves``, and per tile-engine
 factorization ``normal.trsm_tiles`` and ``normal.schur_products`` (one
-lane's TRSM tiles and Schur-update tile products, summed over the panels).
+lane's TRSM tiles and Schur-update tile products, summed over the panels),
+``normal.dense_cols`` and ``normal.dense_col_rhs`` (the columns set apart,
+and the right-hand sides solved for them: k each, a factorization), and
+per raw tile solve ``normal.solve_tiles``.
 
 ``release_jit_maps`` is not ported: it drops XLA's compiled-executable
 caches to keep a process under the kernel's map-count limit, and the port
